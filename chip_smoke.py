@@ -1,0 +1,284 @@
+"""Drive the PyTorch + CUDA port (vcf_tpu_torch) once on one GPU.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card and nvcc (PATH or /usr/local/cuda/bin); builds the
+rANS kernels from vcf_tpu_torch/csrc on first use.  Phases:
+
+1. device: the card's name and power limit; TF32 off for every matmul;
+2. build: nvcc for sm_90a into vcf_tpu_torch/_build, timed;
+3. kernels: each kernel against its plain torch version on the card, on
+   the index planes of 8 rolled 1088x1920 frames (S=65536 lanes, L=765
+   steps, 64 subband tables), bit-exact, with CUDA-event times of both;
+4. main path: Codec(CodecConfig(entropy="grans"), device="cuda") encode
+   -> container bytes -> decode of one 1088x1920 frame, and the grouped
+   codec on the 8-frame batch; indexes must round-trip exactly, the
+   frame must agree with the port's CPU run within the +-1 index rule,
+   and every kernel's launch count must be > 0.
+
+Any failed check raises (non-zero exit, no result).  The last two lines
+are one JSON object of kernel results and one of the device.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+FRAMES, H, W = 8, 1088, 1920
+# the +-1 index rule of the transforms: float32 sums taken in another
+# order may move an index across a rounding edge, never by more than 1,
+# on at most this share of entries
+MAX_INDEX_DIFF, MAX_DIFF_SHARE = 1, 1e-4
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean ms per call over `reps` calls after one warm-up, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    require(a.shape == b.shape, f"shape {tuple(a.shape)} vs {tuple(b.shape)}")
+    if a.numel() == 0:
+        return 0
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def phase_device() -> torch.device:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
+                         "this script runs only on a CUDA card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    print(smi.stdout.strip().splitlines()[0])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    from vcf_tpu_torch.pipeline import check_full_fp32
+
+    check_full_fp32()
+    dev = torch.device("cuda", 0)
+    print(f"device: {torch.cuda.get_device_name(dev)}, torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda}")
+    return dev
+
+
+def phase_build() -> None:
+    from vcf_tpu_torch.ops.cuda import _build
+
+    t0 = time.perf_counter()
+    _build.load()
+    print(f"build: {time.perf_counter() - t0:.2f} s "
+          f"({_build.library_path().name}, nvcc {' '.join(_build.NVCC_FLAGS)})")
+
+
+def index_planes(codec, frames: np.ndarray) -> torch.Tensor:
+    """(N, H, W, 3) u8 frames -> stored u8 index planes on the codec's
+    device, as Codec.encode computes them."""
+    from vcf_tpu_torch.ops import dct as dct_ops
+
+    out = []
+    for f in frames:
+        x = torch.from_numpy(np.ascontiguousarray(f)).to(codec.device)
+        padded = dct_ops.pad_centered(x.to(torch.float32), 8)
+        k = codec._quantize(codec._analyze(padded))
+        out.append(torch.clamp(k + codec.spatial_offset, 0, 255)
+                   .to(torch.uint8))
+    return torch.stack(out)
+
+
+def phase_kernels(dev, planes: torch.Tensor) -> list:
+    from vcf_tpu_torch.entropy import rans
+    from vcf_tpu_torch.ops.cuda import rans_decode as rd
+    from vcf_tpu_torch.ops.cuda import rans_encode as re_
+
+    g = 64
+    s_streams = rans.RANSCodec._pick_streams(planes.numel(), 65536)
+    lanes = rans.subband_lanes(planes, 8, s_streams)
+    l = lanes.shape[1]
+    fg_np, cg_np = rans.freqs_from_counts(
+        rans.group_histograms(lanes, g).cpu().numpy())
+    fg = torch.from_numpy(fg_np.astype(np.int64)).to(dev)
+    cg = torch.from_numpy(cg_np.astype(np.int64)).to(dev)
+    print(f"kernels: S={s_streams} L={l} G={g} symbols={lanes.numel()}")
+
+    raw_k, st_k = re_.rans_encode_grouped(lanes, fg, cg)
+    raw_p, st_p = re_.rans_encode_grouped_ref(lanes, fg, cg)
+    torch.cuda.synchronize()
+    err1 = max(max_abs_err(raw_k, raw_p), max_abs_err(st_k, st_p))
+    require(err1 == 0, f"K1 differs from its plain version by {err1}")
+
+    w_k, n_k, c_k = re_.rans_compact(raw_k)
+    w_p, n_p, c_p = re_.rans_compact_ref(raw_k)
+    n = int(n_k)
+    require(n == int(n_p), f"K2 n_words {n} vs plain {int(n_p)}")
+    err2 = max(max_abs_err(w_k[:n], w_p[:n]), max_abs_err(c_k, c_p))
+    require(err2 == 0, f"K2 differs from its plain version by {err2}")
+
+    words = w_k[:n].clone()
+    out_k = rd.rans_decode_grouped(words, st_k, fg, cg, l, c_k)
+    out_p = rd.rans_decode_grouped_ref(words, st_k, fg, cg, l, c_k)
+    err3 = max_abs_err(out_k, out_p)
+    require(err3 == 0, f"K3 differs from its plain version by {err3}")
+    require(torch.equal(out_k, lanes), "K3 output differs from the lanes")
+    print(f"kernels: bit-exact; {n} words, "
+          f"{n * 16 / lanes.numel():.4f} bits/symbol")
+
+    rows = [
+        ("rans_encode_grouped", "vcf_tpu_torch/csrc/rans_encode.cu",
+         "vcf_tpu/ops/pallas/rans_encode.py:671", err1,
+         lambda: re_.rans_encode_grouped(lanes, fg, cg),
+         lambda: re_.rans_encode_grouped_ref(lanes, fg, cg), 20, 5),
+        ("rans_compact", "vcf_tpu_torch/csrc/rans_encode.cu",
+         "vcf_tpu/ops/pallas/rans_encode.py:858", err2,
+         lambda: re_.rans_compact(raw_k),
+         lambda: re_.rans_compact_ref(raw_k), 20, 5),
+        ("rans_decode_grouped", "vcf_tpu_torch/csrc/rans_decode.cu",
+         "vcf_tpu/ops/pallas/rans_decode.py:410", err3,
+         lambda: rd.rans_decode_grouped(words, st_k, fg, cg, l, c_k),
+         lambda: rd.rans_decode_grouped_ref(words, st_k, fg, cg, l, c_k),
+         3, 3),
+    ]
+    results = []
+    for name, src, rep, err, kern, plain, reps_k, reps_p in rows:
+        ms = cuda_ms(kern, reps_k)
+        plain_ms = cuda_ms(plain, reps_p)
+        print(f"time {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms")
+        results.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": rep, "launches": 0, "max_abs_err": err,
+                        "ms": ms, "plain_ms": plain_ms})
+    return results
+
+
+def phase_main_path(dev, frames: np.ndarray, planes: torch.Tensor) -> dict:
+    from vcf_tpu_torch import Codec, CodecConfig, CodeStream, metrics
+    from vcf_tpu_torch.entropy.rans import GroupedRANSCodec
+    from vcf_tpu_torch.ops.cuda import rans_decode as rd
+    from vcf_tpu_torch.ops.cuda import rans_encode as re_
+
+    kernels = {"rans_encode_grouped": re_.rans_encode_grouped,
+               "rans_compact": re_.rans_compact,
+               "rans_decode_grouped": rd.rans_decode_grouped}
+    cfg = CodecConfig(entropy="grans")
+    frame = frames[0]
+    codec = Codec(cfg, device=dev)
+    k_enc = index_planes(codec, frame[None])[0].cpu().numpy()
+    for fn in kernels.values():
+        fn.launches = 0
+
+    t0 = time.perf_counter()
+    cs = codec.encode(frame)
+    blob = cs.to_bytes()
+    cs2 = CodeStream.from_bytes(blob)
+    k_dec = codec._load_indexes(cs2, offset=codec.spatial_offset, signed=True)
+    rec = codec.decode(cs2)
+    t_frame = time.perf_counter() - t0
+    gcodec = GroupedRANSCodec(device=dev)
+    planes_np = planes.cpu().numpy()
+    payload, side = gcodec.encode(planes_np)
+    batch_back = gcodec.decode(payload, side)
+    launches = {name: fn.launches for name, fn in kernels.items()}
+
+    require(cs2["grans_model"][0] == 2, "the frame did not take grouped lanes")
+    require(np.array_equal(k_dec + codec.spatial_offset, k_enc.astype(np.int32)),
+            "decoded index planes differ from the encoded ones")
+    require(np.array_equal(batch_back, planes_np),
+            "batch index planes did not round-trip")
+    for name, n in launches.items():
+        require(n > 0, f"kernel {name} was not launched on the main path")
+
+    cpu = Codec(cfg, device="cpu")
+    k_cpu = index_planes(cpu, frame[None])[0].numpy()
+    diff = np.abs(k_cpu.astype(np.int32) - k_enc.astype(np.int32))
+    n_diff = int(np.count_nonzero(diff))
+    require(int(diff.max()) <= MAX_INDEX_DIFF
+            and n_diff <= MAX_DIFF_SHARE * diff.size,
+            f"GPU vs CPU indexes: {n_diff} differ, max {int(diff.max())}")
+    cs_cpu = cpu.encode(frame)
+    if n_diff == 0:
+        require(cs_cpu.to_bytes() == blob,
+                "identical indexes but GPU and CPU streams differ")
+    rec_cpu = cpu.decode(cs_cpu)
+    rmse, rmse_cpu = metrics.rmse(frame, rec), metrics.rmse(frame, rec_cpu)
+    require(abs(rmse - rmse_cpu) < 1e-3, f"rmse {rmse} vs CPU {rmse_cpu}")
+    bpp = metrics.bpp(cs, frame.shape)
+    batch_bpp = (len(payload) + len(side["grans_model"])) * 8.0 / (
+        planes_np.shape[0] * planes_np.shape[1] * planes_np.shape[2])
+    print(f"main path: 1088x1920 grans frame rmse {rmse:.4f} bpp {bpp:.4f} "
+          f"(CPU run rmse {rmse_cpu:.4f}, {n_diff} of {diff.size} indexes "
+          f"differ), encode+container+decode {t_frame * 1e3:.1f} ms; "
+          f"8-frame batch {batch_bpp:.4f} bpp round-trips; launches {launches}")
+    timings = warm_timings(codec, gcodec, frame, planes_np)
+    print(f"warm timings (ms, host clock, synchronized): {json.dumps(timings)}")
+    return launches
+
+
+def warm_timings(codec, gcodec, frame, planes_np) -> dict:
+    """Second-run stage times of the frame codec and the batch codec."""
+    def ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    out = {}
+    enc_ms, cs = ms(lambda: codec.encode(frame))
+    out.update({f"frame encode {k}": v * 1e3
+                for k, v in codec.last_timings.as_dict().items()})
+    dec_ms, _ = ms(lambda: codec.decode(cs))
+    out.update({f"frame decode {k}": v * 1e3
+                for k, v in codec.last_timings.as_dict().items()})
+    out["frame encode"], out["frame decode"] = enc_ms, dec_ms
+    out["batch encode"], (payload, side) = ms(lambda: gcodec.encode(planes_np))
+    out["batch decode"], _ = ms(lambda: gcodec.decode(payload, side))
+    return out
+
+
+def main() -> None:
+    dev = phase_device()
+    phase_build()
+    from vcf_tpu_torch import Codec, CodecConfig
+    from vcf_tpu_torch.io import test_image
+
+    base = test_image(H, W, seed=3)
+    frames = np.stack([np.roll(base, (7 * i, 13 * i), (0, 1))
+                       for i in range(FRAMES)])
+    planes = index_planes(Codec(CodecConfig(entropy="grans"), device=dev),
+                          frames)
+    results = phase_kernels(dev, planes)
+    launches = phase_main_path(dev, frames, planes)
+    for row in results:
+        row["launches"] = launches[row["name"]]
+    print(json.dumps({"kernels": results}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

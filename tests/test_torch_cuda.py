@@ -1,0 +1,120 @@
+"""Card-only checks of the port: the CUDA kernels K1-K3 against their
+plain torch versions, and the Codec and entropy codecs on CUDA against
+the same on the CPU (entropy bytes identical).
+
+The kernels have no CPU mode, so every test here is marked `cuda` and
+skips without a card.  The file imports neither JAX nor vcf_tpu, so it
+also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances: kernels bit-exact against their plain versions; the codec's
+indexes follow the +-1 rule (a float32 sum taken in another order moves
+an index by at most 1, on at most 0.01% of entries) and rmse agrees to
+3 decimals.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import vcf_tpu_torch.entropy as entropy
+from vcf_tpu_torch import Codec, CodecConfig, CodeStream, metrics
+from vcf_tpu_torch.entropy import rans
+from vcf_tpu_torch.io import test_image as make_test_image
+from vcf_tpu_torch.ops import dct as dct_ops
+from vcf_tpu_torch.ops.cuda import rans_decode as rd
+from vcf_tpu_torch.ops.cuda import rans_encode as re_
+
+pytestmark = pytest.mark.cuda
+
+# (G, sg, L): subband groups, one group, the ragged dense S=32 case,
+# and a single lane group larger than one CUDA block
+CASES = [(4, 128, 12), (64, 8, 8), (1, 32, 64), (1, 512, 16), (2, 1024, 12)]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _case(g, sg, l, seed):
+    rng = np.random.default_rng(seed)
+    syms = (rng.integers(0, 250, size=(g * sg, l))
+            % rng.integers(2, 250, size=(g * sg, 1))).astype(np.uint8)
+    counts = np.stack([np.bincount(syms[i * sg:(i + 1) * sg].reshape(-1),
+                                   minlength=256) for i in range(g)])
+    return syms, *rans.freqs_from_counts(counts)
+
+
+@pytest.mark.parametrize("g,sg,l", CASES)
+def test_kernels_match_plain_versions(dev, g, sg, l):
+    syms, fg, cg = _case(g, sg, l, seed=g + l)
+    s = torch.from_numpy(syms).to(dev)
+    ft = torch.from_numpy(fg.astype(np.int64)).to(dev)
+    ct = torch.from_numpy(cg.astype(np.int64)).to(dev)
+    raw, st = re_.rans_encode_grouped(s, ft, ct)
+    raw_p, st_p = re_.rans_encode_grouped_ref(s, ft, ct)
+    assert torch.equal(raw, raw_p) and torch.equal(st, st_p)
+    words, n_words, counts = re_.rans_compact(raw)
+    words_p, n_p, counts_p = re_.rans_compact_ref(raw)
+    n = int(n_words)
+    assert n == int(n_p) and torch.equal(counts, counts_p)
+    assert torch.equal(words[:n], words_p[:n])
+    words = words[:n].clone()
+    assert torch.equal(rd.rans_decode_grouped(words, st, ft, ct, l, counts), s)
+    assert torch.equal(rd.rans_decode_grouped(words, st, ft, ct, l), s)
+
+
+def test_kernel_decode_rejects_corrupt_stream(dev):
+    syms, fg, cg = _case(4, 16, 8, seed=3)
+    ft = torch.from_numpy(fg.astype(np.int64)).to(dev)
+    ct = torch.from_numpy(cg.astype(np.int64)).to(dev)
+    raw, st = re_.rans_encode_grouped(torch.from_numpy(syms).to(dev), ft, ct)
+    words, n_words, counts = re_.rans_compact(raw)
+    words = words[:int(n_words)].clone()
+    bad = counts.clone()
+    bad[0] += 1
+    with pytest.raises(ValueError, match="counts sidecar"):
+        rd.rans_decode_grouped(words, st, ft, ct, 8, bad)
+    with pytest.raises(ValueError, match="ends before"):
+        rd.rans_decode_grouped(words[:-1].clone(), st, ft, ct, 8)
+
+
+def test_codec_on_cuda_matches_cpu(dev):
+    img = make_test_image(256, 256, seed=1)
+    gpu = Codec(CodecConfig(entropy="grans"), device=dev)
+    cpu = Codec(CodecConfig(entropy="grans"), device="cpu")
+
+    def indexes(codec):
+        x = torch.from_numpy(img).to(codec.device).to(torch.float32)
+        k = codec._quantize(codec._analyze(dct_ops.pad_centered(x, 8)))
+        return k.cpu().numpy().astype(np.int64)
+
+    d = np.abs(indexes(gpu) - indexes(cpu))
+    assert d.max() <= 1 and np.count_nonzero(d) <= 1e-4 * d.size
+    cs = gpu.encode(img)
+    assert cs["grans_model"][0] == 2
+    if not d.any():
+        assert cs.to_bytes() == cpu.encode(img).to_bytes()
+    rec = gpu.decode(CodeStream.from_bytes(cs.to_bytes()))
+    assert abs(metrics.rmse(img, rec) - metrics.rmse(img, cpu.decode(cs))) \
+        < 1e-3
+
+
+@pytest.mark.parametrize("name,shape,dtype", [
+    ("grans", (2, 128, 256, 3), np.uint8),    # grouped lanes, batch
+    ("grans", (96, 112, 3), np.uint8),        # dense fallback, S=32
+    ("rans", (61, 45, 3), np.uint16),         # two u8 passes, ragged S
+])
+def test_entropy_codecs_on_cuda_match_cpu(dev, name, shape, dtype):
+    rng = np.random.default_rng(11)
+    arr = np.clip(128 + rng.laplace(0, 2.0, size=shape), 0,
+                  np.iinfo(dtype).max).astype(dtype)
+    gpu, cpu = entropy.get(name, device=dev), entropy.get(name, device="cpu")
+    payload, side = gpu.encode(arr)
+    assert (payload, side) == cpu.encode(arr)
+    assert np.array_equal(gpu.decode(payload, side), arr)

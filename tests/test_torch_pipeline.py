@@ -1,0 +1,223 @@
+"""The port's Codec (vcf_tpu_torch) against vcf_tpu's, end to end.
+
+Tolerances, each with its reason:
+* golden fixtures: decoded pixels by sha256 and re-encoded bytes exact —
+  at 96x112 the port's float32 transform gives the same indexes as
+  vcf_tpu's on the CPU (0 of 32,256 differ);
+* transforms: coefficients within 1e-3 absolute (float32 sums of up to
+  64 products of magnitude <= 2^11 taken in another order, ~2^11 * 2^-24
+  per rounding);
+* quantization indexes: the +-1 rule — an index may move by 1 across a
+  rounding edge, on at most 0.01% of entries, never by more;
+* rmse and bpp agree to 3 decimals.
+"""
+
+import ast
+import hashlib
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+import vcf_tpu
+from vcf_tpu.io import test_image as jax_test_image
+from vcf_tpu.ops import color as jcolor
+from vcf_tpu.ops import dct as jdct
+import vcf_tpu_torch
+from vcf_tpu_torch import Codec, CodecConfig, CodeStream, metrics
+from vcf_tpu_torch.io import test_image as make_test_image
+from vcf_tpu_torch.ops import color as tcolor
+from vcf_tpu_torch.ops import dct as tdct
+from vcf_tpu_torch.pipeline import check_full_fp32
+
+REPO = Path(__file__).resolve().parents[1]
+GOLDEN = REPO / "tests" / "golden"
+GOLDEN_CONFIGS = {"dct_grans": CodecConfig(entropy="grans"),
+                  "dct_default_tiff": CodecConfig()}
+MAX_DIFF_SHARE = 1e-4
+
+
+def _indexes(codec, img):
+    """Quantization indexes as each package's Codec computes them."""
+    if isinstance(codec, vcf_tpu.Codec):
+        x = jdct.pad_centered(jnp.asarray(img, jnp.float32), 8)
+        return np.asarray(codec._q(codec._analyze(x)))
+    x = tdct.pad_centered(torch.from_numpy(img).to(torch.float32), 8)
+    return codec._quantize(codec._analyze(x)).numpy()
+
+
+@pytest.mark.parametrize("name", sorted(GOLDEN_CONFIGS))
+def test_golden_decodes_to_stored_sha256(name):
+    cs = CodeStream.from_file(str(GOLDEN / f"{name}.vcft"))
+    rec = Codec(GOLDEN_CONFIGS[name], device="cpu").decode(cs)
+    expected = (GOLDEN / f"{name}.sha256").read_text().strip()
+    assert hashlib.sha256(rec.tobytes()).hexdigest() == expected
+
+
+@pytest.mark.parametrize("name", sorted(GOLDEN_CONFIGS))
+def test_golden_reencodes_to_stored_bytes(name):
+    img = make_test_image(96, 112, seed=5)
+    cs = Codec(GOLDEN_CONFIGS[name], device="cpu").encode(img)
+    assert cs.to_bytes() == (GOLDEN / f"{name}.vcft").read_bytes()
+
+
+@pytest.mark.parametrize("h,w,seed", [(256, 256, 1), (200, 170, 6)])
+def test_grans_codec_matches_vcf_tpu(h, w, seed):
+    """Both sizes group their lanes: 256x256 as S=256 lanes of sg=4 per
+    subband; 200x170 pads its width to 176 first (S=128, sg=2)."""
+    img = make_test_image(h, w, seed=seed)
+    jc = vcf_tpu.Codec(vcf_tpu.CodecConfig(entropy="grans"))
+    tc = Codec(CodecConfig(entropy="grans"), device="cpu")
+    d = np.abs(_indexes(tc, img).astype(np.int64) - _indexes(jc, img))
+    assert d.max() <= 1
+    assert np.count_nonzero(d) <= MAX_DIFF_SHARE * d.size
+    cs_j, cs_t = jc.encode(img), tc.encode(img)
+    assert cs_t["grans_model"][0] == 2          # grouped lanes, v2 sidecar
+    if not d.any():
+        assert cs_t.to_bytes() == cs_j.to_bytes()
+    rec_t = tc.decode(CodeStream.from_bytes(cs_t.to_bytes()))
+    rec_j = np.asarray(jc.decode(cs_j))
+    assert abs(metrics.rmse(img, rec_t) - metrics.rmse(img, rec_j)) < 1e-3
+    assert abs(metrics.bpp(cs_t, img.shape)
+               - vcf_tpu.metrics.bpp(cs_j, img.shape)) < 1e-3
+    # each decodes the other's stream to its own reconstruction family
+    assert np.array_equal(tc.decode(cs_j), rec_j)
+
+
+def test_transforms_match_vcf_tpu():
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-128, 128, size=(32, 48, 3)).astype(np.float32)
+    fwd_j = np.asarray(jdct.to_subbands(
+        jdct.analyze(jcolor.ycocg_forward(jnp.asarray(x)), 8), 8))
+    xt = torch.from_numpy(x)
+    fwd_t = tdct.to_subbands(tdct.analyze(tcolor.ycocg_forward(xt), 8), 8)
+    np.testing.assert_allclose(fwd_t.numpy(), fwd_j, rtol=0, atol=1e-3)
+    back = tcolor.ycocg_inverse(tdct.synthesize(
+        tdct.from_subbands(fwd_t, 8), 8))
+    np.testing.assert_allclose(back.numpy(), x, rtol=0, atol=1e-3)
+    img = rng.integers(0, 256, size=(61, 45, 3)).astype(np.float32)
+    padded = tdct.pad_centered(torch.from_numpy(img), 8)
+    np.testing.assert_array_equal(
+        padded.numpy(), np.asarray(jdct.pad_centered(jnp.asarray(img), 8)))
+    assert tuple(padded.shape) == jdct.padded_shape(img.shape, 8)
+    np.testing.assert_array_equal(
+        tdct.unpad_centered(padded, img.shape).numpy(), img)
+
+
+def test_constants_equal_vcf_tpu():
+    np.testing.assert_array_equal(tdct.dct_matrix(8), jdct.dct_matrix(8))
+    for name in ("YCOCG_FWD", "YCOCG_INV", "YCRCB_FWD", "YCRCB_INV",
+                 "CDCT_FWD", "CDCT_INV"):
+        np.testing.assert_array_equal(getattr(tcolor, name),
+                                      getattr(jcolor, name))
+    for cfg_color in ("ycocg", "ycrcb", "cdct", "none"):
+        for quant in ("deadzone", "lloydmax"):
+            np.testing.assert_array_equal(tcolor.offsets(cfg_color, quant),
+                                          jcolor.offsets(cfg_color, quant))
+
+
+def test_ycocg_r_lossless():
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.integers(0, 256, size=(7, 9, 3)))
+    y = tcolor.ycocg_r_forward(x)
+    np.testing.assert_array_equal(
+        y.numpy(), np.asarray(jcolor.ycocg_r_forward(jnp.asarray(x.numpy()))))
+    assert torch.equal(tcolor.ycocg_r_inverse(y), x.to(torch.int32))
+
+
+def test_test_image_bit_identical():
+    for h, w, seed in ((96, 112, 5), (61, 45, 11), (4, 4, 0)):
+        np.testing.assert_array_equal(make_test_image(h, w, seed=seed),
+                                      jax_test_image(h, w, seed=seed))
+
+
+def test_entropy_only_flow_bytes_identical():
+    img = make_test_image(40, 24, seed=2)
+    cfg = dict(spatial="none", color="none", quantizer="none", entropy="tiff")
+    cs_t = Codec(CodecConfig(**cfg), device="cpu").encode(img)
+    cs_j = vcf_tpu.Codec(vcf_tpu.CodecConfig(**cfg)).encode(img)
+    assert cs_t.to_bytes() == cs_j.to_bytes()
+    np.testing.assert_array_equal(
+        Codec(CodecConfig(**cfg), device="cpu").decode(cs_t), img)
+
+
+def test_stage_timings_recorded():
+    codec = Codec(CodecConfig(entropy="grans"), device="cpu")
+    cs = codec.encode(make_test_image(64, 64, seed=1))
+    assert set(codec.last_timings.as_dict()) == {
+        "device:analyze+quantize", "entropy"}
+    codec.decode(cs)
+    assert set(codec.last_timings.as_dict()) == {
+        "entropy", "device:dequantize+synthesize"}
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(spatial="dwt"), "A10"),
+    (dict(spatial="mdct"), "A12"),
+    (dict(quantizer="lloydmax"), "A11"),
+    (dict(quantizer="colorvq"), "A11"),
+    (dict(filter="gaussian"), "A13"),
+    (dict(perceptual=True), "A17"),
+    (dict(spatial="none"), "A17"),
+    (dict(entropy="huffman"), "A7"),
+])
+def test_unported_flows_raise(kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        Codec(CodecConfig(**kw), device="cpu")
+
+
+def test_device_is_required():
+    with pytest.raises(TypeError):
+        Codec(CodecConfig())
+
+
+def test_full_fp32_is_enforced():
+    check_full_fp32()
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            check_full_fp32()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def test_import_does_not_load_jax():
+    code = ("import sys, vcf_tpu_torch, vcf_tpu_torch.io; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert 'vcf_tpu' not in sys.modules, 'vcf_tpu imported'")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_no_module_names_jax_or_vcf_tpu():
+    pkg = Path(vcf_tpu_torch.__file__).parent
+    for path in pkg.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                root = name.split(".")[0]
+                assert root not in ("jax", "jaxlib", "vcf_tpu"), \
+                    f"{path.relative_to(pkg)} imports {name}"
+
+
+def test_chip_smoke_refuses_without_cuda():
+    """chip_smoke.py runs only on a card: without one it exits non-zero
+    and prints no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run in full")
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

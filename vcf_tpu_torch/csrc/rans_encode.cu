@@ -1,0 +1,179 @@
+// K1 rans_encode_grouped and K2 rans_compact: the grouped interleaved
+// rANS encoder as two passes, the same split as the TPU library path.
+//
+// K1 replaces vcf_tpu/ops/pallas/rans_encode.py:pallas_encode_grouped_raw.
+// One thread per lane walks its L symbols newest first and writes the raw
+// grid word (emit << 16) | (x & 0xFFFF) of decode step t, plus the final
+// state.  What bounds it: the per-lane dependency chain through the state
+// (a 32-bit division per symbol) and 5 bytes of memory traffic per
+// symbol.  The design keeps the state in a register, reads symbols from
+// an (L, S) copy so a warp's per-step loads and stores are contiguous,
+// and keeps the block's tables in shared memory.  The TPU kernel's bf16
+// byte-split table fetch and f32 reciprocal with correction rounds are
+// gone: Hopper has exact integer division and per-thread table loads.
+//
+// K2 replaces vcf_tpu/ops/pallas/rans_encode.py:finish_stream_pallas.
+// It is a stream compaction of the (L, S) raw grid, row-major over the
+// flagged entries, into the wire words.  What bounds it: memory traffic
+// (it reads the 4-byte grid twice and writes 2 bytes per word).  The
+// design is three kernels: per-tile flag counts, one block that scans the
+// tile counts, and a scatter in which each tile recomputes its flags and
+// places its words with a block-wide scan.  It replaces the TPU's
+// butterfly compaction per chunk plus stitch scan.  CUDA and not Triton:
+// the scatter carries a running offset through the rounds of a tile and
+// ranks each round with a shuffle scan over the block, and the middle
+// pass is a single-block scan that leaves the total on the device.  Both
+// are direct in CUDA; Triton's block model has no ordered scan across
+// programs, so it would need the same three launches with less control
+// over the order of the writes.
+
+#include <algorithm>
+
+#include "rans_common.cuh"
+
+namespace vcf {
+
+constexpr int ENC_THREADS = 128;
+constexpr int CMP_THREADS = 256;
+constexpr int CMP_ROUNDS = 16;
+constexpr int CMP_TILE = CMP_THREADS * CMP_ROUNDS;  // grid entries per block
+constexpr int SCAN_THREADS = 1024;
+constexpr int STATIC_SMEM_LIMIT = 48 * 1024;
+
+__global__ void __launch_bounds__(ENC_THREADS)
+rans_encode_grouped_kernel(const uint8_t* __restrict__ syms,  // (L, S)
+                           const uint32_t* __restrict__ tab,  // (G, 256)
+                           int32_t* __restrict__ raw,         // (L, S)
+                           uint32_t* __restrict__ states,     // (S,)
+                           int S, int L, int sg, int use_smem) {
+  extern __shared__ uint32_t s_tab[];
+  const int s0 = blockIdx.x * blockDim.x;
+  const int s = s0 + threadIdx.x;
+  const int g_lo = s0 / sg;
+  if (use_smem) {
+    // the groups this block's lanes span, contiguous in the table
+    const int g_hi = (min(s0 + (int)blockDim.x, S) - 1) / sg;
+    const int n = (g_hi - g_lo + 1) * 256;
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      s_tab[i] = tab[g_lo * 256 + i];
+    __syncthreads();
+  }
+  if (s >= S) return;
+  const uint32_t* t_row =
+      use_smem ? s_tab + (s / sg - g_lo) * 256 : tab + (s / sg) * 256;
+  uint32_t x = RANS_L;
+  for (int t = L - 1; t >= 0; --t) {
+    const size_t at = (size_t)t * S + s;
+    const uint32_t e = t_row[syms[at]];
+    const uint32_t f = e & 0xFFFFu;
+    const uint32_t cum = e >> 16;
+    const uint32_t emit = (x >> SHIFT_EMIT) >= f ? 1u : 0u;
+    const uint32_t low = x & 0xFFFFu;
+    if (emit) x >>= 16;
+    x = ((x / f) << K_PROB) + (x % f) + cum;
+    raw[at] = (int32_t)(low | (emit << 16));
+  }
+  states[s] = x;
+}
+
+__global__ void __launch_bounds__(CMP_THREADS)
+compact_count_kernel(const int32_t* __restrict__ raw, long long n,
+                     int32_t* __restrict__ tile_counts) {
+  __shared__ int scratch[33];
+  const long long base = (long long)blockIdx.x * CMP_TILE;
+  int c = 0;
+  for (int r = 0; r < CMP_ROUNDS; ++r) {
+    const long long i = base + (long long)r * CMP_THREADS + threadIdx.x;
+    if (i < n) c += (raw[i] >> 16) != 0;
+  }
+  int total;
+  block_exclusive_scan(c, &total, scratch);
+  if (threadIdx.x == 0) tile_counts[blockIdx.x] = total;
+}
+
+__global__ void __launch_bounds__(SCAN_THREADS)
+compact_scan_kernel(const int32_t* __restrict__ tile_counts, int n_tiles,
+                    int32_t* __restrict__ tile_offsets,
+                    int32_t* __restrict__ n_words) {
+  __shared__ int scratch[33];
+  const int per = (n_tiles + blockDim.x - 1) / blockDim.x;
+  const int lo = min((int)threadIdx.x * per, n_tiles);
+  const int hi = min(lo + per, n_tiles);
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) sum += tile_counts[i];
+  int total;
+  int run = block_exclusive_scan(sum, &total, scratch);
+  for (int i = lo; i < hi; ++i) {
+    tile_offsets[i] = run;
+    run += tile_counts[i];
+  }
+  if (threadIdx.x == 0) *n_words = total;
+}
+
+__global__ void __launch_bounds__(CMP_THREADS)
+compact_scatter_kernel(const int32_t* __restrict__ raw, long long n,
+                       const int32_t* __restrict__ tile_offsets,
+                       uint16_t* __restrict__ words) {
+  __shared__ int scratch[33];
+  const long long base = (long long)blockIdx.x * CMP_TILE;
+  int run = tile_offsets[blockIdx.x];
+  for (int r = 0; r < CMP_ROUNDS; ++r) {
+    const long long i = base + (long long)r * CMP_THREADS + threadIdx.x;
+    const int32_t v = i < n ? raw[i] : 0;
+    const int flag = (v >> 16) != 0;
+    int total;
+    const int rank = block_exclusive_scan(flag, &total, scratch);
+    if (flag) words[run + rank] = (uint16_t)(v & 0xFFFF);
+    run += total;
+  }
+}
+
+}  // namespace vcf
+
+extern "C" {
+
+// syms (L, S) u8, tab (G, 256) packed f | cum << 16, raw (L, S) i32 out,
+// states (S,) u32 out.  Returns cudaGetLastError() after the launch.
+int vcf_rans_encode_grouped(const void* syms, const void* tab, void* raw,
+                            void* states, int S, int L, int G,
+                            void* stream) {
+  const int sg = S / G;
+  const int blocks = (S + vcf::ENC_THREADS - 1) / vcf::ENC_THREADS;
+  // most groups one block can span: its lanes cover ENC_THREADS
+  // consecutive lanes, which touch at most this many groups of sg lanes
+  const int span = std::min(G, (vcf::ENC_THREADS + sg - 1) / sg + 1);
+  const size_t smem = (size_t)span * 256 * sizeof(uint32_t);
+  const int use_smem = smem <= (size_t)vcf::STATIC_SMEM_LIMIT;
+  vcf::rans_encode_grouped_kernel<<<blocks, vcf::ENC_THREADS,
+                                    use_smem ? smem : 0,
+                                    (cudaStream_t)stream>>>(
+      (const uint8_t*)syms, (const uint32_t*)tab, (int32_t*)raw,
+      (uint32_t*)states, S, L, sg, use_smem);
+  return (int)cudaGetLastError();
+}
+
+int vcf_rans_compact_tile(void) { return vcf::CMP_TILE; }
+
+// raw (n,) i32 grid in decode order; tile_counts/tile_offsets scratch of
+// ceil(n / tile) i32; words (n,) u16 out (valid prefix), n_words (1,) i32.
+int vcf_rans_compact(const void* raw, long long n, void* tile_counts,
+                     void* tile_offsets, void* words, void* n_words,
+                     void* stream) {
+  const int n_tiles = (int)((n + vcf::CMP_TILE - 1) / vcf::CMP_TILE);
+  cudaStream_t st = (cudaStream_t)stream;
+  vcf::compact_count_kernel<<<n_tiles, vcf::CMP_THREADS, 0, st>>>(
+      (const int32_t*)raw, n, (int32_t*)tile_counts);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  vcf::compact_scan_kernel<<<1, vcf::SCAN_THREADS, 0, st>>>(
+      (const int32_t*)tile_counts, n_tiles, (int32_t*)tile_offsets,
+      (int32_t*)n_words);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  vcf::compact_scatter_kernel<<<n_tiles, vcf::CMP_THREADS, 0, st>>>(
+      (const int32_t*)raw, n, (const int32_t*)tile_offsets,
+      (uint16_t*)words);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,49 @@
+"""Entropy codecs (port of vcf_tpu/entropy; the ported part).
+
+Each codec turns a uint8/uint16 index array into bytes and back, with
+the same bytes as vcf_tpu's codec of the same name:
+
+    payload, side = codec.encode(arr)      # arr: np.uint8 | np.uint16
+    arr = codec.decode(payload, side)
+
+`tiff` and `zlib` are host numpy.  `rans` and `grans` run on a torch
+device that the caller names; on CUDA they launch the rANS kernels.
+Every other vcf_tpu codec name raises NotImplementedError naming its
+ROADMAP queue-A item.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vcf_tpu_torch.entropy.base import EntropyCodec
+from vcf_tpu_torch.entropy.rans import GroupedRANSCodec, RANSCodec
+from vcf_tpu_torch.entropy.tiff import TIFFCodec
+from vcf_tpu_torch.entropy.zlib_codec import ZlibCodec
+
+_HOST = {"zlib": ZlibCodec, "tiff": TIFFCodec}
+_ON_DEVICE = {"rans": RANSCodec, "grans": GroupedRANSCodec}
+_NOT_PORTED = {
+    "pnm": "A7", "png": "A7", "huffman": "A7", "cbahc": "A7", "cbaac": "A7",
+    "ihuff": "A8", "srans": "A6", "cgrans": "A6",
+}
+
+
+def get(name: str, config=None, device=None) -> EntropyCodec:
+    """Instantiate an entropy codec by config name; `device` (a torch
+    device) is required by the codecs that run on one."""
+    if name in _HOST:
+        return _HOST[name].from_config(config)
+    if name in _ON_DEVICE:
+        if device is None:
+            raise ValueError(f"entropy codec {name!r} needs a torch device")
+        return _ON_DEVICE[name].from_config(config, device=torch.device(device))
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"entropy codec {name!r} is not ported yet "
+            f"(ROADMAP queue A, item {_NOT_PORTED[name]})")
+    raise KeyError(f"unknown entropy codec {name!r}")
+
+
+__all__ = ["EntropyCodec", "get", "GroupedRANSCodec", "RANSCodec",
+           "TIFFCodec", "ZlibCodec"]

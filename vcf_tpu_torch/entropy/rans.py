@@ -1,0 +1,421 @@
+"""Interleaved rANS (port of vcf_tpu/entropy/rans.py, the `rans` and
+`grans` part).
+
+S streams share ONE word stream: the decoder's renormalization schedule
+is state-driven, so at each step the renormalizing streams consume the
+next words in stream order.  The encoder walks symbols newest first
+(standard rANS) and records, per decode step, each lane's low 16 bits
+and whether it emitted them (the raw grid); one compaction then packs
+the emitted words in decoder order.  Formats and state law are
+vcf_tpu's, byte for byte: 15-bit probabilities, 32-bit states, 16-bit
+words.
+
+The three stages are the kernels of `vcf_tpu_torch.ops.cuda`: K1 encode
+to the raw grid, K2 compaction, K3 decode.  On a CUDA device every
+encode and decode launches them; on the CPU their plain torch versions
+run.  The NumPy reference implementations (`np_*`) define the format.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from vcf_tpu_torch.entropy.base import EntropyCodec
+from vcf_tpu_torch.ops.cuda.rans_decode import rans_decode_grouped
+from vcf_tpu_torch.ops.cuda.rans_encode import (K_PROB, MASK, RANS_L,
+                                                rans_compact,
+                                                rans_encode_grouped)
+
+__all__ = ["K_PROB", "RANS_L", "MASK", "quantize_freqs", "np_encode_grouped",
+           "np_decode_grouped", "subband_lanes", "subband_unlanes",
+           "group_histograms", "freqs_from_counts", "RANSCodec",
+           "GroupedRANSCodec"]
+
+
+# ---------------------------------------------------------------------------
+# Probability quantization
+# ---------------------------------------------------------------------------
+
+def quantize_freqs(counts: np.ndarray, k: int = K_PROB,
+                   min_all: bool = False) -> np.ndarray:
+    """Quantize counts to integer freqs >= 1 (for present symbols) that
+    sum to exactly 2^k.  Deterministic.
+
+    min_all=True gives EVERY symbol freq >= 1 even when its count is 0 —
+    required whenever the model is trained on a sample (e.g. one frame
+    of a batch) rather than the exact data it will code: a zero-freq
+    symbol encountered at encode time corrupts the stream silently.
+    Rate cost: <= 256 parts in 2^k (~0.1% at k=12)."""
+    total = 1 << k
+    counts = counts.astype(np.float64)
+    n_syms = counts.shape[0]
+    if counts.sum() == 0:
+        # all-zero counts (e.g. empty training sample): intentional
+        # uniform model rather than a 0/0 division below
+        counts[:] = 1.0
+    present = np.ones(n_syms, bool) if min_all else counts > 0
+    f = np.zeros(n_syms, np.int64)
+    scaled = counts / counts.sum() * total
+    f[present] = np.maximum(1, np.round(scaled[present]).astype(np.int64))
+    # repair the sum by walking the largest entries (deterministic order)
+    diff = total - int(f.sum())
+    order = np.argsort(-f, kind="stable")
+    i = 0
+    while diff != 0:
+        s = order[i % n_syms]
+        if f[s] > 1 or diff > 0:
+            step = 1 if diff > 0 else -1
+            if f[s] + step >= 1:
+                f[s] += step
+                diff -= step
+        i += 1
+    return f.astype(np.uint32)
+
+
+def _cums(freqs: np.ndarray) -> np.ndarray:
+    return np.concatenate(([0], np.cumsum(freqs)))[:256].astype(np.uint32)
+
+
+# ---------------------------------------------------------------------------
+# NumPy reference: grouped interleaved rANS (defines the format)
+# ---------------------------------------------------------------------------
+
+def np_encode_grouped(syms: np.ndarray, freqs_g: np.ndarray):
+    """Grouped-lane NumPy reference: lane s uses table s // (S // G)."""
+    s_streams, l = syms.shape
+    g = freqs_g.shape[0]
+    sg = s_streams // g
+    cums = [np.concatenate(([0], np.cumsum(fq)))[:256].astype(np.uint64)
+            for fq in freqs_g]
+    f64 = freqs_g.astype(np.uint64)
+    x = np.full(s_streams, RANS_L, np.uint64)
+    emitted: List[int] = []
+    x_max_mul = (RANS_L << 16) >> K_PROB
+    for t in range(l - 1, -1, -1):
+        for s in range(s_streams - 1, -1, -1):
+            grp = s // sg
+            v = int(syms[s, t])
+            f = int(f64[grp, v])
+            if x[s] >= f * x_max_mul:
+                emitted.append(int(x[s] & 0xFFFF))
+                x[s] >>= 16
+            x[s] = ((x[s] // f) << K_PROB) + (x[s] % f) + int(cums[grp][v])
+    return np.array(emitted[::-1], np.uint16), x.astype(np.uint32)
+
+
+def np_decode_grouped(words, states, freqs_g, s_streams: int, l: int):
+    g = freqs_g.shape[0]
+    sg = s_streams // g
+    cums = [np.concatenate(([0], np.cumsum(fq)))[:256].astype(np.int64)
+            for fq in freqs_g]
+    slot2sym = np.zeros((g, 1 << K_PROB), np.int64)
+    for grp in range(g):
+        for v in range(256):
+            slot2sym[grp, cums[grp][v]: cums[grp][v] + int(freqs_g[grp, v])] = v
+    x = states.astype(np.uint64).copy()
+    out = np.zeros((s_streams, l), np.uint8)
+    ptr = 0
+    for t in range(l):
+        for s in range(s_streams):
+            grp = s // sg
+            slot = int(x[s]) & MASK
+            v = int(slot2sym[grp, slot])
+            out[s, t] = v
+            x[s] = int(freqs_g[grp, v]) * (int(x[s]) >> K_PROB) + slot \
+                - int(cums[grp][v])
+            if x[s] < RANS_L:
+                x[s] = (x[s] << 16) | int(words[ptr])
+                ptr += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Lane layout and per-group models
+# ---------------------------------------------------------------------------
+
+def subband_lanes(planes: torch.Tensor, b: int, s_streams: int) -> torch.Tensor:
+    """(N, H, W, C) planes in subband layout -> (S, L) lane matrix where
+    each contiguous block of S/b^2 lanes holds exactly one subband's
+    symbols (so the grouped coder with G = b^2 gives every subband its
+    own model).  Pure reshapes/permutes."""
+    n, h, w, c = planes.shape
+    g = b * b
+    sg = s_streams // g
+    sb = planes.reshape(n, b, h // b, b, w // b, c)
+    sb = sb.permute(1, 3, 0, 2, 4, 5).reshape(g, -1)        # (G, n_g)
+    l = sb.shape[1] // sg
+    return sb.reshape(g, l, sg).permute(0, 2, 1).reshape(g * sg, l)
+
+
+def subband_unlanes(syms: torch.Tensor, b: int, shape) -> torch.Tensor:
+    """Inverse of subband_lanes: (S, L) -> (N, H, W, C)."""
+    n, h, w, c = shape
+    g = b * b
+    s_streams, l = syms.shape
+    sg = s_streams // g
+    sb = syms.reshape(g, sg, l).permute(0, 2, 1).reshape(g, -1)
+    sb = sb.reshape(b, b, n, h // b, w // b, c)
+    return sb.permute(2, 0, 3, 1, 4, 5).reshape(n, h, w, c)
+
+
+def group_histograms(lanes: torch.Tensor, g: int) -> torch.Tensor:
+    """(G*sg, L) lane matrix -> (G, 256) int64 symbol counts: one
+    torch.bincount over symbol + 256 * group."""
+    x = lanes.reshape(g, -1).to(torch.int64)
+    x = x + 256 * torch.arange(g, device=x.device)[:, None]
+    return torch.bincount(x.reshape(-1), minlength=256 * g).reshape(g, 256)
+
+
+def freqs_from_counts(counts_g: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(G, 256) counts -> quantized (freqs_g, cums_g), both (G, 256)
+    uint32.  Host work is 256-entry arithmetic per group (trivial)."""
+    freqs_g = np.stack([
+        quantize_freqs(c, min_all=True) for c in counts_g.astype(np.int64)])
+    cums_g = np.stack([_cums(f) for f in freqs_g])
+    return freqs_g.astype(np.uint32), cums_g
+
+
+def _tables(freqs_g: np.ndarray, cums_g: np.ndarray, device: torch.device):
+    return (torch.from_numpy(freqs_g.astype(np.int64)).to(device),
+            torch.from_numpy(cums_g.astype(np.int64)).to(device))
+
+
+def _encode_lanes(lanes: torch.Tensor, freqs_g: np.ndarray,
+                  cums_g: np.ndarray):
+    """K1 + K2 on a (S, L) lane matrix -> (payload bytes, n_words,
+    per-step counts (L,) int32 numpy, states (S,) uint32 numpy)."""
+    fg, cg = _tables(freqs_g, cums_g, lanes.device)
+    raw, states = rans_encode_grouped(lanes, fg, cg)
+    words, n_words, counts = rans_compact(raw)
+    n_words = int(n_words)
+    payload = words[:n_words].cpu().numpy().astype("<u2").tobytes()
+    return (payload, n_words, counts.cpu().numpy(),
+            states.cpu().numpy().astype(np.uint32))
+
+
+def _decode_lanes(payload: bytes, n_words: int, states: np.ndarray,
+                  freqs_g: np.ndarray, cums_g: np.ndarray, l: int,
+                  counts, device: torch.device) -> torch.Tensor:
+    """K3 on a wire stream -> (S, L) uint8 lanes on `device`."""
+    words = np.frombuffer(payload, "<u2", n_words).astype(np.uint16)
+    fg, cg = _tables(freqs_g, cums_g, device)
+    cnt = (torch.from_numpy(counts.astype(np.int64)).to(device)
+           if counts is not None else None)
+    return rans_decode_grouped(
+        torch.from_numpy(words).to(device),
+        torch.from_numpy(states.astype(np.int64)).to(device), fg, cg, l, cnt)
+
+
+# ---------------------------------------------------------------------------
+# Entropy-codec wrappers
+# ---------------------------------------------------------------------------
+
+class RANSCodec(EntropyCodec):
+    """Interleaved static rANS with one table (the dense codec); encode
+    and decode run on `device` (the kernels with G = 1 on CUDA)."""
+
+    file_extension = ".rans"
+
+    def __init__(self, n_streams: int = 65536, *, device):
+        self.n_streams = n_streams
+        self.device = torch.device(device)
+
+    @classmethod
+    def from_config(cls, config=None, *, device):
+        return cls(device=device)
+
+    @staticmethod
+    def _pick_streams(n: int, requested: int) -> int:
+        """Largest power of two with >= ~512 symbols per stream, capped
+        at `requested` (~512 symbols/stream keeps the 4-byte final-state
+        sidecar under ~0.07 bits/symbol)."""
+        target = min(requested, max(8, n // 512))
+        return 1 << max(3, int(np.floor(np.log2(target))))
+
+    def _encode_u8(self, flat: np.ndarray) -> Tuple[bytes, bytes]:
+        n = flat.size
+        s_streams = self._pick_streams(n, self.n_streams)
+        l = -(-n // s_streams)
+        padded = np.pad(flat, (0, s_streams * l - n))
+        counts = np.bincount(padded, minlength=256)
+        freqs = quantize_freqs(counts)
+        cums = _cums(freqs)
+        syms = torch.from_numpy(padded.reshape(l, s_streams)).to(self.device).t()
+        payload, n_words, _, states = _encode_lanes(
+            syms, freqs[None], cums[None])
+        side = struct.pack("<IIQI", s_streams, l, n, n_words)
+        side += states.astype("<u4").tobytes()
+        side += zlib.compress(freqs.astype("<u2").tobytes(), 9)
+        return payload, side
+
+    def _decode_u8(self, payload: bytes, blob: bytes) -> np.ndarray:
+        s_streams, l, n, n_words = struct.unpack_from("<IIQI", blob, 0)
+        off = 20
+        states = np.frombuffer(blob, "<u4", s_streams, off).astype(np.uint32)
+        off += 4 * s_streams
+        freqs = np.frombuffer(zlib.decompress(blob[off:]), "<u2").astype(np.uint32)
+        syms = _decode_lanes(payload, n_words, states, freqs[None],
+                             _cums(freqs)[None], l, None, self.device)
+        flat = syms.t().reshape(-1).cpu().numpy()
+        return flat[:n]
+
+    def encode(self, arr: np.ndarray) -> Tuple[bytes, Dict[str, bytes]]:
+        arr = self.check_dtype(arr)
+        if arr.dtype != np.uint8:
+            flat = arr.reshape(-1)
+            lo, s1 = self._encode_u8((flat & 0xFF).astype(np.uint8))
+            hi, s2 = self._encode_u8((flat >> 8).astype(np.uint8))
+            head = struct.pack(f"<BIIB{arr.ndim}I", 1, len(lo), len(s1),
+                               arr.ndim, *arr.shape)
+            return lo + hi, {"rans_model": head + s1 + s2}
+        payload, side = self._encode_u8(arr.reshape(-1))
+        head = struct.pack(f"<BIIB{arr.ndim}I", 0, len(payload), len(side),
+                           arr.ndim, *arr.shape)
+        return payload, {"rans_model": head + side}
+
+    def decode(self, payload: bytes, side: Dict[str, bytes]) -> np.ndarray:
+        blob = side["rans_model"]
+        mode, split, s1_len, ndim = struct.unpack_from("<BIIB", blob, 0)
+        shape = struct.unpack_from(f"<{ndim}I", blob, 10)
+        body = blob[10 + 4 * ndim :]
+        if mode == 0:
+            out = self._decode_u8(payload, body)
+            return out.reshape(shape)
+        lo = self._decode_u8(payload[:split], body[:s1_len])
+        hi = self._decode_u8(payload[split:], body[s1_len:])
+        return ((hi.astype(np.uint16) << 8) | lo).reshape(shape)
+
+
+class GroupedRANSCodec(EntropyCodec):
+    """Interleaved rANS with one model per DCT subband (``grans``).
+
+    For (H, W, 3) or (N, H, W, 3) uint8 index planes in subband layout
+    this codes each of the b^2 subbands with its own order-0 table.
+    Shapes that do not tile into b^2 equal lane groups fall back to the
+    dense single-table codec (sidecar version 0; identical API)."""
+
+    file_extension = ".grans"
+
+    def __init__(self, block_size: int = 8, n_streams: int = 65536, *,
+                 device):
+        self.b = block_size
+        self.device = torch.device(device)
+        self.dense = RANSCodec(n_streams, device=self.device)
+        self.n_streams = n_streams
+        self._frozen = None     # (freqs_g, cums_g) shared across frames
+
+    @classmethod
+    def from_config(cls, config=None, *, device):
+        return cls(block_size=getattr(config, "block_size", 8), device=device)
+
+    def _lane_count(self, size: int) -> int:
+        g = self.b * self.b
+        return max(g, (self.dense._pick_streams(size, self.n_streams) // g) * g)
+
+    def freeze_tables(self, sample: np.ndarray) -> None:
+        """Train the per-subband tables once and reuse them for every
+        later groupable encode (min_all=True tables code any byte)."""
+        planes = sample.reshape((1,) + sample.shape) if sample.ndim == 3 \
+            else sample
+        g = self.b * self.b
+        lanes = subband_lanes(torch.from_numpy(np.ascontiguousarray(planes))
+                              .to(self.device), self.b,
+                              self._lane_count(sample.size))
+        self._frozen = freqs_from_counts(group_histograms(lanes, g).cpu().numpy())
+
+    def import_tables(self, freqs_g: np.ndarray, cums_g: np.ndarray) -> None:
+        """Freeze tables trained elsewhere, such as vcf_tpu's
+        GroupedRANSCodec._frozen after its freeze_tables."""
+        g = self.b * self.b
+        freqs_g = np.asarray(freqs_g).astype(np.uint32)
+        cums_g = np.asarray(cums_g).astype(np.uint32)
+        if freqs_g.shape != (g, 256) or cums_g.shape != (g, 256):
+            raise ValueError(f"tables must be ({g}, 256), got "
+                             f"{freqs_g.shape} and {cums_g.shape}")
+        if np.any(freqs_g.astype(np.int64).sum(axis=1) != 1 << K_PROB):
+            raise ValueError(f"every table's freqs must sum to 2^{K_PROB}")
+        if not np.array_equal(cums_g, np.stack([_cums(f) for f in freqs_g])):
+            raise ValueError("cums_g is not the exclusive prefix sum of freqs_g")
+        self._frozen = (freqs_g, cums_g)
+
+    def thaw_tables(self) -> None:
+        self._frozen = None
+
+    def _groupable(self, arr: np.ndarray) -> bool:
+        if arr.dtype != np.uint8:
+            return False
+        shape = arr.shape
+        if len(shape) == 3:
+            shape = (1,) + shape
+        if len(shape) != 4:
+            return False
+        n, h, w, c = shape
+        if h % self.b or w % self.b:
+            return False
+        g = self.b * self.b
+        n_g = arr.size // g
+        sg = self.dense._pick_streams(arr.size, self.n_streams) // g
+        return sg >= 1 and n_g % max(sg, 1) == 0
+
+    def encode(self, arr: np.ndarray) -> Tuple[bytes, Dict[str, bytes]]:
+        arr = self.check_dtype(arr)
+        if not self._groupable(arr):
+            payload, side = self.dense.encode(arr)
+            return payload, {"grans_model": b"\x00" + side["rans_model"]}
+        planes = arr.reshape((1,) + arr.shape) if arr.ndim == 3 else arr
+        g = self.b * self.b
+        s_streams = self._lane_count(arr.size)
+        l = arr.size // s_streams
+        lanes = subband_lanes(torch.from_numpy(planes).to(self.device),
+                              self.b, s_streams)
+        if self._frozen is not None:
+            freqs_g, cums_g = self._frozen
+        else:
+            # per-image tables, trained from the lane matrix
+            freqs_g, cums_g = freqs_from_counts(
+                group_histograms(lanes, g).cpu().numpy())
+        payload, n_words, counts, states = _encode_lanes(lanes, freqs_g, cums_g)
+        # v2: per-decode-step renorm counts ride in the sidecar (zlib)
+        counts_z = zlib.compress(counts.astype("<u4").tobytes(), 9)
+        head = struct.pack(f"<BIIIB{arr.ndim}I", 2, s_streams, l, n_words,
+                           arr.ndim, *arr.shape)
+        side = head + struct.pack("<I", len(counts_z)) + counts_z
+        side += states.astype("<u4").tobytes()
+        side += zlib.compress(freqs_g.astype("<u2").tobytes(), 9)
+        return payload, {"grans_model": side}
+
+    def decode(self, payload: bytes, side: Dict[str, bytes]) -> np.ndarray:
+        blob = side["grans_model"]
+        version = blob[0]
+        if version == 0:
+            return self.dense.decode(payload, {"rans_model": blob[1:]})
+        s_streams, l, n_words, ndim = struct.unpack_from("<IIIB", blob, 1)
+        shape = struct.unpack_from(f"<{ndim}I", blob, 14)
+        if int(l) * int(s_streams) != int(np.prod(shape)):
+            raise ValueError(
+                f"grans sidecar inconsistent: {s_streams} lanes x {l} "
+                f"steps != prod{shape} symbols")
+        off = 14 + 4 * ndim
+        counts = None
+        if version >= 2:
+            (cz_len,) = struct.unpack_from("<I", blob, off)
+            counts = np.frombuffer(
+                zlib.decompress(blob[off + 4: off + 4 + cz_len]), "<u4"
+            ).astype(np.int32)
+            off += 4 + cz_len
+        states = np.frombuffer(blob, "<u4", s_streams, off).astype(np.uint32)
+        off += 4 * s_streams
+        g = self.b * self.b
+        freqs_g = np.frombuffer(
+            zlib.decompress(blob[off:]), "<u2").astype(np.uint32).reshape(g, 256)
+        cums_g = np.stack([_cums(f) for f in freqs_g])
+        lanes = _decode_lanes(payload, n_words, states, freqs_g, cums_g, l,
+                              counts, self.device)
+        full = (1,) + tuple(shape) if ndim == 3 else tuple(shape)
+        out = subband_unlanes(lanes, self.b, full).cpu().numpy()
+        return out.reshape(shape)

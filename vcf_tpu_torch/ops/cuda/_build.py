@@ -1,0 +1,114 @@
+"""Build and load the port's CUDA kernels (no JAX counterpart).
+
+`load()` compiles every `vcf_tpu_torch/csrc/*.cu` with nvcc for sm_90a
+into one shared library with a plain C interface, and loads it with
+ctypes.  The library lands in `vcf_tpu_torch/_build/` (listed in
+.gitignore) under a name that carries a hash of the sources, so an edit
+to any source builds anew and a stale library is never loaded.  A build
+takes seconds: no source includes PyTorch's headers.
+
+Each C entry returns `cudaGetLastError()` after its launch; `check`
+raises on a non-zero code.  The build needs nvcc (PATH, or
+/usr/local/cuda/bin); without one, `load` raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[2]
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C entry -> argtypes; every pointer and the stream are c_void_p so
+# ctypes never narrows them to a 32-bit int
+_SIGNATURES = {
+    "vcf_rans_encode_grouped": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "vcf_rans_compact_tile": [],
+    "vcf_rans_compact": [_P, _LL, _P, _P, _P, _P, _P],
+    "vcf_rans_decode_threads": [],
+    "vcf_rans_decode_grouped": [_P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _P],
+}
+
+
+def _sources():
+    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    fallback = Path("/usr/local/cuda/bin/nvcc")
+    if fallback.exists():
+        return str(fallback)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256()
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libvcf_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless a library of the same hash exists."""
+    lib = library_path()
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # compile to a private name, then rename: a concurrent process never
+    # loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, f"-I{SRC_DIR}", "-o", tmp,
+           *[str(s) for s in sorted(SRC_DIR.glob("*.cu"))]]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """Build (first use) and load the kernel library; cached per process."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry reported a CUDA error."""
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA error {code}")
+
+
+def stream_of(tensor) -> int:
+    """The raw handle of PyTorch's current stream on `tensor`'s device."""
+    return torch.cuda.current_stream(tensor.device).cuda_stream

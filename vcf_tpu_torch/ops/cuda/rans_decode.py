@@ -1,0 +1,121 @@
+"""Grouped rANS decode kernel K3 (port of vcf_tpu/ops/pallas/rans_decode.py).
+
+K3 `rans_decode_grouped` replaces `pallas_decode_grouped` together with
+its XLA pre-pass `build_windows`: it reads the wire words directly and
+carries the stream pointer itself, so it needs no windows and no counts.
+When the per-step counts of a v2 sidecar are given they are checked at
+every step.  A stream that does not decode cleanly (count mismatch, read
+past the end, words left over) raises ValueError, never returns garbage.
+Design notes and bounds are in csrc/rans_decode.cu.
+
+The wrapper runs the plain torch version for a CPU tensor and launches
+the CUDA kernel for a CUDA tensor; `launches` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from vcf_tpu_torch.ops.cuda import _build
+from vcf_tpu_torch.ops.cuda.rans_encode import (
+    K_PROB, MASK, RANS_L, _require, _require_cuda, pack_tables, u32_as_i32)
+
+_ERRORS = {1: "renormalization count differs from the counts sidecar",
+           2: "stream ends before the last step",
+           3: "words left over after the last step"}
+
+
+def rans_decode_grouped_ref(words: torch.Tensor, states: torch.Tensor,
+                            freqs_g, cums_g, l: int,
+                            counts: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Plain torch K3: an int64 loop over steps with a torch.cumsum
+    rank.  Returns syms (S, L) uint8."""
+    dev = words.device
+    s_streams = states.shape[0]
+    f_tab = torch.as_tensor(freqs_g).to(dev, torch.int64)
+    c_tab = torch.as_tensor(cums_g).to(dev, torch.int64)
+    g = f_tab.shape[0]
+    sg = s_streams // g
+    grp = torch.arange(s_streams, device=dev) // sg
+    n_words = words.numel()
+    # one zero word past the end keeps the gather in range; a stream that
+    # needs it is caught by the pointer check below
+    w64 = torch.cat([words.to(torch.int64),
+                     torch.zeros(1, dtype=torch.int64, device=dev)])
+    x = states.to(dev, torch.int64).clone()
+    out = torch.empty((l, s_streams), dtype=torch.uint8, device=dev)
+    totals = torch.empty(l, dtype=torch.int64, device=dev)
+    ptr = torch.zeros((), dtype=torch.int64, device=dev)
+    for t in range(l):
+        slot = x & MASK
+        v = torch.searchsorted(c_tab, slot.view(g, sg), right=True
+                               ).view(s_streams) - 1
+        x = f_tab[grp, v] * (x >> K_PROB) + slot - c_tab[grp, v]
+        renorm = (x < RANS_L).to(torch.int64)
+        rank = torch.cumsum(renorm, 0) - renorm
+        w = w64[(ptr + rank).clamp(max=n_words)]
+        x = torch.where(renorm.bool(), (x << 16) | w, x)
+        totals[t] = renorm.sum()
+        ptr = ptr + totals[t]
+        out[t] = v.to(torch.uint8)
+    if counts is not None and not torch.equal(
+            totals, counts.to(dev, torch.int64)):
+        raise ValueError(f"rans decode: {_ERRORS[1]}")
+    used = int(ptr)
+    if used != n_words:
+        raise ValueError(f"rans decode: {_ERRORS[2 if used > n_words else 3]}")
+    return out.t()
+
+
+def rans_decode_grouped(words: torch.Tensor, states: torch.Tensor,
+                        freqs_g, cums_g, l: int,
+                        counts: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """words (n_words,) uint16 wire stream; states (S,) int64 in
+    [0, 2^32); freqs_g/cums_g (G, 256); counts (L,) per-step word counts
+    or None.  Returns syms (S, L) uint8 (a transposed view of the kernel's
+    (L, S) output)."""
+    _require(words.dim() == 1 and words.dtype == torch.uint16,
+             f"words must be 1-D uint16, got {words.dtype}")
+    _require(states.dim() == 1, "states must be (S,)")
+    g = torch.as_tensor(freqs_g).shape[0]
+    s_streams = states.shape[0]
+    _require(g >= 1 and s_streams % g == 0,
+             f"{s_streams} lanes do not split into {g} groups")
+    _require(counts is None or counts.shape == (l,),
+             f"counts must be ({l},)")
+    _require(states.device == words.device, "words and states on two devices")
+    if words.device.type == "cpu":
+        return rans_decode_grouped_ref(words, states, freqs_g, cums_g, l,
+                                       counts)
+    _require_cuda(words)
+    dev = words.device
+    lib = _build.load()
+    tab = pack_tables(freqs_g, cums_g, dev)
+    words = words.contiguous()
+    st32 = u32_as_i32(states.to(torch.int64)).contiguous()
+    threads = lib.vcf_rans_decode_threads()
+    xs = torch.empty(-(-s_streams // threads) * threads, dtype=torch.int32,
+                     device=dev)
+    cnt = (counts.to(dev, torch.int32).contiguous()
+           if counts is not None else None)
+    out = torch.empty((l, s_streams), dtype=torch.uint8, device=dev)
+    err = torch.zeros(2, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.vcf_rans_decode_grouped(
+            words.data_ptr(), words.numel(), st32.data_ptr(), xs.data_ptr(),
+            tab.data_ptr(), cnt.data_ptr() if cnt is not None else None,
+            out.data_ptr(), err.data_ptr(), s_streams, l, g,
+            _build.stream_of(words))
+    _build.check(rc, "rans_decode_grouped")
+    rans_decode_grouped.launches += 1
+    code, step = err.tolist()
+    if code:
+        raise ValueError(f"rans decode: {_ERRORS[code]} (step {step})")
+    return out.t()
+
+
+rans_decode_grouped.launches = 0

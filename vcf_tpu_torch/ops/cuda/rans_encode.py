@@ -1,0 +1,179 @@
+"""Grouped rANS encode kernels K1 and K2 (port of
+vcf_tpu/ops/pallas/rans_encode.py).
+
+K1 `rans_encode_grouped` replaces `pallas_encode_grouped_raw`: syms (S, L)
+u8 with lane s using table s // (S // G) -> the raw grid (L, S) int32 of
+(emit << 16) | low16 in decode-step order, and the final states.
+K2 `rans_compact` replaces `finish_stream_pallas`: the raw grid -> the
+wire words in (t asc, s asc) order, their count and the per-step counts.
+Design notes and bounds are in csrc/rans_encode.cu.
+
+Each wrapper runs the plain torch version for a CPU tensor and launches
+its CUDA kernel for a CUDA tensor; nothing else.  `launches` counts the
+kernel launches.  uint32 state arithmetic runs in int64 with masks in
+the plain versions (torch's uint32 support is partial) and natively in
+the kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from vcf_tpu_torch.ops.cuda import _build
+
+K_PROB = 15
+RANS_L = 1 << 16
+MASK = (1 << K_PROB) - 1
+_SHIFT_EMIT = 32 - K_PROB  # x >= f * 2^_SHIFT_EMIT <=> (x >> _SHIFT_EMIT) >= f
+
+
+def pack_tables(freqs_g: torch.Tensor, cums_g: torch.Tensor,
+                device: torch.device) -> torch.Tensor:
+    """(G, 256) freqs and cums -> (G, 256) int32 entries f | (cum << 16),
+    the kernels' table layout (f <= 2^15 and cum < 2^15 fit 16 bits)."""
+    f = torch.as_tensor(freqs_g).to(torch.int64)
+    c = torch.as_tensor(cums_g).to(torch.int64)
+    if f.shape != c.shape or f.dim() != 2 or f.shape[1] != 256:
+        raise ValueError(f"tables must be (G, 256), got {tuple(f.shape)} "
+                         f"and {tuple(c.shape)}")
+    return (f | (c << 16)).to(torch.int32).to(device).contiguous()
+
+
+def u32_as_i32(x: torch.Tensor) -> torch.Tensor:
+    """uint32 values held in int64 -> the same bits as int32."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def i32_as_u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 bits of a uint32 -> its value in int64."""
+    return x.to(torch.int64) & 0xFFFFFFFF
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _require_cuda(t: torch.Tensor) -> None:
+    """Kernels launch on CUDA tensors only; a wrapper sends CPU tensors
+    to its plain version before this check and raises for any other."""
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}")
+
+
+# ---------------------------------------------------------------------------
+# K1: grouped encode to the raw grid
+# ---------------------------------------------------------------------------
+
+def rans_encode_grouped_ref(syms: torch.Tensor, freqs_g: torch.Tensor,
+                            cums_g: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch K1: an int64 loop over steps, vectorized over lanes.
+    Same state law as np_encode_grouped; returns (raw (L, S) int32,
+    states (S,) int64)."""
+    s_streams, l = syms.shape
+    dev = syms.device
+    g = freqs_g.shape[0]
+    grp = torch.arange(s_streams, device=dev) // (s_streams // g)
+    f_tab = torch.as_tensor(freqs_g).to(dev, torch.int64)
+    c_tab = torch.as_tensor(cums_g).to(dev, torch.int64)
+    sym_l = syms.t().to(torch.int64)                         # (L, S)
+    f_all = f_tab[grp[None, :], sym_l]
+    c_all = c_tab[grp[None, :], sym_l]
+    x = torch.full((s_streams,), RANS_L, dtype=torch.int64, device=dev)
+    raw = torch.empty((l, s_streams), dtype=torch.int32, device=dev)
+    for t in range(l - 1, -1, -1):
+        f = f_all[t]
+        emit = (x >> _SHIFT_EMIT) >= f
+        low = x & 0xFFFF
+        x = torch.where(emit, x >> 16, x)
+        x = ((x // f) << K_PROB) + x % f + c_all[t]
+        raw[t] = (low | (emit.to(torch.int64) << 16)).to(torch.int32)
+    return raw, x
+
+
+def rans_encode_grouped(syms: torch.Tensor, freqs_g, cums_g
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """syms (S, L) uint8, lane s on table s // (S // G); freqs_g/cums_g
+    (G, 256).  Returns (raw (L, S) int32 with (emit << 16) | low16 per
+    decode step, final states (S,) int64 in [0, 2^32))."""
+    _require(syms.dim() == 2 and syms.dtype == torch.uint8,
+             f"syms must be (S, L) uint8, got {syms.dtype} {tuple(syms.shape)}")
+    g = torch.as_tensor(freqs_g).shape[0]
+    s_streams, l = syms.shape
+    _require(g >= 1 and s_streams % g == 0,
+             f"{s_streams} lanes do not split into {g} groups")
+    if syms.device.type == "cpu":
+        return rans_encode_grouped_ref(syms, freqs_g, cums_g)
+    _require_cuda(syms)
+    lib = _build.load()
+    tab = pack_tables(freqs_g, cums_g, syms.device)
+    sym_l = syms.t().contiguous()          # (L, S): coalesced per-step reads
+    raw = torch.empty((l, s_streams), dtype=torch.int32, device=syms.device)
+    states = torch.empty(s_streams, dtype=torch.int32, device=syms.device)
+    with torch.cuda.device(syms.device):
+        rc = lib.vcf_rans_encode_grouped(
+            sym_l.data_ptr(), tab.data_ptr(), raw.data_ptr(),
+            states.data_ptr(), s_streams, l, g, _build.stream_of(syms))
+    _build.check(rc, "rans_encode_grouped")
+    rans_encode_grouped.launches += 1
+    return raw, i32_as_u32(states)
+
+
+rans_encode_grouped.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2: raw grid -> wire words
+# ---------------------------------------------------------------------------
+
+def rans_compact_ref(raw: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain torch K2: masked_select of the flagged low16 words."""
+    flat = raw.reshape(-1)
+    flags = (flat >> 16) != 0
+    sel = torch.masked_select(flat & 0xFFFF, flags)
+    words = torch.zeros(flat.numel(), dtype=torch.uint16, device=raw.device)
+    words[:sel.numel()] = sel.to(torch.uint16)
+    n_words = torch.tensor(sel.numel(), dtype=torch.int32, device=raw.device)
+    counts = (raw >> 16).sum(dim=1, dtype=torch.int32)
+    return words, n_words, counts
+
+
+def rans_compact(raw: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """raw (L, S) int32 grid from K1 -> (words (L*S,) uint16 whose first
+    n_words entries are the stream in decoder order, n_words 0-d int32,
+    counts (L,) int32 words per decode step)."""
+    _require(raw.dim() == 2 and raw.dtype == torch.int32,
+             f"raw grid must be (L, S) int32, got {raw.dtype} "
+             f"{tuple(raw.shape)}")
+    if raw.device.type == "cpu":
+        return rans_compact_ref(raw)
+    _require_cuda(raw)
+    raw = raw.contiguous()
+    n = raw.numel()
+    _require(0 < n < 1 << 31, f"grid of {n} entries out of range")
+    lib = _build.load()
+    tile = lib.vcf_rans_compact_tile()
+    n_tiles = -(-n // tile)
+    dev = raw.device
+    tile_counts = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+    tile_offsets = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+    words = torch.empty(n, dtype=torch.uint16, device=dev)
+    n_words = torch.empty(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.vcf_rans_compact(
+            raw.data_ptr(), n, tile_counts.data_ptr(), tile_offsets.data_ptr(),
+            words.data_ptr(), n_words.data_ptr(), _build.stream_of(raw))
+    _build.check(rc, "rans_compact")
+    rans_compact.launches += 1
+    # the per-step row sum stays a torch reduction, as it was XLA's on
+    # the TPU (rans_encode.py finish_stream_pallas)
+    counts = (raw >> 16).sum(dim=1, dtype=torch.int32)
+    return words, n_words[0], counts
+
+
+rans_compact.launches = 0
