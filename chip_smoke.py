@@ -3,21 +3,34 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and nvcc (PATH or /usr/local/cuda/bin); builds the
-rANS kernels from vcf_tpu_torch/csrc on first use.  Phases:
+kernels from vcf_tpu_torch/csrc on first use.  Phases:
 
 1. device: the card's name and power limit; TF32 off for every matmul;
 2. build: nvcc for sm_90a into vcf_tpu_torch/_build, timed;
-3. kernels: each kernel against its plain torch version on the card, on
-   the index planes of 8 rolled 1088x1920 frames (S=65536 lanes, L=765
-   steps, 64 subband tables), bit-exact, with CUDA-event times of both;
-4. main path: Codec(CodecConfig(entropy="grans"), device="cuda") encode
-   -> container bytes -> decode of one 1088x1920 frame, and the grouped
-   codec on the 8-frame batch; indexes must round-trip exactly, the
-   frame must agree with the port's CPU run within the +-1 index rule,
-   and every kernel's launch count must be > 0.
+3. rANS kernels K1-K3: each against its plain torch version on the card,
+   on the index planes of 8 rolled 1088x1920 frames (S=65536 lanes,
+   L=765 steps, 64 subband tables), bit-exact, with CUDA-event times of
+   both;
+3b. DCT kernels B1-B4 on the same 8 frames: the color-fused pair (ycocg)
+   on the pixels, B1/B2 in plain and perceptual mode on the
+   ycocg-transformed planes; each against its plain version under the
+   +-1 rule (the share that differs is printed), with CUDA-event times;
+4. main path, still: Codec(CodecConfig(entropy="grans"), device="cuda")
+   encode -> container bytes -> decode of one 1088x1920 frame, and the
+   grouped codec on the 8-frame batch; indexes must round-trip exactly,
+   the frame must agree with the port's CPU run within the +-1 index
+   rule, and K1-K3's launch counts must be > 0;
+4b. main path, clip: IIICodec(VideoConfig(n_frames=8),
+   CodecConfig(entropy="grans"), "cuda") encode -> bytes -> decode of the
+   8 frames (one batched clip stream; K1-K3 and B3/B4 must launch; the
+   BatchCodec planes agree with the per-frame Codec on the card under
+   the +-1 rule; the decoded planes round-trip exactly; rmse within 1e-3
+   of the port's CPU BatchCodec), then a perceptual clip of 2 frames,
+   through which B1/B2 must launch.
 
-Any failed check raises (non-zero exit, no result).  The last two lines
-are one JSON object of kernel results and one of the device.
+Each path's launch counts are set to 0 just before it runs and read just
+after.  Any failed check raises (non-zero exit, no result).  The last
+two lines are one JSON object of kernel results and one of the device.
 """
 
 from __future__ import annotations
@@ -38,6 +51,10 @@ FRAMES, H, W = 8, 1088, 1920
 # order may move an index across a rounding edge, never by more than 1,
 # on at most this share of entries
 MAX_INDEX_DIFF, MAX_DIFF_SHARE = 1, 1e-4
+# B2's float32 planes (magnitude <= 2^9) against its plain version: two
+# passes of 8-term sums in another order, a few ulp of 2^-15 each
+MAX_PLANE_ERR = 1e-2
+PERCEPTUAL_FRAMES = 2
 
 
 def require(cond: bool, msg: str) -> None:
@@ -64,6 +81,19 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     if a.numel() == 0:
         return 0
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def diff_rule(a: torch.Tensor, b: torch.Tensor, what: str):
+    """(max |a - b|, share of entries that differ); raise past the +-1
+    rule."""
+    require(a.shape == b.shape, f"{what}: shape {tuple(a.shape)} vs "
+            f"{tuple(b.shape)}")
+    d = (a.to(torch.int64) - b.to(torch.int64)).abs()
+    err, share = int(d.max()), float((d != 0).double().mean())
+    require(err <= MAX_INDEX_DIFF and share <= MAX_DIFF_SHARE,
+            f"{what} differs from its plain version: max {err}, "
+            f"share {share}")
+    return err, share
 
 
 def phase_device() -> torch.device:
@@ -170,7 +200,74 @@ def phase_kernels(dev, planes: torch.Tensor) -> list:
         print(f"time {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms")
         results.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": 0, "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms})
+                        "diff_share": 0.0, "ms": ms, "plain_ms": plain_ms})
+    return results
+
+
+def phase_dct_kernels(dev, frames: np.ndarray) -> list:
+    from vcf_tpu_torch.ops import color as color_ops
+    from vcf_tpu_torch.ops.cuda import dct_kernel as dk
+
+    x = torch.from_numpy(frames).to(dev)
+    px = x.permute(0, 3, 1, 2).contiguous()
+    ct = color_ops.ycocg_forward(x.to(torch.float32) - 128
+                                 ).permute(0, 3, 1, 2).contiguous()
+    mf = dk.static_mat(color_ops.YCOCG_FWD)
+    mi = dk.static_mat(color_ops.YCOCG_INV)
+    k3 = dk.fused_cdct_quantize(px, mf)
+    b3 = diff_rule(k3, dk.fused_cdct_quantize_ref(px, mf), "B3")
+    b4 = diff_rule(dk.fused_dequantize_cdct(k3, mi),
+                   dk.fused_dequantize_cdct_ref(k3, mi), "B4")
+    modes = {}
+    for perc in (False, True):
+        k1 = dk.fused_dct_quantize(ct, perceptual=perc)
+        b1 = diff_rule(k1, dk.fused_dct_quantize_ref(ct, perceptual=perc),
+                       f"B1 perceptual={perc}")
+        x2 = dk.fused_dequantize_idct(k1, perceptual=perc)
+        x2p = dk.fused_dequantize_idct_ref(k1, perceptual=perc)
+        err2 = float((x2 - x2p).abs().max())
+        require(err2 <= MAX_PLANE_ERR, f"B2 perceptual={perc} differs from "
+                f"its plain version by {err2}")
+        _, share2 = diff_rule(torch.round(x2), torch.round(x2p),
+                              f"B2 perceptual={perc} (rounded)")
+        modes[perc] = (k1, b1, (err2, share2))
+        print(f"dct kernels: perceptual={perc}: B1 max {b1[0]} share "
+              f"{b1[1]:.3e}; B2 max {err2:.3e}, rounded share {share2:.3e}")
+    print(f"dct kernels: {FRAMES}x3x{H}x{W}: B3 max {b3[0]} share {b3[1]:.3e}; "
+          f"B4 max {b4[0]} share {b4[1]:.3e}")
+    torch.cuda.synchronize()
+
+    k1p, b1p, b2p = modes[True]
+    src = "vcf_tpu_torch/csrc/dct.cu"
+    rep = "vcf_tpu/ops/pallas/dct_kernel.py:"
+    rows = [
+        ("fused_dct_quantize", "153", b1p,
+         lambda: dk.fused_dct_quantize(ct, perceptual=True),
+         lambda: dk.fused_dct_quantize_ref(ct, perceptual=True)),
+        ("fused_dequantize_idct", "207", b2p,
+         lambda: dk.fused_dequantize_idct(k1p, perceptual=True),
+         lambda: dk.fused_dequantize_idct_ref(k1p, perceptual=True)),
+        ("fused_cdct_quantize", "298", b3,
+         lambda: dk.fused_cdct_quantize(px, mf),
+         lambda: dk.fused_cdct_quantize_ref(px, mf)),
+        ("fused_dequantize_cdct", "334", b4,
+         lambda: dk.fused_dequantize_cdct(k3, mi),
+         lambda: dk.fused_dequantize_cdct_ref(k3, mi)),
+    ]
+    results = []
+    for name, line, (err, share), kern, plain in rows:
+        ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 5)
+        print(f"time {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms")
+        results.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": rep + line, "launches": 0,
+                        "max_abs_err": err, "diff_share": share, "ms": ms,
+                        "plain_ms": plain_ms})
+    # B1/B2 in plain mode too (BatchCodec's color="none" route)
+    k1, _, _ = modes[False]
+    print(f"time plain mode: fused_dct_quantize "
+          f"{cuda_ms(lambda: dk.fused_dct_quantize(ct), 20):.4f} ms, "
+          f"fused_dequantize_idct "
+          f"{cuda_ms(lambda: dk.fused_dequantize_idct(k1), 20):.4f} ms")
     return results
 
 
@@ -259,6 +356,107 @@ def warm_timings(codec, gcodec, frame, planes_np) -> dict:
     return out
 
 
+def run_clip(dev, frames: np.ndarray, ccfg, kernels: dict) -> tuple:
+    """IIICodec encode -> bytes -> decode with every count set to 0
+    first, and the round-trip check of the clip's index planes; returns
+    (codec, launches, stream, decoded frames, planes, seconds)."""
+    from vcf_tpu_torch import CodeStream
+    from vcf_tpu_torch.config import VideoConfig
+    from vcf_tpu_torch.video import IIICodec
+
+    iii = IIICodec(VideoConfig(n_frames=len(frames)), ccfg, dev)
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    cs = iii.encode(frames)
+    cs2 = CodeStream.from_bytes(cs.to_bytes())
+    rec = iii.decode(cs2)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    require(cs2.get_json("payload")["batched"], "the clip was not batched")
+    side = {name[len("clip."):]: cs2[name] for name in cs2
+            if name.startswith("clip.") and name != "clip.payload"}
+    back = iii.still.entropy_codec.decode(cs2["clip.payload"], side)
+    planes = iii._batch.encode_planes(frames)
+    require(np.array_equal(back, planes),
+            "clip index planes did not round-trip")
+    return iii, launches, cs, rec, planes, seconds
+
+
+def clip_report(iii, frames, cs, rec, planes, seconds, what) -> dict:
+    """rmse against the port's CPU BatchCodec, bpp, warm times."""
+    from vcf_tpu_torch import metrics
+    from vcf_tpu_torch.parallel import BatchCodec
+
+    cpu = BatchCodec(iii.ccfg, "cpu")
+    planes_cpu = cpu.encode_planes(frames)
+    rec_cpu = cpu.decode_planes(planes_cpu)
+    n_diff = int(np.count_nonzero(planes_cpu != planes))
+    rmse, rmse_cpu = metrics.rmse(frames, rec), metrics.rmse(frames, rec_cpu)
+    require(abs(rmse - rmse_cpu) < 1e-3,
+            f"{what}: rmse {rmse} vs CPU BatchCodec {rmse_cpu}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cs_w = iii.encode(frames)
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    iii.decode(cs_w)
+    torch.cuda.synchronize()
+    dec_ms = (time.perf_counter() - t0) * 1e3
+    report = {"rmse": rmse, "rmse_cpu": rmse_cpu,
+              "bpp": metrics.bpp(cs, frames.shape),
+              "indexes_differing_from_cpu": n_diff,
+              "first_run_s": seconds, "warm_encode_ms": enc_ms,
+              "warm_decode_ms": dec_ms}
+    print(f"{what}: {json.dumps(report)}")
+    return report
+
+
+def phase_clip(dev, frames: np.ndarray, planes_codec: torch.Tensor) -> dict:
+    from vcf_tpu_torch import CodecConfig
+    from vcf_tpu_torch.ops.cuda import dct_kernel as dk
+    from vcf_tpu_torch.ops.cuda import rans_decode as rd
+    from vcf_tpu_torch.ops.cuda import rans_encode as re_
+
+    kernels = {"rans_encode_grouped": re_.rans_encode_grouped,
+               "rans_compact": re_.rans_compact,
+               "rans_decode_grouped": rd.rans_decode_grouped,
+               "fused_dct_quantize": dk.fused_dct_quantize,
+               "fused_dequantize_idct": dk.fused_dequantize_idct,
+               "fused_cdct_quantize": dk.fused_cdct_quantize,
+               "fused_dequantize_cdct": dk.fused_dequantize_cdct}
+    iii, launches, cs, rec, planes, seconds = run_clip(
+        dev, frames, CodecConfig(entropy="grans"), kernels)
+    print(f"clip path: launches {launches}")
+    for name in ("rans_encode_grouped", "rans_compact", "rans_decode_grouped",
+                 "fused_cdct_quantize", "fused_dequantize_cdct"):
+        require(launches[name] > 0,
+                f"kernel {name} was not launched on the clip path")
+    err, share = diff_rule(torch.from_numpy(planes), planes_codec.cpu(),
+                           "BatchCodec planes vs per-frame Codec")
+    print(f"clip path: BatchCodec vs per-frame Codec indexes: max {err}, "
+          f"share {share:.3e}")
+    clip_report(iii, frames, cs, rec, planes, seconds,
+                f"clip {FRAMES}x{H}x{W} grans")
+
+    n = PERCEPTUAL_FRAMES
+    iii_p, launches_p, cs_p, rec_p, planes_p, seconds_p = run_clip(
+        dev, frames[:n], CodecConfig(entropy="grans", perceptual=True),
+        kernels)
+    print(f"perceptual clip path: launches {launches_p}")
+    for name in ("rans_encode_grouped", "rans_compact", "rans_decode_grouped",
+                 "fused_dct_quantize", "fused_dequantize_idct"):
+        require(launches_p[name] > 0, f"kernel {name} was not launched on "
+                "the perceptual clip path")
+    clip_report(iii_p, frames[:n], cs_p, rec_p, planes_p, seconds_p,
+                f"clip {n}x{H}x{W} grans perceptual")
+    return {"fused_cdct_quantize": launches["fused_cdct_quantize"],
+            "fused_dequantize_cdct": launches["fused_dequantize_cdct"],
+            "fused_dct_quantize": launches_p["fused_dct_quantize"],
+            "fused_dequantize_idct": launches_p["fused_dequantize_idct"]}
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
@@ -271,7 +469,9 @@ def main() -> None:
     planes = index_planes(Codec(CodecConfig(entropy="grans"), device=dev),
                           frames)
     results = phase_kernels(dev, planes)
+    results += phase_dct_kernels(dev, frames)
     launches = phase_main_path(dev, frames, planes)
+    launches.update(phase_clip(dev, frames, planes))
     for row in results:
         row["launches"] = launches[row["name"]]
     print(json.dumps({"kernels": results}))

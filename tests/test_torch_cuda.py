@@ -1,6 +1,7 @@
-"""Card-only checks of the port: the CUDA kernels K1-K3 against their
-plain torch versions, and the Codec and entropy codecs on CUDA against
-the same on the CPU (entropy bytes identical).
+"""Card-only checks of the port: the CUDA kernels K1-K3 and B1-B4
+against their plain torch versions, and the Codec, entropy codecs,
+BatchCodec and IIICodec on CUDA against the same on the CPU (entropy
+bytes identical on identical index planes).
 
 The kernels have no CPU mode, so every test here is marked `cuda` and
 skips without a card.  The file imports neither JAX nor vcf_tpu, so it
@@ -8,10 +9,11 @@ also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: kernels bit-exact against their plain versions; the codec's
-indexes follow the +-1 rule (a float32 sum taken in another order moves
-an index by at most 1, on at most 0.01% of entries) and rmse agrees to
-3 decimals.
+Tolerances: K1-K3 bit-exact against their plain versions; B1/B3
+indexes and the codecs' indexes follow the +-1 rule (a float32 sum taken
+in another order moves an index by at most 1, on at most 0.01% of
+entries); B2 planes within 1e-3 absolute; decoded pixels from identical
+planes d.max() <= 1 on < 0.1% of entries; rmse agrees to 3 decimals.
 """
 
 import numpy as np
@@ -19,12 +21,17 @@ import pytest
 import torch
 
 import vcf_tpu_torch.entropy as entropy
-from vcf_tpu_torch import Codec, CodecConfig, CodeStream, metrics
+from vcf_tpu_torch import Codec, CodecConfig, CodeStream, metrics, video
+from vcf_tpu_torch.config import VideoConfig
 from vcf_tpu_torch.entropy import rans
 from vcf_tpu_torch.io import test_image as make_test_image
+from vcf_tpu_torch.io import test_video as make_test_video
+from vcf_tpu_torch.ops import color as color_ops
 from vcf_tpu_torch.ops import dct as dct_ops
+from vcf_tpu_torch.ops.cuda import dct_kernel as dk
 from vcf_tpu_torch.ops.cuda import rans_decode as rd
 from vcf_tpu_torch.ops.cuda import rans_encode as re_
+from vcf_tpu_torch.parallel import BatchCodec
 
 pytestmark = pytest.mark.cuda
 
@@ -118,3 +125,86 @@ def test_entropy_codecs_on_cuda_match_cpu(dev, name, shape, dtype):
     payload, side = gpu.encode(arr)
     assert (payload, side) == cpu.encode(arr)
     assert np.array_equal(gpu.decode(payload, side), arr)
+
+
+def _index_rule(got, want):
+    d = (got.to(torch.int64) - want.to(torch.int64)).abs()
+    assert int(d.max()) <= 1
+    assert int((d != 0).sum()) <= 1e-4 * d.numel()
+
+
+def _pixel_rule(got, want):
+    d = np.abs(np.asarray(got).astype(np.int64) - np.asarray(want))
+    assert d.max() <= 1 and (d != 0).mean() < 1e-3
+
+
+# (N, H, W, b, qss): odd shapes, a ragged last column strip (W not a
+# multiple of the kernels' 1024 / b columns), both block sizes and steps
+DCT_CASES = [(2, 24, 40, 8, 32), (1, 8, 20, 4, 24), (3, 16, 136, 8, 24),
+             (1, 32, 288, 4, 32)]
+
+
+@pytest.mark.parametrize("n,h,w,b,qss", DCT_CASES)
+def test_dct_kernels_match_plain_versions(dev, n, h, w, b, qss):
+    rng = np.random.default_rng(h + w)
+    px = torch.from_numpy(rng.integers(0, 256, (n, 3, h, w)).astype(
+        np.uint8)).to(dev)
+    mf = dk.static_mat(color_ops.YCRCB_FWD)
+    mi = dk.static_mat(color_ops.YCRCB_INV)
+    k = dk.fused_cdct_quantize(px, mf, b=b, qss=qss)
+    _index_rule(k, dk.fused_cdct_quantize_ref(px, mf, b=b, qss=qss))
+    pix = dk.fused_dequantize_cdct(k, mi, b=b, qss=qss)
+    _pixel_rule(pix.cpu(), dk.fused_dequantize_cdct_ref(k, mi, b=b,
+                                                        qss=qss).cpu())
+    planes = torch.from_numpy(rng.normal(0, 80, (n, 3, h, w)).astype(
+        np.float32)).to(dev)
+    for perceptual in (False, True):
+        kw = dict(b=b, qss=qss, perceptual=perceptual)
+        k1 = dk.fused_dct_quantize(planes, **kw)
+        _index_rule(k1, dk.fused_dct_quantize_ref(planes, **kw))
+        x = dk.fused_dequantize_idct(k1, **kw)
+        torch.testing.assert_close(x, dk.fused_dequantize_idct_ref(k1, **kw),
+                                   rtol=0, atol=1e-3)
+        # (C, H, W) without the frame axis takes the same kernel
+        assert torch.equal(dk.fused_dct_quantize(planes[0], **kw), k1[0])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(color="none"),
+                                dict(perceptual=True), dict(use_pallas=False),
+                                dict(color="cdct", qss=24)],
+                         ids=["cdct-route", "none", "perceptual", "torch",
+                              "cdct-qss24"])
+def test_batch_codec_on_cuda_matches_cpu(dev, kw):
+    frames = np.stack([make_test_image(61, 90, seed=i) for i in range(3)])
+    cfg = CodecConfig(**kw)
+    gpu, cpu = BatchCodec(cfg, dev), BatchCodec(cfg, "cpu")
+    counters = (dk.fused_cdct_quantize, dk.fused_dequantize_cdct,
+                dk.fused_dct_quantize, dk.fused_dequantize_idct)
+    before = sum(f.launches for f in counters)
+    planes = gpu.encode_planes(frames)
+    _index_rule(torch.from_numpy(planes), torch.from_numpy(
+        cpu.encode_planes(frames)))
+    rec = gpu.decode_planes(planes, original_hw=(61, 90))
+    assert rec.shape == frames.shape
+    _pixel_rule(rec, cpu.decode_planes(planes, original_hw=(61, 90)))
+    launched = sum(f.launches for f in counters) - before
+    assert launched == (0 if gpu.route == "torch" else 2)
+
+
+@pytest.mark.parametrize("entropy_name", ["grans", "tiff"])
+def test_iii_on_cuda_matches_cpu(dev, entropy_name):
+    frames = make_test_video(4, 96, 112)
+    vcfg, ccfg = VideoConfig(n_frames=4), CodecConfig(entropy=entropy_name)
+    gpu, cpu = video.get(vcfg, ccfg, dev), video.get(vcfg, ccfg, "cpu")
+    planes_g = gpu._batch.encode_planes(frames)
+    planes_c = cpu._batch.encode_planes(frames)
+    _index_rule(torch.from_numpy(planes_g), torch.from_numpy(planes_c))
+    cs_g, cs_c = gpu.encode(frames), cpu.encode(frames)
+    if np.array_equal(planes_g, planes_c):
+        assert cs_g.to_bytes() == cs_c.to_bytes()
+    rec_g = gpu.decode(CodeStream.from_bytes(cs_g.to_bytes()))
+    assert rec_g.shape == frames.shape
+    _pixel_rule(rec_g, cpu.decode(cs_g))
+    assert abs(metrics.rmse(frames, rec_g)
+               - metrics.rmse(frames, cpu.decode(cs_c))) < 1e-3

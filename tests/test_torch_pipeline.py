@@ -161,7 +161,7 @@ def test_stage_timings_recorded():
     (dict(quantizer="lloydmax"), "A11"),
     (dict(quantizer="colorvq"), "A11"),
     (dict(filter="gaussian"), "A13"),
-    (dict(perceptual=True), "A17"),
+    (dict(quantizer="none"), "A17"),
     (dict(spatial="none"), "A17"),
     (dict(entropy="huffman"), "A7"),
 ])

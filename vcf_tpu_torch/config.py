@@ -1,7 +1,7 @@
 """Explicit codec configuration (port of vcf_tpu/config.py).
 
-`CodecConfig` is copied verbatim so a config means the same pipeline in
-both packages; `VideoConfig` waits for the video layer of the port.
+`CodecConfig` and `VideoConfig` are copied verbatim so a config means
+the same pipeline in both packages.
 
 The reference composes its pipeline by dynamic class inheritance driven by
 argparse flags accreted at import time (reference: src/parser.py:72-80,
@@ -85,8 +85,9 @@ class CodecConfig:
     zlib_level: int = 6
 
     # ---- execution knobs -------------------------------------------------
-    use_pallas: bool = True      # kept for parity; on a CUDA device the port
-                                 # always launches its kernels
+    use_pallas: bool = True      # BatchCodec: True takes the fused kernels
+                                 # (B1-B4; their plain versions on the CPU),
+                                 # False the unfused torch route
 
     def __post_init__(self):
         def _check(value, allowed, what):
@@ -107,3 +108,27 @@ class CodecConfig:
 
     def replace(self, **kw) -> "CodecConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class VideoConfig:
+    """Configuration of the temporal (video) layer.
+
+    mode="iii": every frame intra-coded (reference: src/III.py).
+    mode="ipp": GOP-structured I+P with block motion compensation
+    (reference: src/IPP_DCT.py).
+    """
+
+    mode: str = "iii"            # "iii" | "ipp"
+    n_frames: int = 20           # -N
+    gop_size: int = 10           # -G
+    me_block: int = 16           # -M motion-estimation block size
+    search_range: int = 8        # -S full-search window (+-S)
+    fast_search: bool = False    # three-step search instead of full search
+    rdo_lambda: float = 0.0      # -R per-block intra/inter RDO (0 = off)
+
+    def __post_init__(self):
+        if self.mode not in ("iii", "ipp"):
+            raise ValueError(f"unknown video mode {self.mode!r}")
+        if self.gop_size < 1:
+            raise ValueError("gop_size must be >= 1")

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (no JAX counterpart).
 
-`load()` compiles every `vcf_tpu_torch/csrc/*.cu` with nvcc for sm_90a
+`load()` compiles every `vcf_tpu_torch/csrc/*.cu` with nvcc for sm_90a,
+one nvcc process per source, all started together, links the objects
 into one shared library with a plain C interface, and loads it with
 ctypes.  The library lands in `vcf_tpu_torch/_build/` (listed in
 .gitignore) under a name that carries a hash of the sources, so an edit
@@ -29,9 +30,11 @@ _PKG = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F, _FP = ctypes.c_float, ctypes.POINTER(ctypes.c_float)
+_DCT = [_P, _P, _P, _P, _FP, _I, _I, _I, _I, _I, _F, _I, _P]
 # C entry -> argtypes; every pointer and the stream are c_void_p so
 # ctypes never narrows them to a 32-bit int
 _SIGNATURES = {
@@ -41,6 +44,8 @@ _SIGNATURES = {
     "vcf_rans_decode_threads": [],
     "vcf_rans_decode_grouped": [_P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _P],
+    "vcf_dct_forward": _DCT,
+    "vcf_dct_inverse": _DCT,
 }
 
 
@@ -67,28 +72,39 @@ def library_path() -> Path:
     return BUILD_DIR / f"libvcf_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> None:
+    """Start every command at once, wait for all; raise with the output
+    of the first that failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = None
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                      f"{out}\n{err}")
+    if failed:
+        raise RuntimeError(failed)
+
+
 def build() -> Path:
     """Compile the sources unless a library of the same hash exists."""
     lib = library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a concurrent process never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, f"-I{SRC_DIR}", "-o", tmp,
-           *[str(s) for s in sorted(SRC_DIR.glob("*.cu"))]]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = _nvcc()
+    # compile into a private directory, then rename: a concurrent process
+    # never loads a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        srcs = sorted(SRC_DIR.glob("*.cu"))
+        objs = [os.path.join(tmp, src.stem + ".o") for src in srcs]
+        _run_all([[nvcc, *NVCC_FLAGS, f"-I{SRC_DIR}", "-c", str(src), "-o", obj]
+                  for src, obj in zip(srcs, objs)])
+        out = os.path.join(tmp, lib.name)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", out, *objs]])
+        os.replace(out, lib)
     return lib
 
 

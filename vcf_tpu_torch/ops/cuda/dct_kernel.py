@@ -1,0 +1,274 @@
+"""Fused block-DCT + deadzone quantizer kernels B1-B4 (port of
+vcf_tpu/ops/pallas/dct_kernel.py).
+
+B1 `fused_dct_quantize` replaces the Pallas function of the same name
+(and its `_any` pad-and-crop wrapper): (C, H, W) float32 planes -> 8x8
+(b x b) block DCT -> optional JPEG-table prescale -> trunc(c * (1/qss))
++ offset -> clip -> (C, H, W) uint8 indexes.
+B2 `fused_dequantize_idct` is its inverse: (k - offset) * qss -> optional
+true divide by the table -> inverse DCT -> (C, H, W) float32.
+B3 `fused_cdct_quantize`: (3, H, W) uint8 pixels - offset -> 3x3 color
+forward -> B1, uint8 in and out.
+B4 `fused_dequantize_cdct`: B2 -> 3x3 color inverse -> + offset ->
+round half to even -> clip -> (3, H, W) uint8 pixels.
+
+Every function also takes a leading frame axis (N, C, H, W), where
+vcf_tpu used jax.vmap, so one launch covers a clip.  The kernels take
+any H, W that are multiples of b, for every b that divides 32; the
+TPU's 32-row / 128-lane tiling gates (`supports`) and the pad-and-crop
+`_any` wrappers have no counterpart, so the `_any` names are the same
+functions.  The subband-grid output layout of the TPU kernels
+(`grid_layout=True`) is not ported yet (ROADMAP next 3).
+
+Each wrapper runs its plain torch version for a CPU tensor and launches
+its CUDA kernel (csrc/dct.cu) for a CUDA tensor; nothing else.  The
+plain versions follow the kernels' op order: color rows left to right,
+vertical DCT pass before the horizontal one, quantize by a multiply with
+the float32 reciprocal of qss, divide by the perceptual table on
+decode.  Kernel against plain version follows the +-1 rule (float32
+sums in another order), not bit-exactness.  `launches` counts kernel
+launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from vcf_tpu_torch.ops import dct as dct_ops
+from vcf_tpu_torch.ops.cuda import _build
+
+BLOCK_SIZES = (1, 2, 4, 8, 16, 32)
+
+
+def static_mat(m) -> tuple:
+    """3x3 color matrix -> nested tuple of floats, the `m` argument of the
+    color-fused functions (each entry a float32 value)."""
+    return tuple(tuple(float(v) for v in row)
+                 for row in np.asarray(m, np.float32))
+
+
+def _recip(qss: int) -> float:
+    """float32(1 / qss) as a Python float, the kernels' quantizer step."""
+    return float(np.float32(1.0 / qss))
+
+
+def _check(x: torch.Tensor, dtype, b: int, what: str,
+           channels: Optional[int] = None) -> None:
+    if x.dtype != dtype or x.dim() not in (3, 4):
+        raise ValueError(f"{what}: expected (C, H, W) or (N, C, H, W) "
+                         f"{dtype}, got {x.dtype} {tuple(x.shape)}")
+    if b not in BLOCK_SIZES:
+        raise ValueError(f"{what}: block size {b} does not divide 32")
+    c, h, w = x.shape[-3:]
+    if h % b or w % b:
+        raise ValueError(f"{what}: {h}x{w} is not a multiple of b={b}")
+    if channels is not None and c != channels:
+        raise ValueError(f"{what}: expected {channels} channels, got {c}")
+
+
+def _plain(x: torch.Tensor) -> bool:
+    """True for a CPU tensor (plain version); raise for anything but
+    CPU and CUDA."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return False
+
+
+# ---------------------------------------------------------------------------
+# Plain torch building blocks (planar (..., H, W) layout)
+# ---------------------------------------------------------------------------
+
+def _dct_fwd(x: torch.Tensor, b: int) -> torch.Tensor:
+    """Blockwise D @ X @ D^T of (..., H, W) float32, vertical pass first."""
+    *lead, h, w = x.shape
+    d = torch.from_numpy(dct_ops.dct_matrix(b)).to(x.device)
+    xb = x.reshape(*lead, h // b, b, w // b, b)
+    y = torch.einsum("ur,...yrxs->...yuxs", d, xb)
+    y = torch.einsum("vs,...yuxs->...yuxv", d, y)
+    return y.reshape(*lead, h, w)
+
+
+def _dct_inv(c: torch.Tensor, b: int) -> torch.Tensor:
+    """Blockwise D^T @ C @ D of (..., H, W) float32, vertical pass first."""
+    *lead, h, w = c.shape
+    d = torch.from_numpy(dct_ops.dct_matrix(b)).to(c.device)
+    cb = c.reshape(*lead, h // b, b, w // b, b)
+    y = torch.einsum("ur,...yuxv->...yrxv", d, cb)
+    y = torch.einsum("vs,...yrxv->...yrxs", d, y)
+    return y.reshape(*lead, h, w)
+
+
+def _percep_planes(c: int, b: int, device) -> torch.Tensor:
+    """(C, b, b) perceptual tables: luma for channel 0, chroma after."""
+    luma, chroma = dct_ops.perceptual_tables(b)
+    return torch.from_numpy(np.stack([luma] + [chroma] * (c - 1))).to(device)
+
+
+def _percep_apply(coeff: torch.Tensor, b: int, inverse: bool) -> torch.Tensor:
+    *lead, c, h, w = coeff.shape
+    t = _percep_planes(c, b, coeff.device)[:, None, :, None, :]
+    x = coeff.reshape(*lead, c, h // b, b, w // b, b)
+    x = x / t if inverse else x * t
+    return x.reshape(coeff.shape)
+
+
+def _quantize(coeff: torch.Tensor, qss: int, offset: int) -> torch.Tensor:
+    k = torch.trunc(coeff * _recip(qss)).to(torch.int32) + offset
+    # Deadzone_Quantizer(min_val=0, max_val=255) saturates, not wraps
+    # (src/deadzone.py:64)
+    return torch.clamp(k, 0, 255).to(torch.uint8)
+
+
+def _dequantize(k_u8: torch.Tensor, qss: int, offset: int) -> torch.Tensor:
+    return (k_u8.to(torch.int32) - offset).to(torch.float32) * qss
+
+
+def _color(x: torch.Tensor, m: Sequence[Sequence[float]]) -> torch.Tensor:
+    """Rows of the 3x3 matrix over the channel axis (-3), left to right."""
+    xs = [x[..., i, :, :] for i in range(3)]
+    return torch.stack([m[d][0] * xs[0] + m[d][1] * xs[1] + m[d][2] * xs[2]
+                        for d in range(3)], dim=-3)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def fused_dct_quantize_ref(planes: torch.Tensor, b: int = 8, qss: int = 32,
+                           offset: int = 128,
+                           perceptual: bool = False) -> torch.Tensor:
+    coeff = _dct_fwd(planes, b)
+    if perceptual:
+        coeff = _percep_apply(coeff, b, inverse=False)
+    return _quantize(coeff, qss, offset)
+
+
+def fused_dequantize_idct_ref(planes_u8: torch.Tensor, b: int = 8,
+                              qss: int = 32, offset: int = 128,
+                              perceptual: bool = False) -> torch.Tensor:
+    coeff = _dequantize(planes_u8, qss, offset)
+    if perceptual:
+        coeff = _percep_apply(coeff, b, inverse=True)
+    return _dct_inv(coeff, b)
+
+
+def fused_cdct_quantize_ref(planes: torch.Tensor, m, b: int = 8,
+                            qss: int = 32, offset: int = 128) -> torch.Tensor:
+    ct = _color(planes.to(torch.float32) - offset, m)
+    return _quantize(_dct_fwd(ct, b), qss, offset)
+
+
+def fused_dequantize_cdct_ref(planes_u8: torch.Tensor, m, b: int = 8,
+                              qss: int = 32, offset: int = 128
+                              ) -> torch.Tensor:
+    ct = _dct_inv(_dequantize(planes_u8, qss, offset), b)
+    pix = _color(ct, m) + offset
+    return torch.clamp(torch.round(pix).to(torch.int32), 0, 255
+                       ).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Kernel launches
+# ---------------------------------------------------------------------------
+
+def _launch(entry: str, x: torch.Tensor, out: torch.Tensor, b: int,
+            step: float, offset: int, perceptual: bool, m) -> None:
+    """Call one C entry of csrc/dct.cu; x and the fresh `out` are
+    (C, H, W) or (N, C, H, W)."""
+    lib = _build.load()
+    x = x.contiguous()
+    n = x.shape[0] if x.dim() == 4 else 1
+    c, h, w = x.shape[-3:]
+    dev = x.device
+    dmat = torch.from_numpy(dct_ops.dct_matrix(b)).to(dev)
+    scale = (torch.from_numpy(np.stack(dct_ops.perceptual_tables(b))).to(dev)
+             if perceptual else None)
+    mat = None
+    if m is not None:
+        mat = (ctypes.c_float * 9)(*[v for row in m for v in row])
+    with torch.cuda.device(dev):
+        rc = getattr(lib, entry)(
+            x.data_ptr(), out.data_ptr(), dmat.data_ptr(),
+            None if scale is None else scale.data_ptr(), mat,
+            n, c, h, w, b, step, offset, _build.stream_of(x))
+    _build.check(rc, entry)
+
+
+def fused_dct_quantize(planes: torch.Tensor, b: int = 8, qss: int = 32,
+                       offset: int = 128,
+                       perceptual: bool = False) -> torch.Tensor:
+    """(C, H, W) or (N, C, H, W) float32 -> uint8 quantization indexes,
+    block layout (subband reordering stays outside).  perceptual=True
+    multiplies the coefficients by the JPEG tables before the quantizer
+    (luma for channel 0, chroma for the others)."""
+    _check(planes, torch.float32, b, "fused_dct_quantize")
+    if _plain(planes):
+        return fused_dct_quantize_ref(planes, b, qss, offset, perceptual)
+    out = torch.empty(planes.shape, dtype=torch.uint8, device=planes.device)
+    _launch("vcf_dct_forward", planes, out, b, _recip(qss), offset,
+            perceptual, None)
+    fused_dct_quantize.launches += 1
+    return out
+
+
+def fused_dequantize_idct(planes_u8: torch.Tensor, b: int = 8, qss: int = 32,
+                          offset: int = 128,
+                          perceptual: bool = False) -> torch.Tensor:
+    """(C, H, W) or (N, C, H, W) uint8 indexes -> float32 planes (color
+    inverse and +offset stay outside).  perceptual=True divides the
+    dequantized coefficients by the JPEG tables."""
+    _check(planes_u8, torch.uint8, b, "fused_dequantize_idct")
+    if _plain(planes_u8):
+        return fused_dequantize_idct_ref(planes_u8, b, qss, offset,
+                                         perceptual)
+    out = torch.empty(planes_u8.shape, dtype=torch.float32,
+                      device=planes_u8.device)
+    _launch("vcf_dct_inverse", planes_u8, out, b, float(qss), offset,
+            perceptual, None)
+    fused_dequantize_idct.launches += 1
+    return out
+
+
+def fused_cdct_quantize(planes: torch.Tensor, m, b: int = 8, qss: int = 32,
+                        offset: int = 128) -> torch.Tensor:
+    """(3, H, W) or (N, 3, H, W) uint8 pixels -> uint8 quantization
+    indexes with the color forward fused in; `m` is the 3x3 forward
+    matrix (`static_mat`)."""
+    _check(planes, torch.uint8, b, "fused_cdct_quantize", channels=3)
+    if _plain(planes):
+        return fused_cdct_quantize_ref(planes, m, b, qss, offset)
+    out = torch.empty(planes.shape, dtype=torch.uint8, device=planes.device)
+    _launch("vcf_dct_forward", planes, out, b, _recip(qss), offset, False, m)
+    fused_cdct_quantize.launches += 1
+    return out
+
+
+def fused_dequantize_cdct(planes_u8: torch.Tensor, m, b: int = 8,
+                          qss: int = 32, offset: int = 128) -> torch.Tensor:
+    """(3, H, W) or (N, 3, H, W) uint8 indexes -> uint8 pixels with the
+    color inverse and round/clip fused in; `m` is the 3x3 INVERSE
+    matrix (`static_mat`)."""
+    _check(planes_u8, torch.uint8, b, "fused_dequantize_cdct", channels=3)
+    if _plain(planes_u8):
+        return fused_dequantize_cdct_ref(planes_u8, m, b, qss, offset)
+    out = torch.empty(planes_u8.shape, dtype=torch.uint8,
+                      device=planes_u8.device)
+    _launch("vcf_dct_inverse", planes_u8, out, b, float(qss), offset,
+            False, m)
+    fused_dequantize_cdct.launches += 1
+    return out
+
+
+for _fn in (fused_dct_quantize, fused_dequantize_idct, fused_cdct_quantize,
+            fused_dequantize_cdct):
+    _fn.launches = 0
+
+# vcf_tpu's pad-and-crop names: the kernels take any block-multiple shape
+fused_dct_quantize_any = fused_dct_quantize
+fused_dequantize_idct_any = fused_dequantize_idct

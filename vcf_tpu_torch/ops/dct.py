@@ -1,16 +1,17 @@
-"""Block 2D DCT and subband reordering (port of vcf_tpu/ops/dct.py; torch).
+"""Block 2D DCT, subband reordering and perceptual scaling (port of
+vcf_tpu/ops/dct.py; torch).
 
 Per-channel block-wise orthonormal 2D DCT-II as two float32 einsums with
-the BxB DCT matrix (the same contraction order as vcf_tpu's), and the
+the BxB DCT matrix (the same contraction order as vcf_tpu's), the
 permutation that gathers coefficient (u, v) of every block into subband
-(u, v).  On the TPU this work is XLA outside any kernel; here it is
-torch's matmul, in full float32 on CUDA (the `Codec` refuses TF32).
-Perceptual (JPEG-table) prescaling is not ported yet (ROADMAP A17).
+(u, v), and the JPEG-table perceptual prescale.  On the TPU this work is
+XLA outside any kernel; here it is torch's matmul, in full float32 on
+CUDA (the `Codec` refuses TF32).
 
-Layout conventions (channel-last images `(H, W, C)`, H and W already
-multiples of the block size B):
+Layout conventions (channel-last images `(..., H, W, C)` with any
+leading frame axes, H and W already multiples of the block size B):
 
-    blocks view      : (H//B, B, W//B, B, C)
+    blocks view      : (..., H//B, B, W//B, B, C)
     subband layout   : out[u*(H//B)+by, v*(W//B)+bx, c]
                          = coeff[by*B+u, bx*B+v, c]
 """
@@ -35,21 +36,21 @@ def dct_matrix(n: int) -> np.ndarray:
 
 
 def _to_blocks(img: torch.Tensor, b: int) -> torch.Tensor:
-    h, w, c = img.shape
-    return img.reshape(h // b, b, w // b, b, c)
+    *lead, h, w, c = img.shape
+    return img.reshape(*lead, h // b, b, w // b, b, c)
 
 
 def _from_blocks(blocks: torch.Tensor) -> torch.Tensor:
-    nby, b, nbx, b2, c = blocks.shape
-    return blocks.reshape(nby * b, nbx * b2, c)
+    *lead, nby, b, nbx, b2, c = blocks.shape
+    return blocks.reshape(*lead, nby * b, nbx * b2, c)
 
 
 def analyze(img: torch.Tensor, b: int) -> torch.Tensor:
-    """Blockwise forward 2D DCT-II of a (H, W, C) image; H, W % b == 0."""
+    """Blockwise forward 2D DCT-II of a (..., H, W, C) image; H, W % b == 0."""
     d = torch.from_numpy(dct_matrix(b)).to(img.device)
     x = _to_blocks(img.to(torch.float32), b)
-    y = torch.einsum("ur,yrxsc->yuxsc", d, x)
-    y = torch.einsum("vs,yuxsc->yuxvc", d, y)
+    y = torch.einsum("ur,...yrxsc->...yuxsc", d, x)
+    y = torch.einsum("vs,...yuxsc->...yuxvc", d, y)
     return _from_blocks(y)
 
 
@@ -57,25 +58,27 @@ def synthesize(coeff: torch.Tensor, b: int) -> torch.Tensor:
     """Blockwise inverse 2D DCT (transpose of `analyze`)."""
     d = torch.from_numpy(dct_matrix(b)).to(coeff.device)
     y = _to_blocks(coeff.to(torch.float32), b)
-    x = torch.einsum("ur,yuxvc->yrxvc", d, y)
-    x = torch.einsum("vs,yrxvc->yrxsc", d, x)
+    x = torch.einsum("ur,...yuxvc->...yrxvc", d, y)
+    x = torch.einsum("vs,...yrxvc->...yrxsc", d, x)
     return _from_blocks(x)
 
 
 def to_subbands(coeff: torch.Tensor, b: int) -> torch.Tensor:
     """Gather coefficient (u, v) of all blocks into subband (u, v)."""
-    h, w, c = coeff.shape
-    x = coeff.reshape(h // b, b, w // b, b, c)          # (by, u, bx, v, c)
-    x = x.permute(1, 0, 3, 2, 4)                         # (u, by, v, bx, c)
-    return x.reshape(h, w, c)
+    *lead, h, w, c = coeff.shape
+    n = len(lead)
+    x = coeff.reshape(*lead, h // b, b, w // b, b, c)   # (by, u, bx, v, c)
+    x = x.permute(*range(n), n + 1, n, n + 3, n + 2, n + 4)
+    return x.reshape(*lead, h, w, c)
 
 
 def from_subbands(sub: torch.Tensor, b: int) -> torch.Tensor:
     """Inverse of `to_subbands`."""
-    h, w, c = sub.shape
-    x = sub.reshape(b, h // b, b, w // b, c)             # (u, by, v, bx, c)
-    x = x.permute(1, 0, 3, 2, 4)                         # (by, u, bx, v, c)
-    return x.reshape(h, w, c)
+    *lead, h, w, c = sub.shape
+    n = len(lead)
+    x = sub.reshape(*lead, b, h // b, b, w // b, c)     # (u, by, v, bx, c)
+    x = x.permute(*range(n), n + 1, n, n + 3, n + 2, n + 4)
+    return x.reshape(*lead, h, w, c)
 
 
 # ---------------------------------------------------------------------------
@@ -104,3 +107,139 @@ def unpad_centered(img: torch.Tensor, original_shape) -> torch.Tensor:
     ph, pw = img.shape[0] - h, img.shape[1] - w
     top, left = ph // 2, pw // 2
     return img[top : top + h, left : left + w]
+
+
+# ---------------------------------------------------------------------------
+# Perceptual (JPEG-table) coefficient pre-scaling (reference:
+# src/2D-DCT.py:63-90 tables, :313-327 apply).  Coefficients are *scaled*
+# before quantization by table/max(table) per channel class and unscaled on
+# decode.  Tables are resized to BxB with area/linear interpolation.
+# ---------------------------------------------------------------------------
+
+JPEG_LUMA_QT = np.array(
+    [
+        [16, 11, 10, 16, 24, 40, 51, 61],
+        [12, 12, 14, 19, 26, 58, 60, 55],
+        [14, 13, 16, 24, 40, 57, 69, 56],
+        [14, 17, 22, 29, 51, 87, 80, 62],
+        [18, 22, 37, 56, 68, 109, 103, 77],
+        [24, 35, 55, 64, 81, 104, 113, 92],
+        [49, 64, 78, 87, 103, 121, 120, 101],
+        [72, 92, 95, 98, 112, 100, 103, 99],
+    ],
+    dtype=np.float32,
+)
+JPEG_CHROMA_QT = np.array(
+    [
+        [17, 18, 24, 47, 99, 99, 99, 99],
+        [18, 21, 26, 66, 99, 99, 99, 99],
+        [24, 26, 56, 99, 99, 99, 99, 99],
+        [47, 66, 99, 99, 99, 99, 99, 99],
+        [99, 99, 99, 99, 99, 99, 99, 99],
+        [99, 99, 99, 99, 99, 99, 99, 99],
+        [99, 99, 99, 99, 99, 99, 99, 99],
+        [99, 99, 99, 99, 99, 99, 99, 99],
+    ],
+    dtype=np.float32,
+)
+
+
+def _linear_coeffs(dst_n: int, src_n: int):
+    """Half-pixel-center bilinear taps with 11-bit fixed-point weights
+    (the standard imaging fixed-point convention; border clamp)."""
+    scale = src_n / dst_n
+    idx = np.empty(dst_n, np.int64)
+    a0 = np.empty(dst_n, np.int64)
+    for x in range(dst_n):
+        fx = (x + 0.5) * scale - 0.5
+        s = int(np.floor(fx))
+        f = fx - s
+        if s < 0:
+            s, f = 0, 0.0
+        if s >= src_n - 1:
+            s, f = src_n - 2, 1.0
+        idx[x] = s
+        a0[x] = int(np.rint((1.0 - f) * 2048.0))
+    return idx, a0
+
+
+def resize_linear_u8(src: np.ndarray, b: int) -> np.ndarray:
+    """uint8 bilinear resize to (b, b), 22-bit fixed-point accumulate
+    (cv2.resize INTER_LINEAR within +-1 on half-integer cases)."""
+    sh, sw = src.shape
+    xs, ax = _linear_coeffs(b, sw)
+    ys, ay = _linear_coeffs(b, sh)
+    s = src.astype(np.int64)
+    h = s[:, xs] * ax[None, :] + s[:, xs + 1] * (2048 - ax[None, :])
+    out = (h[ys, :] * ay[:, None] + h[ys + 1, :] * (2048 - ay[:, None])
+           + (1 << 21)) >> 22
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def _area_tab(dst_n: int, src_n: int):
+    """1-D area-decimation table [(dst, src, w)] with float32 weights
+    (partial-cell coverage / scale), the cv2 generic-area layout."""
+    scale = src_n / dst_n
+    cell = np.float32(1.0 / scale)
+    tab = []
+    for dx in range(dst_n):
+        f1 = dx * scale
+        f2 = f1 + scale
+        s1, s2 = int(np.ceil(f1)), int(np.floor(f2))
+        if s1 - f1 > 1e-3:
+            tab.append((dx, s1 - 1, np.float32((s1 - f1) / scale)))
+        for sx in range(s1, s2):
+            tab.append((dx, sx, cell))
+        if f2 - s2 > 1e-3:
+            tab.append((dx, s2, np.float32((f2 - s2) / scale)))
+    return tab
+
+
+def resize_area_u8(src: np.ndarray, b: int) -> np.ndarray:
+    """uint8 area-average downscale to (b, b), cv2.resize INTER_AREA
+    (integer-ratio fast path: (sum + area/2) // area; generic path:
+    float32 separable weights, round-half-even)."""
+    sh, sw = src.shape
+    ry, rx = sh / b, sw / b
+    if ry == int(ry) and rx == int(rx):
+        iy, ix = int(ry), int(rx)
+        area = iy * ix
+        s = src.astype(np.int64).reshape(b, iy, b, ix).sum((1, 3))
+        return ((s + area // 2) // area).astype(np.uint8)
+    hbuf = np.zeros((sh, b), np.float32)
+    for dx, sx, w in _area_tab(b, sw):
+        hbuf[:, dx] += src[:, sx].astype(np.float32) * w
+    out = np.zeros((b, b), np.float32)
+    for dy, sy, w in _area_tab(b, sh):
+        out[dy, :] += hbuf[sy, :] * w
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+@functools.lru_cache(maxsize=None)
+def perceptual_tables(b: int):
+    """(luma, chroma) BxB scale tables in [~0.08, 1].  The reference
+    resizes the uint8 JPEG tables with cv2 (INTER_AREA if b<8 else
+    INTER_LINEAR, src/2D-DCT.py:63-90) and divides by the max entry
+    (121 luma / 99 chroma); the resize is reproduced by the numpy
+    resamplers above."""
+    if b < 8:
+        luma = resize_area_u8(JPEG_LUMA_QT.astype(np.uint8), b)
+        chroma = resize_area_u8(JPEG_CHROMA_QT.astype(np.uint8), b)
+    else:
+        luma = resize_linear_u8(JPEG_LUMA_QT.astype(np.uint8), b)
+        chroma = resize_linear_u8(JPEG_CHROMA_QT.astype(np.uint8), b)
+    return luma.astype(np.float32) / 121.0, chroma.astype(np.float32) / 99.0
+
+
+def perceptual_scale(coeff: torch.Tensor, b: int,
+                     inverse: bool = False) -> torch.Tensor:
+    """Multiply (or divide) block-layout (..., H, W, 3) coefficients by
+    the per-frequency perceptual tables; channel 0 uses the luma table,
+    channels 1-2 chroma."""
+    luma, chroma = perceptual_tables(b)
+    table = torch.from_numpy(np.stack([luma, chroma, chroma], axis=-1)
+                             ).to(coeff.device)            # (b, b, 3)
+    x = _to_blocks(coeff, b)                               # (..., b, nbx, b, c)
+    t = table[:, None, :, :]
+    x = x / t if inverse else x * t
+    return _from_blocks(x)

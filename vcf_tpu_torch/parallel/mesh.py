@@ -1,0 +1,174 @@
+"""Batch codec on one torch device (port of vcf_tpu/parallel/mesh.py,
+`BatchCodec`, deadzone flow).
+
+vcf_tpu vmaps the per-frame device work over the frame axis and shards
+the frames over a mesh with shard_map.  Here the frame axis is a tensor
+batch dimension on one device, and one kernel launch covers the clip.
+The mesh, `make_mesh`/`shard_batch` and the multi-device split wait for
+ROADMAP A15; the Lloyd-Max flow and `shared_levels` for A11.
+
+Routes, chosen once from the config as vcf_tpu's `_build` chooses them:
+
+* ``use_pallas`` and a linear color (ycocg, ycocg_r -> ycocg, ycrcb,
+  cdct) without perceptual scaling: the color-fused kernels
+  `fused_cdct_quantize` / `fused_dequantize_cdct` (B3/B4), u8 -> u8;
+* ``use_pallas`` otherwise (``color="none"``, perceptual): the color
+  transform in torch around `fused_dct_quantize` /
+  `fused_dequantize_idct` (B1/B2);
+* ``use_pallas=False``: the unfused torch route, the counterpart of
+  vcf_tpu's XLA branch.
+
+On a CPU device the kernel routes run the kernels' plain torch versions;
+on CUDA they launch the kernels.  The TPU's shape gates (`supports`,
+32-row / 128-lane tiles) have no counterpart: the kernels take any
+block-multiple frame.  Subband order is applied to the kernels' block
+layout outside them, as vcf_tpu does.  The kernels are planar, so each
+direction transposes (N, H, W, 3) <-> (N, 3, H, W) with a full copy.
+
+Indexes saturate to [0, 255] on the kernel routes (src/deadzone.py:64)
+and wrap through uint8 on the torch route, as on vcf_tpu's two routes
+(ROADMAP C4).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from vcf_tpu_torch.config import CodecConfig
+from vcf_tpu_torch.ops import color as color_ops
+from vcf_tpu_torch.ops import dct as dct_ops
+from vcf_tpu_torch.ops import quantize as q_ops
+from vcf_tpu_torch.ops.cuda import dct_kernel as dk
+from vcf_tpu_torch.pipeline import check_full_fp32
+
+def _on_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """uint8 array -> tensor on `device`, keeping numpy's strides: a
+    channel-planar (N, H, W, 3) array uploads as it lies, with no
+    transposing copy on the host (torch.from_numpy takes any strides
+    but negative ones)."""
+    arr = np.asarray(arr, np.uint8)
+    if any(st < 0 for st in arr.strides):
+        arr = arr.copy()
+    return torch.from_numpy(arr).to(device)
+
+
+# the deadzone flow subtracts 128 before the transform and adds it to the
+# indexes (src/2D-DCT.py:107-110)
+_SOFF = 128
+
+_COLOR_MATS = {
+    "ycocg": (color_ops.YCOCG_FWD, color_ops.YCOCG_INV),
+    "ycrcb": (color_ops.YCRCB_FWD, color_ops.YCRCB_INV),
+    "cdct": (color_ops.CDCT_FWD, color_ops.CDCT_INV),
+}
+
+
+class BatchCodec:
+    """Encode/decode of a batch of frames (N, H, W, 3) on one device.
+
+    Device work (color transform + block DCT + quantize) runs on the
+    whole batch at once; entropy coding of the index planes is the
+    caller's (see `vcf_tpu_torch.video.IIICodec`)."""
+
+    def __init__(self, config: CodecConfig, device):
+        if (config.spatial != "dct"
+                or config.quantizer not in ("deadzone", "lloydmax")):
+            raise NotImplementedError(
+                "BatchCodec supports the dct+deadzone/lloydmax flows; "
+                "use vcf_tpu_torch.Codec per frame for other compositions")
+        if config.quantizer == "lloydmax":
+            raise NotImplementedError(
+                "the Lloyd-Max BatchCodec is not ported yet (ROADMAP "
+                "queue A, item A11)")
+        self.config = config
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            check_full_fp32()
+        #: side info of the last encode (Lloyd-Max levels; empty here)
+        self.last_qside: dict = {}
+        cname = "ycocg" if config.color == "ycocg_r" else config.color
+        self._fwd, self._inv = color_ops.get(cname)
+        mats = None if config.perceptual else _COLOR_MATS.get(cname)
+        if not config.use_pallas:
+            self.route = "torch"
+        elif mats is not None:
+            self.route = "cdct"
+            self._mf, self._mi = dk.static_mat(mats[0]), dk.static_mat(mats[1])
+        else:
+            self.route = "planes"
+
+    # ------------------------------------------------------------------
+    def _encode(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, 3) uint8 on the device -> (N, H, W, 3) uint8 indexes
+        in the config's layout."""
+        cfg, b, soff = self.config, self.config.block_size, _SOFF
+        if self.route == "torch":
+            coeff = dct_ops.analyze(self._fwd(x.to(torch.float32) - soff), b)
+            if cfg.perceptual:
+                coeff = dct_ops.perceptual_scale(coeff, b)
+            if cfg.subbands:
+                coeff = dct_ops.to_subbands(coeff, b)
+            k = q_ops.deadzone_quantize(coeff, cfg.qss)
+            return (k + soff).to(torch.uint8)          # wraps, as XLA's cast
+        if self.route == "cdct":
+            k = dk.fused_cdct_quantize(x.permute(0, 3, 1, 2).contiguous(),
+                                       self._mf, b=b, qss=cfg.qss,
+                                       offset=soff)
+        else:
+            ct = self._fwd(x.to(torch.float32) - soff)
+            k = dk.fused_dct_quantize(ct.permute(0, 3, 1, 2).contiguous(),
+                                      b=b, qss=cfg.qss, offset=soff,
+                                      perceptual=cfg.perceptual)
+        k = k.permute(0, 2, 3, 1)
+        # a pure permutation of stored indexes: commutes with quantization
+        return (dct_ops.to_subbands(k, b) if cfg.subbands
+                else k.contiguous())
+
+    def _decode(self, k_u8: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, 3) uint8 indexes on the device -> uint8 frames."""
+        cfg, b, soff = self.config, self.config.block_size, _SOFF
+        if self.route == "torch":
+            coeff = q_ops.deadzone_dequantize(k_u8.to(torch.int32) - soff,
+                                              cfg.qss)
+            if cfg.subbands:
+                coeff = dct_ops.from_subbands(coeff, b)
+            if cfg.perceptual:
+                coeff = dct_ops.perceptual_scale(coeff, b, inverse=True)
+            y = self._inv(dct_ops.synthesize(coeff, b)) + soff
+            return torch.clamp(torch.round(y), 0, 255).to(torch.uint8)
+        if cfg.subbands:
+            k_u8 = dct_ops.from_subbands(k_u8, b)
+        planes = k_u8.permute(0, 3, 1, 2).contiguous()
+        if self.route == "cdct":
+            pix = dk.fused_dequantize_cdct(planes, self._mi, b=b, qss=cfg.qss,
+                                           offset=soff)
+            return pix.permute(0, 2, 3, 1).contiguous()
+        ct = dk.fused_dequantize_idct(planes, b=b, qss=cfg.qss, offset=soff,
+                                      perceptual=cfg.perceptual)
+        y = self._inv(ct.permute(0, 2, 3, 1)) + soff
+        return torch.clamp(torch.round(y), 0, 255).to(torch.uint8)
+
+    # ------------------------------------------------------------------
+    def encode_planes(self, frames: np.ndarray) -> np.ndarray:
+        """(N, H, W, 3) uint8 -> (N, Hp, Wp, 3) uint8 index planes."""
+        b = self.config.block_size
+        x = _on_device(frames, self.device)
+        if x.shape[1] % b or x.shape[2] % b:
+            x = torch.stack([dct_ops.pad_centered(f, b) for f in x])
+        return self._encode(x).cpu().numpy()
+
+    def decode_planes(self, planes: np.ndarray, original_hw=None,
+                      qside=None) -> np.ndarray:
+        """(N, Hp, Wp, 3) uint8 index planes -> (N, H, W, 3) uint8 frames,
+        cropped (centered) to `original_hw` when given.  `qside` is the
+        Lloyd-Max side info of vcf_tpu's signature, unused by deadzone."""
+        k = _on_device(planes, self.device)
+        frames = self._decode(k)
+        if original_hw is not None and tuple(frames.shape[1:3]) != tuple(
+                original_hw):
+            h, w = original_hw
+            top = (frames.shape[1] - h) // 2
+            left = (frames.shape[2] - w) // 2
+            frames = frames[:, top:top + h, left:left + w].contiguous()
+        return frames.cpu().numpy()

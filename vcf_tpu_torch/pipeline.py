@@ -2,9 +2,9 @@
 
 A `Codec` is built from a `CodecConfig` and an explicit torch device.
 The ported flows are the block-DCT spatial pipeline with the deadzone
-quantizer (color transform -> 8x8 block DCT -> subband order -> deadzone
--> entropy; src/2D-DCT.py encode_fn/decode_fn) and the entropy-only
-flow.  Every other flow raises NotImplementedError when the `Codec` is
+quantizer (color transform -> 8x8 block DCT -> optional perceptual
+prescale -> subband order -> deadzone -> entropy; src/2D-DCT.py
+encode_fn/decode_fn) and the entropy-only flow.  Every other flow raises NotImplementedError when the `Codec` is
 built, naming its ROADMAP queue-A item.
 
 The pixel math runs on the device as torch ops; the entropy codec gets
@@ -45,8 +45,6 @@ def _not_ported(cfg: CodecConfig):
             return f"the {cfg.quantizer} quantizer", "A11"
         if cfg.quantizer != "deadzone":
             return "the dct flow without a quantizer", "A17"
-        if cfg.perceptual:
-            return "perceptual coefficient scaling", "A17"
         return None
     if cfg.color != "none":
         return "the color-only flow", "A17"
@@ -93,6 +91,8 @@ class Codec:
     def _analyze(self, padded: torch.Tensor) -> torch.Tensor:
         b = self.config.block_size
         coeff = dct_ops.analyze(self._fwd(padded - self.spatial_offset), b)
+        if self.config.perceptual:
+            coeff = dct_ops.perceptual_scale(coeff, b)
         if self.config.subbands:
             coeff = dct_ops.to_subbands(coeff, b)
         return coeff
@@ -101,6 +101,8 @@ class Codec:
         b = self.config.block_size
         if self.config.subbands:
             coeff = dct_ops.from_subbands(coeff, b)
+        if self.config.perceptual:
+            coeff = dct_ops.perceptual_scale(coeff, b, inverse=True)
         return self._inv(dct_ops.synthesize(coeff, b)) + self.spatial_offset
 
     def _quantize(self, decom: torch.Tensor) -> torch.Tensor:
