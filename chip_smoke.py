@@ -26,7 +26,22 @@ kernels from vcf_tpu_torch/csrc on first use.  Phases:
    BatchCodec planes agree with the per-frame Codec on the card under
    the +-1 rule; the decoded planes round-trip exactly; rmse within 1e-3
    of the port's CPU BatchCodec), then a perceptual clip of 2 frames,
-   through which B1/B2 must launch.
+   through which B1/B2 must launch;
+3c. motion kernels on the lumas of test_video(8, 1088, 1920, seed=7):
+   sad_search with ref = frames 0..6 and cur = frames 1..7 (m=16, s=8)
+   against its plain version (0 differing mvs, SAD max_abs_err 0), and
+   mc_apply_planar / mc_apply (channel-last) on the (7, 3, 1088, 1920)
+   float32 frames with seeded mvs in [-8, 8], the frame-edge blocks
+   pointing out of the frame, bit-exact; CUDA-event times of each;
+4c. main path, IPP: IPPCodec(VideoConfig(mode="ipp", n_frames=8,
+   gop_size=4, me_block=16, search_range=8), CodecConfig(entropy="grans",
+   subbands=False), "cuda") encode -> bytes -> decode of that clip (SAD,
+   MC, B1/B2 and K1-K3 must launch; the decoded index planes equal the
+   encoded ones; the decoded frames equal the encoder's closed-loop
+   reconstruction; rmse within 1e-2 of the port's CPU run of the whole
+   clip, with the share of mv blocks and indexes that differ, and equal
+   streams when none differs), with warm encode/decode times and the
+   split of each into its device loop and its entropy stage.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Any failed check raises (non-zero exit, no result).  The last
@@ -55,6 +70,11 @@ MAX_INDEX_DIFF, MAX_DIFF_SHARE = 1, 1e-4
 # passes of 8-term sums in another order, a few ulp of 2^-15 each
 MAX_PLANE_ERR = 1e-2
 PERCEPTUAL_FRAMES = 2
+# the IPP configuration of benchmarks/bench_ipp.py:35-40
+ME_BLOCK, SEARCH, GOP = 16, 8, 4
+# GPU against CPU IPP run: the ±1 index knife edge of the transforms may
+# move a reconstruction, and so the P chain after it, a little
+MAX_IPP_RMSE_DIFF = 1e-2
 
 
 def require(cond: bool, msg: str) -> None:
@@ -457,6 +477,185 @@ def phase_clip(dev, frames: np.ndarray, planes_codec: torch.Tensor) -> dict:
             "fused_dequantize_idct": launches_p["fused_dequantize_idct"]}
 
 
+def phase_motion_kernels(dev, clip: np.ndarray) -> list:
+    from vcf_tpu_torch.ops import motion
+    from vcf_tpu_torch.ops.cuda import mc_kernel as mk
+    from vcf_tpu_torch.ops.cuda import sad_kernel as sk
+
+    x = torch.from_numpy(clip).to(dev)
+    luma = motion.to_luma(x)
+    ref_l, cur_l = luma[:-1].contiguous(), luma[1:].contiguous()
+    mv_k, sad_k = sk.sad_search(ref_l, cur_l, ME_BLOCK, SEARCH)
+    mv_p, sad_p = sk.sad_search_ref(ref_l, cur_l, ME_BLOCK, SEARCH)
+    torch.cuda.synchronize()
+    n_mv = int((mv_k != mv_p).any(-1).sum())
+    sad_err = float((sad_k - sad_p).abs().max())
+    require(n_mv == 0 and sad_err == 0,
+            f"sad_search differs from its plain version: {n_mv} mvs, "
+            f"SAD max {sad_err}")
+    moving = float((mv_k != 0).any(-1).double().mean())
+
+    g, h, w = cur_l.shape
+    frames = x[:-1].permute(0, 3, 1, 2).to(torch.float32).contiguous()
+    rng = np.random.default_rng(5)
+    mv = rng.integers(-SEARCH, SEARCH + 1,
+                      (g, h // ME_BLOCK, w // ME_BLOCK, 2)).astype(np.int32)
+    mv[:, 0, :, 0], mv[:, -1, :, 0] = -SEARCH, SEARCH   # out of the frame
+    mv[:, :, 0, 1], mv[:, :, -1, 1] = -SEARCH, SEARCH
+    mv_t = torch.from_numpy(mv).to(dev)
+    out_k = mk.mc_apply_planar(frames, mv_t, ME_BLOCK)
+    mc_err = float((out_k - mk.mc_apply_planar_ref(frames, mv_t, ME_BLOCK)
+                    ).abs().max())
+    frames_cl = frames.permute(0, 2, 3, 1).contiguous()
+    out_cl = mk.mc_apply(frames_cl, mv_t, ME_BLOCK)
+    cl_err = float((out_cl - mk.mc_apply_ref(frames_cl, mv_t, ME_BLOCK)
+                    ).abs().max())
+    torch.cuda.synchronize()
+    require(mc_err == 0 and cl_err == 0,
+            f"MC kernel differs from its plain version: planar {mc_err}, "
+            f"channel-last {cl_err}")
+    require(torch.equal(out_cl, out_k.permute(0, 2, 3, 1)),
+            "the two MC layouts disagree")
+    print(f"motion kernels: {g}x{h}x{w}, m={ME_BLOCK} s={SEARCH}: SAD mvs "
+          f"and SADs equal ({moving:.3f} of blocks move); MC planar and "
+          "channel-last bit-exact")
+
+    rows = [
+        ("sad_search", "vcf_tpu/ops/pallas/sad_kernel.py:58",
+         "vcf_tpu/ops/pallas/sad_kernel.py:141", sad_err,
+         lambda: sk.sad_search(ref_l, cur_l, ME_BLOCK, SEARCH),
+         lambda: sk.sad_search_ref(ref_l, cur_l, ME_BLOCK, SEARCH)),
+        ("mc_apply_planar", "vcf_tpu/ops/pallas/mc_kernel.py:115",
+         "vcf_tpu/ops/pallas/mc_kernel.py:103", mc_err,
+         lambda: mk.mc_apply_planar(frames, mv_t, ME_BLOCK),
+         lambda: mk.mc_apply_planar_ref(frames, mv_t, ME_BLOCK)),
+    ]
+    results = []
+    for name, rep, also, err, kern, plain in rows:
+        ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 3)
+        print(f"time {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms")
+        results.append({"name": name, "route": "cuda",
+                        "source": "vcf_tpu_torch/csrc/motion.cu",
+                        "replaces": rep, "also_replaces": also, "launches": 0,
+                        "max_abs_err": err, "diff_share": 0.0, "ms": ms,
+                        "plain_ms": plain_ms})
+    print(f"time mc_apply (channel-last): kernel "
+          f"{cuda_ms(lambda: mk.mc_apply(frames_cl, mv_t, ME_BLOCK), 20):.4f}"
+          f" ms, plain torch "
+          f"{cuda_ms(lambda: mk.mc_apply_ref(frames_cl, mv_t, ME_BLOCK), 3):.4f}"
+          " ms")
+    return results
+
+
+def ipp_split(ipp, clip: np.ndarray) -> dict:
+    """Warm stage times of the IPP codec, host clock around synchronized
+    calls: the whole encode and decode, then each split into its device
+    GOP loop (with the planes' copy to the host) and its entropy stage."""
+    def ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    out = {}
+    out["encode"], cs = ms(lambda: ipp.encode(clip))
+    out["decode"], _ = ms(lambda: ipp.decode(cs))
+    n, h, w, _ = clip.shape
+    gops = torch.from_numpy(clip).to(ipp.device).reshape(-1, GOP, h, w, 3)
+    out["encode: GOP loop"], enc = ms(lambda: ipp._gop_encode(gops))
+    out["encode: planes to host"], planes = ms(
+        lambda: ipp._store(enc[0]).reshape(n, h, w, 3).cpu().numpy())
+    out["encode: entropy"], (payload, side) = ms(
+        lambda: ipp.entropy_codec.encode(planes))
+    out["decode: entropy"], back = ms(
+        lambda: ipp.entropy_codec.decode(payload, side))
+    planes_t = ipp._load(torch.from_numpy(back).to(ipp.device).reshape(
+        -1, GOP, h, w, 3))
+    out["decode: GOP loop"], _ = ms(
+        lambda: ipp._gop_decode(planes_t, enc[1]))
+    return out
+
+
+def phase_ipp(dev, clip: np.ndarray) -> dict:
+    from vcf_tpu_torch import CodecConfig, CodeStream, metrics, video
+    from vcf_tpu_torch.config import VideoConfig
+    from vcf_tpu_torch.ops.cuda import dct_kernel as dk
+    from vcf_tpu_torch.ops.cuda import mc_kernel as mk
+    from vcf_tpu_torch.ops.cuda import rans_decode as rd
+    from vcf_tpu_torch.ops.cuda import rans_encode as re_
+    from vcf_tpu_torch.ops.cuda import sad_kernel as sk
+
+    kernels = {"sad_search": sk.sad_search,
+               "mc_apply_planar": mk.mc_apply_planar,
+               "fused_dct_quantize": dk.fused_dct_quantize,
+               "fused_dequantize_idct": dk.fused_dequantize_idct,
+               "rans_encode_grouped": re_.rans_encode_grouped,
+               "rans_compact": re_.rans_compact,
+               "rans_decode_grouped": rd.rans_decode_grouped}
+    n = len(clip)
+    vcfg = VideoConfig(mode="ipp", n_frames=n, gop_size=GOP,
+                       me_block=ME_BLOCK, search_range=SEARCH)
+    ccfg = CodecConfig(entropy="grans", subbands=False)
+    ipp = video.get(vcfg, ccfg, dev)
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    cs = ipp.encode(clip)
+    blob = cs.to_bytes()
+    cs2 = CodeStream.from_bytes(blob)
+    rec = ipp.decode(cs2)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    print(f"ipp path: launches {launches}")
+    for name, count in launches.items():
+        require(count > 0, f"kernel {name} was not launched on the IPP path")
+
+    side = {name[len("clip."):]: cs2[name] for name in cs2
+            if name.startswith("clip.") and name != "clip.payload"}
+    back = ipp.entropy_codec.decode(cs2["clip.payload"], side)
+    require(np.array_equal(back, ipp.last_planes),
+            "IPP index planes did not round-trip")
+    require(np.array_equal(rec.astype(np.float32),
+                           ipp.last_recon.cpu().numpy()),
+            "the decoder differs from the encoder's closed-loop reconstruction")
+
+    cpu = video.get(vcfg, ccfg, "cpu")
+    t0 = time.perf_counter()
+    cs_cpu = cpu.encode(clip)
+    cpu_s = time.perf_counter() - t0
+    rec_cpu = cpu.last_recon.to(torch.uint8).numpy()
+    mv_names = [name for name in cs if name.startswith("mv_")]
+    mv_diff = sum(int((cs.get_array(k) != cs_cpu.get_array(k)).any(-1).sum())
+                  for k in mv_names)
+    mv_total = sum(cs.get_array(k).shape[0] * cs.get_array(k).shape[1]
+                   for k in mv_names)
+    idx_diff = int(np.count_nonzero(ipp.last_planes != cpu.last_planes))
+    rmse, rmse_cpu = metrics.rmse(clip, rec), metrics.rmse(clip, rec_cpu)
+    require(abs(rmse - rmse_cpu) <= MAX_IPP_RMSE_DIFF,
+            f"IPP rmse {rmse} vs CPU run {rmse_cpu}")
+    if mv_diff == 0 and idx_diff == 0:
+        require(blob == cs_cpu.to_bytes(),
+                "equal mvs and indexes but GPU and CPU streams differ")
+    split = ipp_split(ipp, clip)
+    enc_ms, dec_ms = split["encode"], split["decode"]
+    report = {"rmse": rmse, "rmse_cpu": rmse_cpu,
+              "bpp": metrics.bpp(cs, clip.shape),
+              "cpu_run": f"whole clip, {cpu_s:.1f} s",
+              "mv_blocks_differing_from_cpu": mv_diff / mv_total,
+              "indexes_differing_from_cpu": idx_diff / ipp.last_planes.size,
+              "streams_equal": blob == cs_cpu.to_bytes(),
+              "first_run_s": seconds, "warm_encode_ms": enc_ms,
+              "warm_decode_ms": dec_ms,
+              "gb_per_s": clip.nbytes / ((enc_ms + dec_ms) * 1e-3) / 1e9}
+    print(f"ipp clip {n}x{clip.shape[1]}x{clip.shape[2]} grans: "
+          f"{json.dumps(report)}")
+    print(f"ipp warm split (ms, host clock, synchronized): {json.dumps(split)}")
+    return {"sad_search": launches["sad_search"],
+            "mc_apply_planar": launches["mc_apply_planar"]}
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
@@ -470,8 +669,13 @@ def main() -> None:
                           frames)
     results = phase_kernels(dev, planes)
     results += phase_dct_kernels(dev, frames)
+    from vcf_tpu_torch.io import test_video
+
+    clip = test_video(FRAMES, H, W, seed=7)
+    results += phase_motion_kernels(dev, clip)
     launches = phase_main_path(dev, frames, planes)
     launches.update(phase_clip(dev, frames, planes))
+    launches.update(phase_ipp(dev, clip))
     for row in results:
         row["launches"] = launches[row["name"]]
     print(json.dumps({"kernels": results}))

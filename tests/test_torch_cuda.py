@@ -1,7 +1,8 @@
-"""Card-only checks of the port: the CUDA kernels K1-K3 and B1-B4
-against their plain torch versions, and the Codec, entropy codecs,
-BatchCodec and IIICodec on CUDA against the same on the CPU (entropy
-bytes identical on identical index planes).
+"""Card-only checks of the port: the CUDA kernels K1-K3, B1-B4 and the
+motion kernels (SAD search, motion compensation) against their plain
+torch versions, and the Codec, entropy codecs, BatchCodec, IIICodec and
+IPPCodec on CUDA against the same on the CPU (entropy bytes identical on
+identical index planes).
 
 The kernels have no CPU mode, so every test here is marked `cuda` and
 skips without a card.  The file imports neither JAX nor vcf_tpu, so it
@@ -14,6 +15,8 @@ indexes and the codecs' indexes follow the +-1 rule (a float32 sum taken
 in another order moves an index by at most 1, on at most 0.01% of
 entries); B2 planes within 1e-3 absolute; decoded pixels from identical
 planes d.max() <= 1 on < 0.1% of entries; rmse agrees to 3 decimals.
+The SAD kernel sums in float64, exactly, so its mvs and SADs equal the
+plain version's; motion compensation is a copy, bit-exact.
 """
 
 import numpy as np
@@ -28,9 +31,12 @@ from vcf_tpu_torch.io import test_image as make_test_image
 from vcf_tpu_torch.io import test_video as make_test_video
 from vcf_tpu_torch.ops import color as color_ops
 from vcf_tpu_torch.ops import dct as dct_ops
+from vcf_tpu_torch.ops import motion
 from vcf_tpu_torch.ops.cuda import dct_kernel as dk
+from vcf_tpu_torch.ops.cuda import mc_kernel as mk
 from vcf_tpu_torch.ops.cuda import rans_decode as rd
 from vcf_tpu_torch.ops.cuda import rans_encode as re_
+from vcf_tpu_torch.ops.cuda import sad_kernel as sk
 from vcf_tpu_torch.parallel import BatchCodec
 
 pytestmark = pytest.mark.cuda
@@ -208,3 +214,77 @@ def test_iii_on_cuda_matches_cpu(dev, entropy_name):
     _pixel_rule(rec_g, cpu.decode(cs_g))
     assert abs(metrics.rmse(frames, rec_g)
                - metrics.rmse(frames, cpu.decode(cs_c))) < 1e-3
+
+
+# (G, H, W, m, s): both block sizes and ranges, G > 1, non-square frames
+SAD_CASES = [(3, 48, 80, 8, 4), (2, 64, 96, 16, 8), (1, 32, 160, 16, 4),
+             (4, 56, 48, 8, 8)]
+
+
+@pytest.mark.parametrize("g,h,w,m,s", SAD_CASES)
+def test_sad_kernel_matches_plain_version(dev, g, h, w, m, s):
+    frames = make_test_video(g + 1, h, w, seed=g + h)
+    luma = motion.to_luma(torch.from_numpy(frames).to(dev))
+    ref, cur = luma[:-1].contiguous(), luma[1:].contiguous()
+    before = sk.sad_search.launches
+    mv, sad = sk.sad_search(ref, cur, m, s)
+    mv_p, sad_p = sk.sad_search_ref(ref, cur, m, s)
+    assert torch.equal(mv, mv_p) and torch.equal(sad, sad_p)
+    assert sk.sad_search.launches == before + 1
+    # ties (a flat frame pair): the first minimum in row-major order wins
+    rng = np.random.default_rng(h)
+    flat = torch.from_numpy(rng.integers(0, 3, (2, g, h, w)).astype(
+        np.float32)).to(dev)
+    mv, sad = sk.sad_search(flat[0], flat[1], m, s)
+    mv_p, sad_p = sk.sad_search_ref(flat[0], flat[1], m, s)
+    assert torch.equal(mv, mv_p) and torch.equal(sad, sad_p)
+    # one frame without the GOP axis
+    mv1, _ = sk.sad_search(ref[0], cur[0], m, s)
+    assert torch.equal(mv1, sk.sad_search(ref, cur, m, s)[0][0])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("g,h,w,m,s", SAD_CASES)
+def test_mc_kernel_matches_plain_version(dev, g, h, w, m, s):
+    rng = np.random.default_rng(w)
+    ref = torch.from_numpy(rng.integers(0, 256, (g, 3, h, w)).astype(
+        np.float32)).to(dev)
+    mv_np = rng.integers(-s, s + 1, (g, h // m, w // m, 2)).astype(np.int32)
+    mv_np[:, 0, :, 0], mv_np[:, :, -1, 1] = -s, s          # out of the frame
+    mv = torch.from_numpy(mv_np).to(dev)
+    out = mk.mc_apply_planar(ref, mv, m)
+    assert torch.equal(out, mk.mc_apply_planar_ref(ref, mv, m))
+    cl = ref.permute(0, 2, 3, 1).contiguous()
+    out_cl = mk.mc_apply(cl, mv, m)
+    assert torch.equal(out_cl, mk.mc_apply_ref(cl, mv, m))
+    assert torch.equal(out_cl, out.permute(0, 2, 3, 1))
+    assert torch.equal(mk.mc_apply_planar(ref[0], mv[0], m), out[0])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kw", [dict(entropy="grans"),
+                                dict(entropy="zlib", use_pallas=False),
+                                dict(entropy="zlib", qss=16)],
+                         ids=["grans", "torch-route", "zlib"])
+def test_ipp_on_cuda_matches_cpu(dev, kw):
+    frames = make_test_video(6, 96, 112)
+    vcfg = VideoConfig(mode="ipp", n_frames=6, gop_size=4, rdo_lambda=0.5)
+    ccfg = CodecConfig(**kw)
+    gpu, cpu = video.get(vcfg, ccfg, dev), video.get(vcfg, ccfg, "cpu")
+    cs_g, cs_c = gpu.encode(frames), cpu.encode(frames)
+    # a ±1 index on a rounding edge moves the P chain after it: mvs and
+    # modes may then differ on a few blocks, the rmse by < 1e-2
+    names = [name for name in cs_c if name.startswith(("mv_", "modes_"))]
+    n_diff = sum(int(np.count_nonzero(cs_g.get_array(k) != cs_c.get_array(k)))
+                 for k in names)
+    assert n_diff <= 0.01 * sum(cs_c.get_array(k).size for k in names)
+    d = np.abs(gpu.last_planes.astype(np.int64) - cpu.last_planes)
+    assert d.max() <= 1 and np.count_nonzero(d) <= 5e-4 * d.size
+    if not d.any() and not n_diff:
+        assert cs_g.to_bytes() == cs_c.to_bytes()
+    rec_g = gpu.decode(CodeStream.from_bytes(cs_g.to_bytes()))
+    np.testing.assert_array_equal(rec_g.astype(np.float32),
+                                  gpu.last_recon.cpu().numpy())
+    rmse = metrics.rmse(frames, rec_g)
+    assert abs(rmse - metrics.rmse(frames, cpu.decode(cs_g))) <= 1e-2
+    assert abs(rmse - metrics.rmse(frames, cpu.decode(cs_c))) <= 1e-2

@@ -187,7 +187,10 @@ def test_full_fp32_is_enforced():
 
 
 def test_import_does_not_load_jax():
-    code = ("import sys, vcf_tpu_torch, vcf_tpu_torch.io; "
+    code = ("import sys, vcf_tpu_torch, vcf_tpu_torch.io, "
+            "vcf_tpu_torch.video.ipp, vcf_tpu_torch.ops.motion, "
+            "vcf_tpu_torch.ops.cuda.sad_kernel, "
+            "vcf_tpu_torch.ops.cuda.mc_kernel; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'vcf_tpu' not in sys.modules, 'vcf_tpu imported'")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -73,6 +73,35 @@ OFFSETS = {
 }
 
 
+#: (forward, inverse) matrices of the linear transforms
+MATRICES = {
+    "ycocg": (YCOCG_FWD, YCOCG_INV),
+    "ycrcb": (YCRCB_FWD, YCRCB_INV),
+    "cdct": (CDCT_FWD, CDCT_INV),
+}
+
+
+def fma_rows(x: torch.Tensor, m: np.ndarray, axis: int = -1) -> torch.Tensor:
+    """Rows of the (R, 3) float32 matrix `m` over the 3-channel `axis` of
+    float32 `x` -> R channels on that axis, each the float32 fused
+    multiply-add chain fma(x2, m2, fma(x1, m1, x0 * m0)), the order in
+    which XLA's (and torch's) CPU dot evaluates the channel contraction.
+    The chain runs in float64, rounding each step to float32: the product
+    of two float32 values is exact in float64, and so is each sum when
+    the operands are pixel-sized integers, so the result is the true FMA
+    chain bit for bit on any device (for general floats a float64 sum may
+    round before the float32 rounding, a difference with a chance of
+    about 2^-29 per sample)."""
+    x = x.to(torch.float64).movedim(axis, -1)
+    rows = []
+    for row in np.asarray(m, np.float32).astype(np.float64):
+        acc = (x[..., 0] * row[0]).to(torch.float32)
+        for c in (1, 2):
+            acc = (x[..., c] * row[c] + acc.to(torch.float64)).to(torch.float32)
+        rows.append(acc)
+    return torch.stack(rows, dim=-1).movedim(-1, axis)
+
+
 def _apply_matrix(x: torch.Tensor, m: np.ndarray) -> torch.Tensor:
     return torch.einsum("...c,dc->...d", x.to(torch.float32),
                         torch.from_numpy(m).to(x.device))

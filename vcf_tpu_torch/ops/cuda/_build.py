@@ -46,6 +46,8 @@ _SIGNATURES = {
                                 _P],
     "vcf_dct_forward": _DCT,
     "vcf_dct_inverse": _DCT,
+    "vcf_sad_search": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vcf_mc_apply": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -123,6 +125,17 @@ def check(code: int, what: str) -> None:
     """Raise if a C entry reported a CUDA error."""
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code}")
+
+
+def runs_plain(tensor) -> bool:
+    """True for a CPU tensor (a wrapper then runs its plain version),
+    False for a CUDA tensor (it launches its kernel); raise for any other
+    device."""
+    if tensor.device.type == "cpu":
+        return True
+    if tensor.device.type != "cuda":
+        raise ValueError(f"no kernel for device {tensor.device}")
+    return False
 
 
 def stream_of(tensor) -> int:

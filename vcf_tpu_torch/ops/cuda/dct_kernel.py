@@ -70,16 +70,6 @@ def _check(x: torch.Tensor, dtype, b: int, what: str,
         raise ValueError(f"{what}: expected {channels} channels, got {c}")
 
 
-def _plain(x: torch.Tensor) -> bool:
-    """True for a CPU tensor (plain version); raise for anything but
-    CPU and CUDA."""
-    if x.device.type == "cpu":
-        return True
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    return False
-
-
 # ---------------------------------------------------------------------------
 # Plain torch building blocks (planar (..., H, W) layout)
 # ---------------------------------------------------------------------------
@@ -208,7 +198,7 @@ def fused_dct_quantize(planes: torch.Tensor, b: int = 8, qss: int = 32,
     multiplies the coefficients by the JPEG tables before the quantizer
     (luma for channel 0, chroma for the others)."""
     _check(planes, torch.float32, b, "fused_dct_quantize")
-    if _plain(planes):
+    if _build.runs_plain(planes):
         return fused_dct_quantize_ref(planes, b, qss, offset, perceptual)
     out = torch.empty(planes.shape, dtype=torch.uint8, device=planes.device)
     _launch("vcf_dct_forward", planes, out, b, _recip(qss), offset,
@@ -224,7 +214,7 @@ def fused_dequantize_idct(planes_u8: torch.Tensor, b: int = 8, qss: int = 32,
     inverse and +offset stay outside).  perceptual=True divides the
     dequantized coefficients by the JPEG tables."""
     _check(planes_u8, torch.uint8, b, "fused_dequantize_idct")
-    if _plain(planes_u8):
+    if _build.runs_plain(planes_u8):
         return fused_dequantize_idct_ref(planes_u8, b, qss, offset,
                                          perceptual)
     out = torch.empty(planes_u8.shape, dtype=torch.float32,
@@ -241,7 +231,7 @@ def fused_cdct_quantize(planes: torch.Tensor, m, b: int = 8, qss: int = 32,
     indexes with the color forward fused in; `m` is the 3x3 forward
     matrix (`static_mat`)."""
     _check(planes, torch.uint8, b, "fused_cdct_quantize", channels=3)
-    if _plain(planes):
+    if _build.runs_plain(planes):
         return fused_cdct_quantize_ref(planes, m, b, qss, offset)
     out = torch.empty(planes.shape, dtype=torch.uint8, device=planes.device)
     _launch("vcf_dct_forward", planes, out, b, _recip(qss), offset, False, m)
@@ -255,7 +245,7 @@ def fused_dequantize_cdct(planes_u8: torch.Tensor, m, b: int = 8,
     color inverse and round/clip fused in; `m` is the 3x3 INVERSE
     matrix (`static_mat`)."""
     _check(planes_u8, torch.uint8, b, "fused_dequantize_cdct", channels=3)
-    if _plain(planes_u8):
+    if _build.runs_plain(planes_u8):
         return fused_dequantize_cdct_ref(planes_u8, m, b, qss, offset)
     out = torch.empty(planes_u8.shape, dtype=torch.uint8,
                       device=planes_u8.device)

@@ -57,12 +57,6 @@ def _on_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 # indexes (src/2D-DCT.py:107-110)
 _SOFF = 128
 
-_COLOR_MATS = {
-    "ycocg": (color_ops.YCOCG_FWD, color_ops.YCOCG_INV),
-    "ycrcb": (color_ops.YCRCB_FWD, color_ops.YCRCB_INV),
-    "cdct": (color_ops.CDCT_FWD, color_ops.CDCT_INV),
-}
-
 
 class BatchCodec:
     """Encode/decode of a batch of frames (N, H, W, 3) on one device.
@@ -89,7 +83,7 @@ class BatchCodec:
         self.last_qside: dict = {}
         cname = "ycocg" if config.color == "ycocg_r" else config.color
         self._fwd, self._inv = color_ops.get(cname)
-        mats = None if config.perceptual else _COLOR_MATS.get(cname)
+        mats = None if config.perceptual else color_ops.MATRICES.get(cname)
         if not config.use_pallas:
             self.route = "torch"
         elif mats is not None:

@@ -1,0 +1,398 @@
+"""IPP hybrid video codec (port of vcf_tpu/video/ipp.py, the fused GOP loop).
+
+GOPs of `gop_size` frames: the first intra-coded, the rest predicted from
+the reconstructed previous frame (closed loop) by block motion search on
+luma and motion compensation, the residual shifted by +128 and clipped to
+u8 (src/IPP_DCT.py).  Optional per-block intra/inter RDO on luma with
+lambda `rdo_lambda`.  The codestream is vcf_tpu's: `clip.*` (one call of
+a batched entropy codec over every index plane) or `f%04d*` segments,
+`mv_%04d` / `modes_%04d` arrays and the same payload JSON.
+
+vcf_tpu vmaps the GOP loop over GOPs and scans the P chain; here the GOPs
+are the batch dimension of every tensor and the P chain is a Python loop
+over t.  Pixels stay channel-planar, (G, 3, H, W) float32, through the
+loop; index planes are stored channel-last (N, H, W, 3) in vcf_tpu's
+layout.  The op order is vcf_tpu's, step for step:
+
+    ref_l = to_luma(clip(round(ref)).u8);  cur_l = to_luma(frame)
+    mv = search(ref_l, cur_l);  pred = compensate(ref, mv)
+    residual = clip(cur - pred + 128);  k = enc(residual)
+    recon = clip(pred + dec(k) - 128)
+
+Routes (`_make_search`, `_compensate`, `_enc`, `_dec`), chosen as
+vcf_tpu's: `use_pallas` takes the kernels, `sad_search` (full search),
+`mc_apply_planar` and B1/B2 (`fused_dct_quantize` / `fused_dequantize_idct`)
+— the kernels on CUDA, their plain versions on the CPU; `use_pallas=False`
+the torch route (`motion.full_search`, `motion.compensate`, `analyze` ->
+`deadzone_quantize` -> clip).  `fast_search` takes the three-step search.
+The color transforms run as `ops.color.fma_rows`, the bits of vcf_tpu's
+color dots on any device.
+
+Not ported here: the generic closed loop through the still `Codec`
+(vcf_tpu ipp.py:601-667, for non dct+deadzone compositions) raises,
+naming ROADMAP A10/A11; the planar subband-grid loop
+(`_build_planar_gop`, :377-457) waits for ROADMAP next 3 (the grid_layout
+modes of B3/B4), so `_gop_encode_grid_batch` and `_gop_decode_grid_batch`
+are None, as vcf_tpu sets them where that path is absent; the mesh
+(vcf_tpu's `_shard_gops`) waits for A15: the padded GOPs are stacked
+on the one device.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from vcf_tpu_torch import entropy
+from vcf_tpu_torch.codestream import CodeStream, PAYLOAD
+from vcf_tpu_torch.config import CodecConfig, VideoConfig
+from vcf_tpu_torch.ops import color as color_ops
+from vcf_tpu_torch.ops import dct as dct_ops
+from vcf_tpu_torch.ops import motion
+from vcf_tpu_torch.ops import quantize as q_ops
+from vcf_tpu_torch.ops.cuda import dct_kernel as dk
+from vcf_tpu_torch.ops.cuda import mc_kernel
+from vcf_tpu_torch.ops.cuda import sad_kernel
+from vcf_tpu_torch.parallel.mesh import _on_device
+from vcf_tpu_torch.pipeline import _not_ported, check_full_fp32
+from vcf_tpu_torch.video.iii import BATCHED_ENTROPY
+
+# residuals and indexes are shifted by 128 (src/IPP_DCT.py:550-560)
+_OFF = 128
+
+
+def _clip(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, 0.0, 255.0)
+
+
+class IPPCodec:
+    """IPP on one torch device for the dct + deadzone compositions."""
+
+    def __init__(self, video_config: VideoConfig, codec_config: CodecConfig,
+                 device):
+        if codec_config.spatial != "dct" or codec_config.quantizer != "deadzone":
+            missing = _not_ported(codec_config)
+            item = missing[1] if missing else "A10/A11"
+            raise NotImplementedError(
+                "the generic IPP closed loop (through the still Codec, for "
+                f"spatial={codec_config.spatial!r}, quantizer="
+                f"{codec_config.quantizer!r}) is not ported yet (ROADMAP "
+                f"queue A, item {item})")
+        self.vcfg = video_config
+        self.ccfg = codec_config
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            check_full_fp32()
+        self.entropy_codec = entropy.get(codec_config.entropy, codec_config,
+                                         self.device)
+        cname = "ycocg" if codec_config.color == "ycocg_r" else codec_config.color
+        self._mats = color_ops.MATRICES.get(cname)       # None: color "none"
+        # the planar subband-grid loop is not ported (ROADMAP next 3)
+        self._gop_encode_grid_batch = None
+        self._gop_decode_grid_batch = None
+        #: of the last encode: the stored (n, H, W, 3) uint8 index planes
+        #: (numpy), and the closed-loop reconstruction, an (n, H, W, 3)
+        #: float32 tensor left on the device (no copy to the host), which
+        #: `decode` must reproduce bit for bit
+        self.last_planes = None
+        self.last_recon = None
+
+    # ------------------------------------------------------------------
+    # Routes
+    # ------------------------------------------------------------------
+    def _make_search(self, h: int, w: int):
+        """Motion search for (G, h, w) lumas, tagged with `.kind`:
+        "three_step" when `fast_search` is set; "sad_search" (the kernel
+        on CUDA, its plain version on the CPU; vcf_tpu's "pallas_sad" and
+        "pallas_sad_tiled") when `use_pallas` is set and h, w are multiples
+        of the block; else "full_search" (vcf_tpu's "lax_full")."""
+        m, s = self.vcfg.me_block, self.vcfg.search_range
+
+        def tagged(kind, fn):
+            fn.kind = kind
+            return fn
+
+        if self.vcfg.fast_search:
+            return tagged("three_step",
+                          lambda r, c: motion.three_step_search(r, c, m, s))
+        if self.ccfg.use_pallas and h % m == 0 and w % m == 0:
+            return tagged("sad_search",
+                          lambda r, c: sad_kernel.sad_search(r, c, m, s))
+        return tagged("full_search",
+                      lambda r, c: motion.full_search(r, c, m, s))
+
+    def _compensate(self, ref: torch.Tensor, mv: torch.Tensor) -> torch.Tensor:
+        """(G, 3, H, W) reference -> prediction for (G, nby, nbx, 2) mvs."""
+        m, s = self.vcfg.me_block, self.vcfg.search_range
+        if self.ccfg.use_pallas:
+            return mc_kernel.mc_apply_planar(ref, mv, m)
+        return motion.compensate(ref.movedim(-3, -1), mv, m,
+                                 pad=max(s, 8)).movedim(-1, -3)
+
+    def _enc(self, img: torch.Tensor) -> torch.Tensor:
+        """(G, 3, H, W) float32 pixels -> (G, 3, H, W) uint8 indexes in
+        block layout (the subband order is applied on storage)."""
+        cfg = self.ccfg
+        b, qss = cfg.block_size, cfg.qss
+        ct = img - 128.0
+        if self._mats is not None:
+            ct = color_ops.fma_rows(ct, self._mats[0], axis=-3)
+        if cfg.use_pallas:
+            return dk.fused_dct_quantize(ct.contiguous(), b=b, qss=qss,
+                                         offset=_OFF)
+        coeff = dct_ops.analyze(ct.movedim(-3, -1), b)
+        k = q_ops.deadzone_quantize(coeff, qss)
+        # saturate, not wrap (Deadzone_Quantizer min/max, src/deadzone.py:64)
+        return torch.clamp(k + _OFF, 0, 255).to(torch.uint8).movedim(-1, -3)
+
+    def _dec(self, k_u8: torch.Tensor) -> torch.Tensor:
+        """(G, 3, H, W) uint8 block-layout indexes -> float32 pixels,
+        rounded half to even and clipped to [0, 255]."""
+        cfg = self.ccfg
+        b, qss = cfg.block_size, cfg.qss
+        if cfg.use_pallas:
+            ct = dk.fused_dequantize_idct(k_u8.contiguous(), b=b, qss=qss,
+                                          offset=_OFF)
+        else:
+            coeff = q_ops.deadzone_dequantize(
+                k_u8.movedim(-3, -1).to(torch.int32) - _OFF, qss)
+            ct = dct_ops.synthesize(coeff, b).movedim(-1, -3)
+        if self._mats is not None:
+            ct = color_ops.fma_rows(ct, self._mats[1], axis=-3)
+        return _clip(torch.round(ct + 128.0))
+
+    def _store(self, k: torch.Tensor) -> torch.Tensor:
+        """(..., 3, H, W) block-layout indexes -> stored (..., H, W, 3)."""
+        k = k.movedim(-3, -1)
+        if self.ccfg.subbands:
+            k = dct_ops.to_subbands(k, self.ccfg.block_size)
+        return k.contiguous()
+
+    def _load(self, planes: torch.Tensor) -> torch.Tensor:
+        """Stored (..., H, W, 3) planes -> (..., 3, H, W) block layout."""
+        if self.ccfg.subbands:
+            planes = dct_ops.from_subbands(planes, self.ccfg.block_size)
+        return planes.movedim(-1, -3).contiguous()
+
+    # ------------------------------------------------------------------
+    # RDO (src/IPP_DCT.py:265-342): cost = D + lambda * R per block on luma,
+    # the rate modeled as sum(log2(|k| + 1) + 1) bits per coefficient
+    # ------------------------------------------------------------------
+    def _block_cost(self, blocks: torch.Tensor):
+        """(..., m, m) pixel blocks -> (distortion, rate) per block."""
+        m, qss = self.vcfg.me_block, self.ccfg.qss
+        d = torch.from_numpy(dct_ops.dct_matrix(m)).to(blocks.device)
+        c = torch.einsum("ur,...rs->...us", d, blocks)
+        c = torch.einsum("vs,...us->...uv", d, c)
+        k = q_ops.deadzone_quantize(c, qss)
+        y = q_ops.deadzone_dequantize(k, qss)
+        dist = ((y - c) ** 2).sum(dim=(-2, -1))
+        rate = (torch.log2(k.abs().to(torch.float32) + 1.0) + 1.0).sum(
+            dim=(-2, -1))
+        return dist, rate
+
+    def _rdo_modes(self, cur_l: torch.Tensor, pred_l: torch.Tensor):
+        """(G, H, W) lumas -> (G, nby, nbx) bool, True = inter."""
+        m, lam = self.vcfg.me_block, self.vcfg.rdo_lambda
+        g, h, w = cur_l.shape
+
+        def blocks(x):
+            return x.reshape(g, h // m, m, w // m, m).transpose(2, 3)
+
+        d_i, r_i = self._block_cost(blocks(cur_l - 128.0))
+        d_p, r_p = self._block_cost(blocks(cur_l - pred_l))
+        return (d_p + lam * r_p) <= (d_i + lam * r_i)
+
+    def _mask(self, inter: torch.Tensor) -> torch.Tensor:
+        """(G, nby, nbx) block modes -> (G, 1, H, W) pixel mask."""
+        m = self.vcfg.me_block
+        return inter.repeat_interleave(m, 1).repeat_interleave(m, 2)[:, None]
+
+    # ------------------------------------------------------------------
+    # GOP loops: GOPs are the batch dimension, the P chain a loop over t
+    # ------------------------------------------------------------------
+    def _gop_encode(self, gops: torch.Tensor):
+        """(G, T, H, W, 3) uint8 -> (block-layout planes (G, T, 3, H, W)
+        uint8, mvs (G, T-1, nby, nbx, 2) int32, modes (G, T-1, nby, nbx)
+        bool or None, reconstruction (G, T, 3, H, W) float32)."""
+        rdo = self.vcfg.rdo_lambda != 0
+        frames = gops.permute(0, 1, 4, 2, 3)              # (G, T, 3, H, W)
+        k = self._enc(frames[:, 0].to(torch.float32))
+        ref = self._dec(k)
+        ks, recs, mvs, modes = [k], [ref], [], []
+        for t in range(1, gops.shape[1]):
+            cur = frames[:, t].to(torch.float32)
+            ref_l = motion.to_luma(_clip(torch.round(ref)).to(torch.uint8),
+                                   channel_axis=-3)
+            cur_l = motion.to_luma(gops[:, t])
+            mv, _ = self._make_search(*cur_l.shape[-2:])(ref_l, cur_l)
+            pred = self._compensate(ref, mv)
+            residual = _clip(cur - pred + 128.0)
+            if rdo:
+                pred_l = motion.to_luma(
+                    _clip(torch.round(pred)).to(torch.uint8), channel_axis=-3)
+                inter = self._rdo_modes(cur_l, pred_l)
+                mask = self._mask(inter)
+                k = self._enc(torch.where(mask, residual, cur))
+                rec_mixed = self._dec(k)
+                ref = torch.where(mask, _clip(pred + rec_mixed - 128.0),
+                                  rec_mixed)
+                modes.append(inter)
+            else:
+                k = self._enc(residual)
+                ref = _clip(pred + self._dec(k) - 128.0)
+            ks.append(k)
+            recs.append(ref)
+            mvs.append(mv)
+        if mvs:
+            mvs_t = torch.stack(mvs, 1)
+            modes_t = torch.stack(modes, 1) if rdo else None
+        else:                                       # gop_size 1: I frames only
+            m = self.vcfg.me_block
+            g, _, h, w, _ = gops.shape
+            mvs_t = torch.zeros((g, 0, h // m, w // m, 2), dtype=torch.int32,
+                                device=gops.device)
+            modes_t = mvs_t[..., 0].to(torch.bool) if rdo else None
+        return torch.stack(ks, 1), mvs_t, modes_t, torch.stack(recs, 1)
+
+    def _gop_decode(self, planes: torch.Tensor, mvs: torch.Tensor,
+                    modes=None) -> torch.Tensor:
+        """Block-layout planes (G, T, 3, H, W) uint8, mvs (G, T-1, nby,
+        nbx, 2), modes (G, T-1, nby, nbx) or None -> (G, T, 3, H, W)
+        float32 reconstruction."""
+        ref = self._dec(planes[:, 0])
+        recs = [ref]
+        for t in range(1, planes.shape[1]):
+            pred = self._compensate(ref, mvs[:, t - 1])
+            rec = self._dec(planes[:, t])
+            if modes is None:
+                ref = _clip(pred + rec - 128.0)
+            else:
+                ref = torch.where(self._mask(modes[:, t - 1]),
+                                  _clip(pred + rec - 128.0), rec)
+            recs.append(ref)
+        return torch.stack(recs, 1)
+
+    # ------------------------------------------------------------------
+    def encode(self, frames: np.ndarray) -> CodeStream:
+        vcfg = self.vcfg
+        frames = np.asarray(frames)[: vcfg.n_frames]
+        n, h, w, _ = frames.shape
+        b = self.ccfg.block_size
+        if h % b or w % b:
+            raise ValueError(
+                f"IPP frames must be multiples of the DCT block size {b}")
+        m = vcfg.me_block
+        if h % m or w % m:
+            raise ValueError(f"frame size must be a multiple of ME block {m}")
+
+        t = vcfg.gop_size
+        n_pad = (-n) % t
+        padded = frames
+        if n_pad:
+            padded = np.concatenate([frames, np.repeat(frames[-1:], n_pad, 0)])
+        gops = _on_device(padded.reshape(-1, t, *frames.shape[1:]),
+                          self.device)
+        planes_b, mvs_b, modes_b, recs = self._gop_encode(gops)
+        planes_np = self._store(planes_b).reshape(-1, h, w, 3)[:n].cpu().numpy()
+        mvs_np = mvs_b.cpu().numpy()                 # (G, T-1, nby, nbx, 2)
+        modes_np = None if modes_b is None else modes_b.cpu().numpy()
+        self.last_planes = planes_np
+        self.last_recon = recs.movedim(-3, -1).reshape(-1, h, w, 3)[:n]
+
+        kinds: List[str] = []
+        mvs: Dict[str, np.ndarray] = {}
+        modes: Dict[str, np.ndarray] = {}
+        for i in range(n):
+            if i % t == 0:
+                kinds.append("I")
+            else:
+                kinds.append("P")
+                mvs[f"mv_{i:04d}"] = mvs_np[i // t, i % t - 1]
+                if modes_np is not None:
+                    modes[f"modes_{i:04d}"] = modes_np[i // t, i % t - 1]
+
+        cs = CodeStream()
+        batched = self.ccfg.entropy in BATCHED_ENTROPY
+        if batched:
+            # every index plane (I and P residual) in one entropy call
+            payload, side = self.entropy_codec.encode(planes_np)
+            cs["clip.payload"] = payload
+            for name, blob in side.items():
+                cs[f"clip.{name}"] = blob
+        else:
+            for i, plane in enumerate(planes_np):
+                payload, side = self.entropy_codec.encode(plane)
+                cs[f"f{i:04d}"] = payload
+                for name, blob in side.items():
+                    cs[f"f{i:04d}.{name}"] = blob
+        for name, arr in {**mvs, **modes}.items():
+            cs.put_array(name, arr)
+        cs.put_json(PAYLOAD, {
+            "mode": "ipp", "n_frames": int(n), "kinds": kinds,
+            "frame_shape": [int(s) for s in frames.shape[1:]],
+            "gop": vcfg.gop_size, "me_block": m,
+            "search_range": vcfg.search_range,
+            "rdo": vcfg.rdo_lambda,
+            "batched": bool(batched),
+        })
+        return cs
+
+    # ------------------------------------------------------------------
+    def decode(self, cs: CodeStream) -> np.ndarray:
+        meta = cs.get_json(PAYLOAD)
+        if meta.get("generic"):
+            raise NotImplementedError(
+                "the stream was written by the generic IPP closed loop, "
+                "which is not ported yet (ROADMAP queue A, items A10/A11)")
+        n = meta["n_frames"]
+        kinds = meta["kinds"]
+        m = meta["me_block"]
+        rdo = meta.get("rdo", 0)
+
+        if meta.get("batched"):
+            side = {
+                name[len("clip."):]: cs[name]
+                for name in cs
+                if name.startswith("clip.") and name != "clip.payload"
+            }
+            planes_np = np.asarray(
+                self.entropy_codec.decode(cs["clip.payload"], side))
+        else:
+            planes = []
+            for i in range(n):
+                side = {
+                    name.split(".", 1)[1]: cs[name]
+                    for name in cs
+                    if name.startswith(f"f{i:04d}.")
+                }
+                planes.append(self.entropy_codec.decode(cs[f"f{i:04d}"], side))
+            planes_np = np.stack(planes)
+
+        t = meta["gop"]
+        n_pad = (-n) % t
+        if n_pad:
+            planes_np = np.concatenate(
+                [planes_np, np.repeat(planes_np[-1:], n_pad, 0)])
+        h, w = planes_np.shape[1:3]
+        nby, nbx = h // m, w // m
+        mv_all = np.zeros((planes_np.shape[0], nby, nbx, 2), np.int32)
+        mode_all = np.zeros((planes_np.shape[0], nby, nbx), bool)
+        for i in range(n):
+            if kinds[i] == "P":
+                mv_all[i] = cs.get_array(f"mv_{i:04d}")
+                if rdo:
+                    mode_all[i] = cs.get_array(f"modes_{i:04d}")
+        planes_t = self._load(_on_device(
+            planes_np.reshape(-1, t, *planes_np.shape[1:]), self.device))
+        mvs_t = torch.from_numpy(
+            mv_all.reshape(-1, t, nby, nbx, 2)[:, 1:].copy()).to(self.device)
+        modes_t = None
+        if rdo:
+            modes_t = torch.from_numpy(
+                mode_all.reshape(-1, t, nby, nbx)[:, 1:].copy()).to(self.device)
+        recs = self._gop_decode(planes_t, mvs_t, modes_t)
+        recs = recs.movedim(-3, -1).reshape(-1, h, w, 3)[:n]
+        return recs.to(torch.uint8).cpu().numpy()
