@@ -75,6 +75,8 @@ ME_BLOCK, SEARCH, GOP = 16, 8, 4
 # GPU against CPU IPP run: the ±1 index knife edge of the transforms may
 # move a reconstruction, and so the P chain after it, a little
 MAX_IPP_RMSE_DIFF = 1e-2
+# the DWT frame of phase 4e (the reference bench's frame, bench.py:105)
+DWT_QSS, DWT_GRID = 16, (17, 512, 3060)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -457,8 +459,8 @@ def phase_clip(dev, frames: np.ndarray, planes_codec: torch.Tensor) -> dict:
                            "BatchCodec planes vs per-frame Codec")
     print(f"clip path: BatchCodec vs per-frame Codec indexes: max {err}, "
           f"share {share:.3e}")
-    clip_report(iii, frames, cs, rec, planes, seconds,
-                f"clip {FRAMES}x{H}x{W} grans")
+    grans = clip_report(iii, frames, cs, rec, planes, seconds,
+                        f"clip {FRAMES}x{H}x{W} grans")
 
     n = PERCEPTUAL_FRAMES
     iii_p, launches_p, cs_p, rec_p, planes_p, seconds_p = run_clip(
@@ -474,7 +476,8 @@ def phase_clip(dev, frames: np.ndarray, planes_codec: torch.Tensor) -> dict:
     return {"fused_cdct_quantize": launches["fused_cdct_quantize"],
             "fused_dequantize_cdct": launches["fused_dequantize_cdct"],
             "fused_dct_quantize": launches_p["fused_dct_quantize"],
-            "fused_dequantize_idct": launches_p["fused_dequantize_idct"]}
+            "fused_dequantize_idct": launches_p["fused_dequantize_idct"]}, \
+        (rec, planes, grans["bpp"])
 
 
 def phase_motion_kernels(dev, clip: np.ndarray) -> list:
@@ -656,6 +659,208 @@ def phase_ipp(dev, clip: np.ndarray) -> dict:
             "mc_apply_planar": launches["mc_apply_planar"]}
 
 
+def phase_ctx_kernels(dev, planes: torch.Tensor) -> tuple:
+    """3d: the context modes of K1 and K3 at the clip's timing shape."""
+    from vcf_tpu_torch.entropy import rans
+    from vcf_tpu_torch.ops.cuda import rans_ctx as rc
+    from vcf_tpu_torch.ops.cuda import rans_encode as re_
+
+    g = 64
+    s_streams = rans.RANSCodec._pick_streams(planes.numel(), 65536)
+    lanes = rans.subband_lanes_ctx(planes, 8, s_streams)
+    l = lanes.shape[1]
+    out = {}
+    for n_ctx in (4, 15):
+        t0 = time.perf_counter()
+        fg_np, cg_np = rans.ctx_freqs_from_counts(
+            rans.ctx_group_histograms(lanes, g, n_ctx).cpu().numpy())
+        t_tables = time.perf_counter() - t0
+        fg = torch.from_numpy(fg_np.astype(np.int64)).to(dev)
+        cg = torch.from_numpy(cg_np.astype(np.int64)).to(dev)
+        raw_k, st_k = rc.rans_encode_ctx(lanes, fg, cg)
+        raw_p, st_p = rc.rans_encode_ctx_ref(lanes, fg, cg)
+        torch.cuda.synchronize()
+        err1 = max(max_abs_err(raw_k, raw_p), max_abs_err(st_k, st_p))
+        require(err1 == 0, f"rans_encode_ctx ({n_ctx} classes) differs from "
+                f"its plain version by {err1}")
+        w_k, n_k, c_k = re_.rans_compact(raw_k)
+        w_p, n_p, c_p = re_.rans_compact_ref(raw_p)
+        n = int(n_k)
+        require(n == int(n_p) and torch.equal(w_k[:n], w_p[:n])
+                and torch.equal(c_k, c_p),
+                f"K2 words of the context grid ({n_ctx} classes) differ")
+        words = w_k[:n].clone()
+        out_k = rc.rans_decode_ctx(words, st_k, fg, cg, l, c_k)
+        out_p = rc.rans_decode_ctx_ref(words, st_k, fg, cg, l, c_k)
+        err3 = max_abs_err(out_k, out_p)
+        require(err3 == 0, f"rans_decode_ctx ({n_ctx} classes) differs from "
+                f"its plain version by {err3}")
+        require(torch.equal(out_k, lanes),
+                f"rans_decode_ctx ({n_ctx} classes) output differs from the "
+                "lanes")
+        mode = rc.decode_table_mode(g, n_ctx)
+        times = {
+            "ms": cuda_ms(lambda: rc.rans_encode_ctx(lanes, fg, cg), 20),
+            "plain_ms": cuda_ms(lambda: rc.rans_encode_ctx_ref(lanes, fg, cg),
+                                3),
+            "dec_ms": cuda_ms(lambda: rc.rans_decode_ctx(words, st_k, fg, cg,
+                                                         l, c_k), 3),
+            "dec_plain_ms": cuda_ms(lambda: rc.rans_decode_ctx_ref(
+                words, st_k, fg, cg, l, c_k), 2)}
+        out[n_ctx] = (err1, err3, mode, times, words)
+        print(f"ctx kernels: {n_ctx} classes, S={s_streams} L={l} G={g}: "
+              f"bit-exact; {n} words, {n * 16 / lanes.numel():.4f} bits/symbol; "
+              f"tables {t_tables:.2f} s (host); decode tables in {mode} memory")
+        print(f"time rans_encode_ctx ({n_ctx} classes): kernel "
+              f"{times['ms']:.4f} ms, plain torch {times['plain_ms']:.4f} ms")
+        print(f"time rans_decode_ctx ({n_ctx} classes, {mode} tables): kernel "
+              f"{times['dec_ms']:.4f} ms, plain torch "
+              f"{times['dec_plain_ms']:.4f} ms")
+    rows = []
+    for name, src, rep, also, ms_key, plain_key, err_i in (
+            ("rans_encode_ctx", "vcf_tpu_torch/csrc/rans_encode.cu",
+             "vcf_tpu/ops/pallas/rans_ctx.py:256",
+             "vcf_tpu/ops/pallas/rans_ctx.py:142", "ms", "plain_ms", 0),
+            ("rans_decode_ctx", "vcf_tpu_torch/csrc/rans_decode.cu",
+             "vcf_tpu/ops/pallas/rans_ctx.py:510", None, "dec_ms",
+             "dec_plain_ms", 1)):
+        row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
+               "launches": 0,
+               "max_abs_err": max(out[c][err_i] for c in (4, 15)),
+               "diff_share": 0.0, "ms": out[4][3][ms_key],
+               "plain_ms": out[4][3][plain_key],
+               "ms_15_classes": out[15][3][ms_key],
+               "plain_ms_15_classes": out[15][3][plain_key]}
+        if also:
+            row["also_replaces"] = also
+        else:
+            row["table_mode"] = {"4": out[4][2], "15": out[15][2]}
+        rows.append(row)
+    return rows, out[4][4]
+
+
+def phase_cgrans_clip(dev, frames: np.ndarray, planes_k: torch.Tensor,
+                      ctx_words: torch.Tensor, grans_clip) -> dict:
+    """4d: the 8-frame cgrans clip through IIICodec."""
+    from vcf_tpu_torch import CodecConfig
+    from vcf_tpu_torch.ops.cuda import dct_kernel as dk
+    from vcf_tpu_torch.ops.cuda import rans_ctx as rc
+    from vcf_tpu_torch.ops.cuda import rans_encode as re_
+
+    kernels = {"rans_encode_ctx": rc.rans_encode_ctx,
+               "rans_compact": re_.rans_compact,
+               "rans_decode_ctx": rc.rans_decode_ctx,
+               "fused_cdct_quantize": dk.fused_cdct_quantize,
+               "fused_dequantize_cdct": dk.fused_dequantize_cdct}
+    iii, launches, cs, rec, planes, seconds = run_clip(
+        dev, frames, CodecConfig(entropy="cgrans"), kernels)
+    print(f"cgrans clip path: launches {launches}")
+    for name, count in launches.items():
+        require(count > 0, f"kernel {name} was not launched on the cgrans "
+                "clip path")
+    side = cs["clip.cgrans_model"]
+    require(side[0] == 2 and side[1] == 4, "the clip did not take the "
+            "4-class context path")
+    grans_rec, grans_planes, grans_bpp = grans_clip
+    require(np.array_equal(planes, grans_planes),
+            "the cgrans and grans clips coded different planes")
+    if np.array_equal(planes, planes_k.cpu().numpy()):
+        require(cs["clip.payload"] ==
+                ctx_words.cpu().numpy().astype("<u2").tobytes(),
+                "the clip's payload differs from phase 3d's 4-class words")
+    require(np.array_equal(rec, grans_rec),
+            "the cgrans clip's reconstruction differs from the grans clip's")
+    report = clip_report(iii, frames, cs, rec, planes, seconds,
+                         f"clip {FRAMES}x{H}x{W} cgrans")
+    print(f"cgrans clip: {report['bpp']:.6f} bpp against grans "
+          f"{grans_bpp:.6f} ({100 * (report['bpp'] / grans_bpp - 1):+.2f}%)")
+    return {"rans_encode_ctx": launches["rans_encode_ctx"],
+            "rans_decode_ctx": launches["rans_decode_ctx"]}
+
+
+def phase_dwt(dev, frame: np.ndarray) -> dict:
+    """4e: the 1088x1920 DWT still frame, cgrans and grans."""
+    from vcf_tpu_torch import Codec, CodecConfig, CodeStream, metrics
+    from vcf_tpu_torch.entropy import dwt_device as dd
+    from vcf_tpu_torch.ops.cuda import rans_ctx as rc
+    from vcf_tpu_torch.ops.cuda import rans_decode as rd
+    from vcf_tpu_torch.ops.cuda import rans_encode as re_
+
+    kernels = {"rans_encode_grouped": re_.rans_encode_grouped,
+               "rans_encode_ctx": rc.rans_encode_ctx,
+               "rans_compact": re_.rans_compact,
+               "rans_decode_grouped": rd.rans_decode_grouped,
+               "rans_decode_ctx": rc.rans_decode_ctx}
+    expect = {"cgrans": ("rans_encode_ctx", "rans_compact", "rans_decode_ctx"),
+              "grans": ("rans_encode_grouped", "rans_compact",
+                        "rans_decode_grouped")}
+    out = {}
+    for ent in ("cgrans", "grans"):
+        cfg = CodecConfig(spatial="dwt", qss=DWT_QSS, entropy=ent)
+        codec = Codec(cfg, device=dev)
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        cs = codec.encode(frame)
+        blob = cs.to_bytes()
+        rec = codec.decode(CodeStream.from_bytes(blob))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        print(f"dwt {ent} path: launches {launches}")
+        for name in expect[ent]:
+            require(launches[name] > 0,
+                    f"kernel {name} was not launched on the DWT {ent} path")
+        g, sg, l, *_, n_ctx = dd.unpack_model(cs["gdwt_model"])
+        require((g, sg, l) == DWT_GRID, f"DWT grid {(g, sg, l)}")
+        require(n_ctx == (4 if ent == "cgrans" else 0),
+                f"DWT {ent} stream has {n_ctx} context classes")
+        cpu = Codec(cfg, device="cpu")
+        t0 = time.perf_counter()
+        cs_cpu = cpu.encode(frame)
+        rec_cpu = cpu.decode(cs_cpu)
+        cpu_s = time.perf_counter() - t0
+        grid = dd.bands_to_grid(codec._dwt._grid_bands(codec, frame), sg, l)
+        grid_cpu = dd.bands_to_grid(cpu._dwt._grid_bands(cpu, frame), sg, l)
+        d = (grid.cpu().to(torch.int64) - grid_cpu.to(torch.int64)).abs()
+        # the +-1 rule; a byte plane wraps, so a step of 1 may read as 255
+        n_diff = int((d != 0).sum())
+        require(bool(((d <= MAX_INDEX_DIFF) | (d == 255)).all())
+                and n_diff <= MAX_DIFF_SHARE * d.numel(),
+                f"DWT {ent}: {n_diff} lane-grid indexes differ from the CPU")
+        if n_diff == 0:
+            require(blob == cs_cpu.to_bytes(),
+                    f"DWT {ent}: equal indexes but GPU and CPU streams differ")
+            require(np.array_equal(rec, rec_cpu),
+                    f"DWT {ent}: GPU and CPU reconstructions differ")
+        rmse, rmse_cpu = metrics.rmse(frame, rec), metrics.rmse(frame, rec_cpu)
+        require(abs(rmse - rmse_cpu) < 1e-3, f"DWT {ent} rmse {rmse} vs CPU "
+                f"{rmse_cpu}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cs_w = codec.encode(frame)
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        enc_split = {k: v * 1e3 for k, v in codec.last_timings.as_dict().items()}
+        t0 = time.perf_counter()
+        codec.decode(cs_w)
+        dec_ms = (time.perf_counter() - t0) * 1e3
+        dec_split = {k: v * 1e3 for k, v in codec.last_timings.as_dict().items()}
+        out[ent] = {"rmse": rmse, "rmse_cpu": rmse_cpu,
+                    "bpp": metrics.bpp(cs, frame.shape),
+                    "grid_indexes_differing_from_cpu": n_diff,
+                    "grid_symbols": int(d.numel()), "grid": [g, sg, l],
+                    "streams_equal": blob == cs_cpu.to_bytes(),
+                    "cpu_run_s": cpu_s, "first_run_s": seconds,
+                    "warm_encode_ms": enc_ms, "warm_decode_ms": dec_ms,
+                    "encode_split_ms": enc_split, "decode_split_ms": dec_split}
+        print(f"dwt {H}x{W} db5 5 levels qss {DWT_QSS} {ent}: "
+              f"{json.dumps(out[ent])}")
+    print(f"dwt: cgrans {out['cgrans']['bpp']:.6f} bpp against grans "
+          f"{out['grans']['bpp']:.6f} "
+          f"({100 * (out['cgrans']['bpp'] / out['grans']['bpp'] - 1):+.2f}%)")
+    return out
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
@@ -673,9 +878,15 @@ def main() -> None:
 
     clip = test_video(FRAMES, H, W, seed=7)
     results += phase_motion_kernels(dev, clip)
+    ctx_rows, ctx_words = phase_ctx_kernels(dev, planes)
+    results += ctx_rows
     launches = phase_main_path(dev, frames, planes)
-    launches.update(phase_clip(dev, frames, planes))
+    clip_launches, grans_clip = phase_clip(dev, frames, planes)
+    launches.update(clip_launches)
     launches.update(phase_ipp(dev, clip))
+    launches.update(phase_cgrans_clip(dev, frames, planes, ctx_words,
+                                      grans_clip))
+    phase_dwt(dev, base)
     for row in results:
         row["launches"] = launches[row["name"]]
     print(json.dumps({"kernels": results}))

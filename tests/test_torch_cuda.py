@@ -1,8 +1,8 @@
-"""Card-only checks of the port: the CUDA kernels K1-K3, B1-B4 and the
-motion kernels (SAD search, motion compensation) against their plain
-torch versions, and the Codec, entropy codecs, BatchCodec, IIICodec and
-IPPCodec on CUDA against the same on the CPU (entropy bytes identical on
-identical index planes).
+"""Card-only checks of the port: the CUDA kernels K1-K3 (and their
+context modes), B1-B4 and the motion kernels (SAD search, motion
+compensation) against their plain torch versions, and the Codec (DCT and
+DWT), entropy codecs, BatchCodec, IIICodec and IPPCodec on CUDA against
+the same on the CPU (entropy bytes identical on identical index planes).
 
 The kernels have no CPU mode, so every test here is marked `cuda` and
 skips without a card.  The file imports neither JAX nor vcf_tpu, so it
@@ -10,7 +10,9 @@ also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: K1-K3 bit-exact against their plain versions; B1/B3
+Tolerances: K1-K3 and their context modes bit-exact against their plain
+versions; the DWT's subbands equal the CPU's (the float32 FMA chain is
+evaluated exactly on both); B1/B3
 indexes and the codecs' indexes follow the +-1 rule (a float32 sum taken
 in another order moves an index by at most 1, on at most 0.01% of
 entries); B2 planes within 1e-3 absolute; decoded pixels from identical
@@ -34,6 +36,8 @@ from vcf_tpu_torch.ops import dct as dct_ops
 from vcf_tpu_torch.ops import motion
 from vcf_tpu_torch.ops.cuda import dct_kernel as dk
 from vcf_tpu_torch.ops.cuda import mc_kernel as mk
+from vcf_tpu_torch.ops import dwt as dwt_ops
+from vcf_tpu_torch.ops.cuda import rans_ctx as rc
 from vcf_tpu_torch.ops.cuda import rans_decode as rd
 from vcf_tpu_torch.ops.cuda import rans_encode as re_
 from vcf_tpu_torch.ops.cuda import sad_kernel as sk
@@ -288,3 +292,112 @@ def test_ipp_on_cuda_matches_cpu(dev, kw):
     rmse = metrics.rmse(frames, rec_g)
     assert abs(rmse - metrics.rmse(frames, cpu.decode(cs_g))) <= 1e-2
     assert abs(rmse - metrics.rmse(frames, cpu.decode(cs_c))) <= 1e-2
+
+
+def _ctx_case(g, sg, l, n_ctx, seed):
+    rng = np.random.default_rng(seed)
+    noise = rng.integers(-9, 10, size=(g * sg, l)) * (
+        rng.random((g * sg, l)) < 0.5)
+    syms = np.clip(128 + np.cumsum(noise, axis=1) // 2, 0, 255).astype(np.uint8)
+    counts = rans.ctx_group_histograms(torch.from_numpy(syms), g, n_ctx)
+    return syms, *rans.ctx_freqs_from_counts(counts.numpy())
+
+
+# (G, sg, L, n_ctx): 4 and 15 classes; sg = 2 spans many groups per
+# encode block (the use_smem=0 global-table path); G = 64 with 15
+# classes keeps the decode rows in global memory, the others in shared
+# memory; a ragged S = 1100
+CTX_CASES = [(4, 8, 12, 4), (64, 2, 10, 4), (64, 4, 24, 15), (17, 16, 8, 15),
+             (2, 128, 8, 4), (1, 1100, 5, 4)]
+
+
+@pytest.mark.parametrize("g,sg,l,n_ctx", CTX_CASES)
+def test_ctx_kernels_match_plain_versions(dev, g, sg, l, n_ctx):
+    syms, fg, cg = _ctx_case(g, sg, l, n_ctx, seed=g + l)
+    s = torch.from_numpy(syms).to(dev)
+    ft = torch.from_numpy(fg.astype(np.int64)).to(dev)
+    ct = torch.from_numpy(cg.astype(np.int64)).to(dev)
+    before = (rc.rans_encode_ctx.launches, rc.rans_decode_ctx.launches)
+    raw, st = rc.rans_encode_ctx(s, ft, ct)
+    raw_p, st_p = rc.rans_encode_ctx_ref(s, ft, ct)
+    assert torch.equal(raw, raw_p) and torch.equal(st, st_p)
+    words, n_words, counts = re_.rans_compact(raw)
+    words = words[:int(n_words)].clone()
+    out = rc.rans_decode_ctx(words, st, ft, ct, l, counts)
+    assert torch.equal(out, rc.rans_decode_ctx_ref(words, st, ft, ct, l,
+                                                   counts))
+    assert torch.equal(out, s)
+    assert torch.equal(rc.rans_decode_ctx(words, st, ft, ct, l), s)
+    assert (rc.rans_encode_ctx.launches, rc.rans_decode_ctx.launches) == (
+        before[0] + 1, before[1] + 2)
+    want = "global" if g * n_ctx * 257 * 2 > 200 * 1024 else "shared"
+    assert rc.decode_table_mode(g, n_ctx) == want
+
+
+@pytest.mark.parametrize("n_ctx", [4, 15])
+def test_ctx_decode_rejects_corrupt_stream(dev, n_ctx):
+    syms, fg, cg = _ctx_case(4, 32, 16, n_ctx, seed=5)
+    ft = torch.from_numpy(fg.astype(np.int64)).to(dev)
+    ct = torch.from_numpy(cg.astype(np.int64)).to(dev)
+    raw, st = rc.rans_encode_ctx(torch.from_numpy(syms).to(dev), ft, ct)
+    words, n_words, counts = re_.rans_compact(raw)
+    words = words[:int(n_words)].clone()
+    assert words.numel() > 0
+    bad = counts.clone()
+    bad[0] += 1
+    with pytest.raises(ValueError, match="counts sidecar"):
+        rc.rans_decode_ctx(words, st, ft, ct, 16, bad)
+    with pytest.raises(ValueError, match="ends before"):
+        rc.rans_decode_ctx(words[:-1].clone(), st, ft, ct, 16)
+    with pytest.raises(ValueError, match="left over"):
+        rc.rans_decode_ctx(torch.cat([words, words[:1]]), st, ft, ct, 16)
+
+
+@pytest.mark.parametrize("n_ctx", [4, 15])
+def test_cgrans_on_cuda_matches_cpu(dev, n_ctx):
+    rng = np.random.default_rng(n_ctx)
+    runs = np.repeat((128 + rng.normal(0, 6, size=(3, 512))).clip(0, 255),
+                     64, axis=1)[:, :24576]
+    planes = runs.reshape(3, 128, 192).transpose(1, 2, 0)[None].astype(
+        np.uint8)
+    gpu = entropy.get("cgrans", CodecConfig(context_classes=n_ctx), device=dev)
+    cpu = entropy.get("cgrans", CodecConfig(context_classes=n_ctx),
+                      device="cpu")
+    gpu.MIN_SYMBOLS = cpu.MIN_SYMBOLS = 0
+    payload, side = gpu.encode(planes)
+    assert side["cgrans_model"][:2] == bytes([2, n_ctx])
+    assert (payload, side) == cpu.encode(planes)
+    assert np.array_equal(gpu.decode(payload, side), planes)
+
+
+@pytest.mark.parametrize("kw", [dict(entropy="grans"),
+                                dict(entropy="cgrans", context_classes=15),
+                                dict(entropy="zlib", wavelet="bior4.4")],
+                         ids=["grans", "cgrans15", "zlib-bior4.4"])
+def test_dwt_on_cuda_matches_cpu(dev, monkeypatch, kw):
+    monkeypatch.setattr(dwt_ops, "CTX_MIN_SYMBOLS", 0)
+    img = make_test_image(96, 128, seed=4)
+    cfg = CodecConfig(spatial="dwt", qss=16, dwt_levels=3, **kw)
+    gpu, cpu = Codec(cfg, device=dev), Codec(cfg, device="cpu")
+    for a, b in zip(gpu._dwt._analysis(gpu, img), cpu._dwt._analysis(cpu, img)):
+        assert torch.equal(a.cpu(), b)
+    cs = gpu.encode(img)
+    assert cs.to_bytes() == cpu.encode(img).to_bytes()
+    rec = gpu.decode(CodeStream.from_bytes(cs.to_bytes()))
+    assert np.array_equal(rec, cpu.decode(cs))
+
+
+@pytest.mark.parametrize("qss", [24, 32, 7])
+def test_deadzone_quantize_on_cuda_is_ieee(dev, qss):
+    """trunc(x / qss) with the IEEE quotient on the card, as on the CPU
+    (PyTorch divides by a Python scalar on CUDA through its reciprocal)."""
+    from vcf_tpu_torch.ops import quantize as q_ops
+
+    rng = np.random.default_rng(qss)
+    x = torch.from_numpy((rng.normal(0, 300, 1 << 20)).astype(np.float32))
+    # values on and next to multiples of qss, where a rounded quotient
+    # crosses an integer
+    k = torch.from_numpy(rng.integers(-60, 60, 1 << 16).astype(np.float32))
+    x = torch.cat([x, k * qss, torch.nextafter(k * qss, k * qss - 1)])
+    assert torch.equal(q_ops.deadzone_quantize(x.to(dev), qss).cpu(),
+                       q_ops.deadzone_quantize(x, qss))

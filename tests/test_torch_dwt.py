@@ -1,0 +1,310 @@
+"""The port's DWT still codec (`ops.dwt`, `entropy.dwt_device`) against
+vcf_tpu's.
+
+Tolerances: filter banks equal (the numpy design is vcf_tpu's, verbatim);
+one jitted analysis or synthesis pass of vcf_tpu's bank equals the port's
+bit for bit (the port evaluates XLA's float32 FMA chain exactly); a whole
+multi-level analysis or synthesis within ATOL of vcf_tpu's, since in its
+fused jit XLA picks the fusing order of some chains' first pair by how it
+fuses (ROADMAP C8), a few float32 ulp of coefficients below 2^11.
+Entropy coding is exact: on equal index grids the streams are
+byte-identical, and each package decodes the other's stream.
+"""
+
+import hashlib
+import os
+from fractions import Fraction
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+import vcf_tpu
+from vcf_tpu.entropy import dwt_device as jdd
+from vcf_tpu.io import test_image as make_test_image
+from vcf_tpu.ops import dwt as jdwt
+from vcf_tpu_torch import Codec, CodecConfig, CodeStream
+from vcf_tpu_torch.entropy import dwt_device as tdd
+from vcf_tpu_torch.ops import dwt as tdwt
+
+GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
+ATOL = 2e-4         # float32 ulp of |coefficient| < 2^11, a few times over
+PR_ATOL = 1e-3      # analysis then synthesis against the input (+-128)
+
+# coif5 is left out: vcf_tpu's own least-squares design of it ends on
+# one of several solutions from run to run (ROADMAP C10); it is held to
+# its defining system below instead
+FAMILIES = (["haar"] + [f"db{p}" for p in range(1, 11)]
+            + [f"sym{p}" for p in range(2, 11)]
+            + [f"coif{p}" for p in range(1, 5)]
+            + ["legall53", "cdf97", "jpeg2000"]
+            + [f"{k}{a}.{b}" for k in ("bior", "rbio")
+               for a, b in sorted(jdwt.BIOR_ORDERS)])
+SAMPLE = ["db5", "bior4.4"]
+
+
+def _signal(shape=(64, 96, 3), seed=1):
+    rng = np.random.default_rng(seed)
+    return (rng.random(shape) * 255 - 128).astype(np.float32)
+
+
+def _flat(decomp):
+    return [decomp[0]] + [b for d in decomp[1:] for b in d]
+
+
+# ---------------------------------------------------------------------------
+# Filter banks and the transform
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_bank_matches_vcf_tpu(name):
+    bj, bt = jdwt.get_bank(name), tdwt.get_bank(name)
+    for attr in ("dec_lo", "dec_hi", "rec_lo", "rec_hi"):
+        a, b = getattr(bj, attr), getattr(bt, attr)
+        assert a.dtype == b.dtype == np.float32
+        np.testing.assert_array_equal(b, a)
+    for attr in ("shift_lo", "shift_hi", "phase_lo", "phase_hi"):
+        assert getattr(bt, attr) == getattr(bj, attr)
+
+
+def test_coif5_is_a_coiflet():
+    """The port's coif5 solves the system that defines it (vcf_tpu's own
+    convergence check): orthonormality, 10 vanishing wavelet moments, 9
+    vanishing scaling moments, sum sqrt(2); and its bank is built from it
+    as vcf_tpu builds every orthonormal bank."""
+    h = tdwt.coiflet_lowpass(5)
+    n = 5
+    idx = np.arange(-2 * n, 4 * n).astype(float)
+    res = [np.sum(h[: 6 * n - 2 * k] * h[2 * k:]) - (k == 0)
+           for k in range(3 * n)]
+    res += [np.sum((-1.0) ** np.arange(6 * n) * idx ** j * h)
+            for j in range(2 * n)]
+    res += [np.sum(h) - np.sqrt(2.0)]
+    res += [np.sum(idx ** j * h) for j in range(1, 2 * n)]
+    assert np.abs(res).max() < 1e-9
+    bank = tdwt.get_bank("coif5")
+    g = np.array([(-1) ** k for k in range(len(h))]) * h[::-1]
+    np.testing.assert_array_equal(bank.dec_lo, h.astype(np.float32))
+    np.testing.assert_array_equal(bank.dec_hi, g.astype(np.float32))
+    np.testing.assert_array_equal(bank.rec_lo, bank.dec_lo)
+    np.testing.assert_array_equal(bank.rec_hi, bank.dec_hi)
+
+
+@pytest.mark.parametrize("name", ["haar", "db5", "sym5", "bior4.4"])
+def test_single_pass_bit_exact(name):
+    """One jitted axis pass of vcf_tpu's bank (an XLA FMA chain) equals
+    the port's, bit for bit, both filters, both axes, both directions.
+    (For the short spline filters at phase -2, such as rbio3.1, XLA's
+    synthesis pass along axis 1 differs on ~0.1% of values by an ulp;
+    ROADMAP C8.)"""
+    b = jdwt.get_bank(name)
+    x = _signal()
+    xt = torch.from_numpy(x)
+    for axis in (0, 1):
+        for dec, sh, rec, ph in ((b.dec_lo, b.shift_lo, b.rec_lo, b.phase_lo),
+                                 (b.dec_hi, b.shift_hi, b.rec_hi, b.phase_hi)):
+            want = jax.jit(lambda a: jdwt._down_axis(a, dec, sh, axis))(
+                jnp.asarray(x))
+            np.testing.assert_array_equal(
+                tdwt._down_axis(xt, dec, sh, axis).numpy(), np.asarray(want))
+            n = 2 * x.shape[axis]
+            want = jax.jit(lambda a: jdwt._up_axis(a, rec, ph, axis, n))(
+                jnp.asarray(x))
+            np.testing.assert_array_equal(
+                tdwt._up_axis(xt, rec, ph, axis, n).numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("name", SAMPLE)
+def test_analysis_synthesis_match_vcf_tpu(name):
+    x = _signal()
+    dj = jax.jit(lambda a: jdwt.analyze(a, name, 3))(jnp.asarray(x))
+    dt = tdwt.analyze(torch.from_numpy(x), name, 3)
+    for a, b in zip(_flat(dj), _flat(dt)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0, atol=ATOL)
+    rec = tdwt.synthesize(dt, name).numpy()
+    np.testing.assert_allclose(rec, x, rtol=0, atol=PR_ATOL)
+    want = np.asarray(jax.jit(lambda d: jdwt.synthesize(d, name))(dj))
+    got = tdwt.synthesize([torch.from_numpy(np.array(dj[0]))]
+                          + [tuple(torch.from_numpy(np.array(b)) for b in d)
+                             for d in dj[1:]], name).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+def _round_f32(q: Fraction) -> np.float32:
+    """The float32 nearest to the rational q, ties to even."""
+    r = np.float32(float(q))
+    best = None
+    for c in (np.nextafter(r, np.float32(-np.inf)), r,
+              np.nextafter(r, np.float32(np.inf))):
+        d = abs(Fraction(float(c)) - q)
+        if best is None or d < best[0] or (
+                d == best[0] and int(c.view(np.uint32)) % 2 == 0):
+            best = (d, c)
+    return best[1]
+
+
+def test_fma32_is_exact():
+    """fma32 rounds a * w + c once.  Besides random operands, the cases
+    are built so that a * w lies within 2^-53 of 2^-24 and c = 1 + k 2^-23:
+    the float64 sum then lands on a float32 midpoint that the exact sum
+    misses, where rounding the float64 sum again goes wrong."""
+    rng = np.random.default_rng(3)
+    a = [(rng.random(300) * 300 - 150).astype(np.float32)]
+    w = [(rng.random(300) - 0.5).astype(np.float32)]
+    c = [(rng.random(300) * 300 - 150).astype(np.float32)]
+    j = rng.integers(1, 2 ** 23, 3000)
+    a_mid = ((2.0 ** 23 + j) * 2.0 ** -35).astype(np.float32)
+    a.append(a_mid)
+    w.append((2.0 ** -24 / a_mid.astype(np.float64)).astype(np.float32))
+    c.append((1 + rng.integers(0, 2 ** 23, 3000) * 2.0 ** -23)
+             .astype(np.float32))
+    a, w, c = (np.concatenate(v) for v in (a, w, c))
+    double_rounded = 0
+    for ai, wi, ci in zip(a, w, c):
+        q = Fraction(float(ai)) * Fraction(float(wi)) + Fraction(float(ci))
+        want = _round_f32(q)
+        got = tdwt.fma32(torch.from_numpy(np.float32([ai])), float(wi),
+                         torch.from_numpy(np.float32([ci]))).numpy()[0]
+        assert got == want, (ai, wi, ci)
+        double_rounded += np.float32(float(ai) * float(wi) + float(ci)) != want
+    assert double_rounded > 0
+
+
+# ---------------------------------------------------------------------------
+# Device entropy helpers
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,levels", [((1088, 1920, 3), 5),
+                                          ((96, 112, 3), 3),
+                                          ((64, 96, 3), 2), ((8, 8, 1), 1)])
+def test_grid_helpers_match_vcf_tpu(shape, levels):
+    dwt = tdwt.DWT("db5", levels)
+    sizes = dwt._grid_sizes(shape)
+    sg, l = tdd.grid_dims(sizes)
+    assert (sg, l) == jdd.grid_dims(sizes, False)
+    if shape[0] == 1088:
+        assert (len(sizes), sg, l, len(sizes) * sg * l) == (17, 512, 3060,
+                                                            26_634_240)
+    rng = np.random.default_rng(2)
+    bands = [rng.integers(0, 256, n, dtype=np.uint8) for n in sizes]
+    grid = tdd.bands_to_grid([torch.from_numpy(b) for b in bands], sg, l)
+    np.testing.assert_array_equal(
+        grid.numpy(), np.asarray(jdd.bands_to_grid(
+            [jnp.asarray(b) for b in bands], sg, l)))
+    for a, b in zip(tdd.grid_to_bands(grid, sizes, sg), bands):
+        np.testing.assert_array_equal(a.numpy(), b)
+    g = len(sizes)
+    states = rng.integers(0, 2 ** 32, g * sg, dtype=np.uint64).astype(np.uint32)
+    counts = rng.integers(0, 50, l).astype(np.int64)
+    for fg in (rng.integers(1, 300, (g, 256)), rng.integers(1, 300, (g, 4, 256))):
+        n_ctx = fg.shape[1] if fg.ndim == 3 else 0
+        blob = tdd.pack_model(g, sg, l, 1234, 16, states, counts, fg, n_ctx)
+        assert blob == jdd.pack_model(g, sg, l, 1234, 16, states, counts, fg,
+                                      n_ctx=n_ctx)
+        back = tdd.unpack_model(blob)
+        for mine, theirs in zip(back, jdd.unpack_model(blob)):
+            np.testing.assert_array_equal(mine, theirs)
+
+
+# ---------------------------------------------------------------------------
+# The codec against vcf_tpu's
+# ---------------------------------------------------------------------------
+
+def _grids(cfg_kw, img):
+    """Both packages' lane grids of `img` (the device path's indexes)."""
+    jc = vcf_tpu.Codec(vcf_tpu.CodecConfig(**cfg_kw))
+    tc = Codec(CodecConfig(**cfg_kw), device="cpu")
+    sizes = tc._dwt._grid_sizes(img.shape)
+    sg, l = tdd.grid_dims(sizes)
+    make_lanes = jc._dwt._build_device_fns(jc)[0]
+    lanes_j = np.asarray(make_lanes(jnp.asarray(img), sg, l))
+    lanes_t = tdd.bands_to_grid(tc._dwt._grid_bands(tc, img), sg, l).numpy()
+    return jc, tc, lanes_j, lanes_t
+
+
+def _cross_decode(jc, tc, cs_j, cs_t):
+    """Each package decodes the other's stream; the indexes are equal, so
+    the pixels differ at most by 1 where a few-ulp synthesis difference
+    crosses a rounding edge."""
+    rec_jj = np.asarray(jc.decode(CodeStream.from_bytes(cs_j.to_bytes())))
+    rec_tj = tc.decode(CodeStream.from_bytes(cs_j.to_bytes()))
+    rec_jt = np.asarray(jc.decode(vcf_tpu.CodeStream.from_bytes(cs_t.to_bytes())))
+    for rec in (rec_tj, rec_jt):
+        d = np.abs(rec.astype(np.int32) - rec_jj.astype(np.int32))
+        assert d.max() <= 1 and np.count_nonzero(d) <= 1e-3 * d.size
+
+
+@pytest.mark.parametrize("entropy,n_ctx", [("grans", 4), ("cgrans", 4),
+                                           ("cgrans", 15)])
+def test_device_streams_identical(monkeypatch, entropy, n_ctx):
+    """The grouped grid path; cgrans with the context path forced at this
+    size in both packages."""
+    monkeypatch.setattr(jdwt, "CTX_MIN_SYMBOLS", 0)
+    monkeypatch.setattr(tdwt, "CTX_MIN_SYMBOLS", 0)
+    kw = dict(spatial="dwt", qss=16, dwt_levels=3, entropy=entropy,
+              context_classes=n_ctx)
+    img = make_test_image(64, 96, seed=7)
+    jc, tc, lanes_j, lanes_t = _grids(kw, img)
+    np.testing.assert_array_equal(lanes_t, lanes_j)
+    cs_j, cs_t = jc.encode(img), tc.encode(img)
+    assert cs_t.to_bytes() == cs_j.to_bytes()
+    blob = cs_t["gdwt_model"]
+    assert blob[0] == (2 if entropy == "cgrans" else 1)
+    if entropy == "cgrans":
+        assert blob[21] == n_ctx
+    _cross_decode(jc, tc, cs_j, cs_t)
+    if entropy == "grans":
+        # rans takes the same grid path: the same stream
+        rans = Codec(CodecConfig(**dict(kw, entropy="rans")), device="cpu")
+        assert rans.encode(img).to_bytes() == cs_t.to_bytes()
+
+
+@pytest.mark.parametrize("wavelet,entropy", [("db5", "zlib"),
+                                             ("bior4.4", "tiff"),
+                                             ("sym5", "zlib")])
+def test_host_streams_identical(wavelet, entropy):
+    """The per-band host path: LL uint16, details uint8, both +128."""
+    kw = dict(spatial="dwt", qss=16, dwt_levels=2, wavelet=wavelet,
+              entropy=entropy)
+    img = make_test_image(64, 96, seed=8)
+    jc = vcf_tpu.Codec(vcf_tpu.CodecConfig(**kw))
+    tc = Codec(CodecConfig(**kw), device="cpu")
+    cs_j, cs_t = jc.encode(img), tc.encode(img)
+    assert cs_t.to_bytes() == cs_j.to_bytes()
+    _cross_decode(jc, tc, cs_j, cs_t)
+
+
+GOLDENS = {
+    "dwt_db5_zlib": dict(spatial="dwt", qss=16, dwt_levels=3, entropy="zlib"),
+    "dwt_sym5_zlib": dict(spatial="dwt", qss=16, dwt_levels=2,
+                          wavelet="sym5", entropy="zlib"),
+    "dwt_bior44_zlib": dict(spatial="dwt", qss=16, dwt_levels=2,
+                            wavelet="bior4.4", entropy="zlib"),
+    "dwt_grans": dict(spatial="dwt", qss=16, dwt_levels=3, entropy="grans"),
+    "dct_cgrans": dict(entropy="cgrans"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GOLDENS))
+def test_golden_decode_and_reencode(name):
+    """The stored stream decodes to its sha256 and the golden input
+    re-encodes to it byte for byte (dct_cgrans at 96x112 pins only the
+    order-0 fallback, sidecar version 0)."""
+    with open(os.path.join(GOLDEN_DIR, f"{name}.vcft"), "rb") as f:
+        blob = f.read()
+    with open(os.path.join(GOLDEN_DIR, f"{name}.sha256")) as f:
+        want = f.read().strip()
+    codec = Codec(CodecConfig(**GOLDENS[name]), device="cpu")
+    rec = codec.decode(CodeStream.from_bytes(blob))
+    assert hashlib.sha256(rec.tobytes()).hexdigest() == want
+    assert codec.encode(make_test_image(96, 112, seed=5)).to_bytes() == blob
+
+
+@pytest.mark.parametrize("kw,item", [(dict(quantizer="lloydmax"), "A11"),
+                                     (dict(quantizer="vq"), "A11"),
+                                     (dict(quantizer="none"), "A17")])
+def test_dwt_unported_quantizers_raise(kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        Codec(CodecConfig(spatial="dwt", **kw), device="cpu")

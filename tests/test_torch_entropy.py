@@ -166,6 +166,6 @@ def test_registry():
     assert isinstance(tentropy.get("zlib"), tentropy.ZlibCodec)
     with pytest.raises(ValueError, match="device"):
         tentropy.get("grans")
-    for name in ("huffman", "cgrans", "srans", "ihuff", "png"):
+    for name in ("huffman", "srans", "ihuff", "png"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tentropy.get(name, device=CPU)

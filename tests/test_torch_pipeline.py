@@ -156,7 +156,7 @@ def test_stage_timings_recorded():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(spatial="dwt"), "A10"),
+    (dict(spatial="dwt", quantizer="lloydmax"), "A11"),
     (dict(spatial="mdct"), "A12"),
     (dict(quantizer="lloydmax"), "A11"),
     (dict(quantizer="colorvq"), "A11"),
@@ -190,7 +190,9 @@ def test_import_does_not_load_jax():
     code = ("import sys, vcf_tpu_torch, vcf_tpu_torch.io, "
             "vcf_tpu_torch.video.ipp, vcf_tpu_torch.ops.motion, "
             "vcf_tpu_torch.ops.cuda.sad_kernel, "
-            "vcf_tpu_torch.ops.cuda.mc_kernel; "
+            "vcf_tpu_torch.ops.cuda.mc_kernel, vcf_tpu_torch.ops.dwt, "
+            "vcf_tpu_torch.entropy.dwt_device, "
+            "vcf_tpu_torch.ops.cuda.rans_ctx; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'vcf_tpu' not in sys.modules, 'vcf_tpu imported'")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

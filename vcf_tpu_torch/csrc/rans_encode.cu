@@ -12,6 +12,23 @@
 // byte-split table fetch and f32 reciprocal with correction rounds are
 // gone: Hopper has exact integer division and per-thread table loads.
 //
+// K1 has two modes, a template parameter: order 0 (above) and the order-1
+// context mode `rans_encode_ctx`, which replaces
+// vcf_tpu/ops/pallas/rans_ctx.py:pallas_encode_ctx_raw and
+// pallas_encode_ctx_raw_u8 (one output, two TPU input layouts).  In the
+// context mode each group has n_ctx tables of 256 entries, and the table
+// of symbol t is picked by the class of the lane's previous symbol,
+// cls_lut[syms[t - 1]] (a 256-entry lookup table covers 4 and 15
+// classes alike); symbol 0 takes the class of 128, which is class 0.  The
+// walk from t = L - 1 down loads each symbol once: the symbol read as the
+// previous one at step t is the symbol of step t - 1.  The TPU's
+// byte-split bf16 (class x hi-nibble) matmul fetch and its 2-bit packed
+// class plane are gone: the class is one shared-memory byte lookup.  A
+// block's groups keep their n_ctx tables in shared memory (8 KiB at 4
+// classes, 30 KiB at 15, for the two groups a 128-lane block can touch);
+// small sg, whose blocks span many groups, reads the tables from global
+// memory (use_smem = 0), as order 0 does.
+//
 // K2 replaces vcf_tpu/ops/pallas/rans_encode.py:finish_stream_pallas.
 // It is a stream compaction of the (L, S) raw grid, row-major over the
 // flagged entries, into the wire words.  What bounds it: memory traffic
@@ -40,31 +57,49 @@ constexpr int CMP_TILE = CMP_THREADS * CMP_ROUNDS;  // grid entries per block
 constexpr int SCAN_THREADS = 1024;
 constexpr int STATIC_SMEM_LIMIT = 48 * 1024;
 
+// CTX = false: order 0, tab (G, 256).  CTX = true: the context mode, tab
+// (G, n_ctx, 256) and cls_lut (256,) the class of each previous symbol.
+template <bool CTX>
 __global__ void __launch_bounds__(ENC_THREADS)
-rans_encode_grouped_kernel(const uint8_t* __restrict__ syms,  // (L, S)
-                           const uint32_t* __restrict__ tab,  // (G, 256)
-                           int32_t* __restrict__ raw,         // (L, S)
-                           uint32_t* __restrict__ states,     // (S,)
-                           int S, int L, int sg, int use_smem) {
+rans_encode_kernel(const uint8_t* __restrict__ syms,     // (L, S)
+                   const uint32_t* __restrict__ tab,     // (G, rows)
+                   const uint8_t* __restrict__ cls_lut,  // (256,), CTX only
+                   int32_t* __restrict__ raw,            // (L, S)
+                   uint32_t* __restrict__ states,        // (S,)
+                   int S, int L, int sg, int n_ctx, int use_smem) {
   extern __shared__ uint32_t s_tab[];
+  __shared__ uint8_t s_lut[CTX ? 256 : 1];
+  const int rows = CTX ? n_ctx * 256 : 256;  // table entries per group
   const int s0 = blockIdx.x * blockDim.x;
   const int s = s0 + threadIdx.x;
   const int g_lo = s0 / sg;
+  if constexpr (CTX) {
+    for (int i = threadIdx.x; i < 256; i += blockDim.x) s_lut[i] = cls_lut[i];
+  }
   if (use_smem) {
     // the groups this block's lanes span, contiguous in the table
     const int g_hi = (min(s0 + (int)blockDim.x, S) - 1) / sg;
-    const int n = (g_hi - g_lo + 1) * 256;
+    const int n = (g_hi - g_lo + 1) * rows;
     for (int i = threadIdx.x; i < n; i += blockDim.x)
-      s_tab[i] = tab[g_lo * 256 + i];
-    __syncthreads();
+      s_tab[i] = tab[(size_t)g_lo * rows + i];
   }
+  __syncthreads();
   if (s >= S) return;
-  const uint32_t* t_row =
-      use_smem ? s_tab + (s / sg - g_lo) * 256 : tab + (s / sg) * 256;
+  const uint32_t* t_grp =
+      use_smem ? s_tab + (s / sg - g_lo) * rows : tab + (size_t)(s / sg) * rows;
   uint32_t x = RANS_L;
+  // CTX: the symbol of step t, loaded at step t + 1 as its previous one
+  uint32_t cur = (CTX && L > 0) ? syms[(size_t)(L - 1) * S + s] : 0u;
   for (int t = L - 1; t >= 0; --t) {
     const size_t at = (size_t)t * S + s;
-    const uint32_t e = t_row[syms[at]];
+    uint32_t e;
+    if constexpr (CTX) {
+      const uint32_t prev = t > 0 ? syms[at - S] : 128u;
+      e = t_grp[s_lut[prev] * 256u + cur];
+      cur = prev;
+    } else {
+      e = t_grp[syms[at]];
+    }
     const uint32_t f = e & 0xFFFFu;
     const uint32_t cum = e >> 16;
     const uint32_t emit = (x >> SHIFT_EMIT) >= f ? 1u : 0u;
@@ -128,6 +163,24 @@ compact_scatter_kernel(const int32_t* __restrict__ raw, long long n,
   }
 }
 
+template <bool CTX>
+int launch_encode(const void* syms, const void* tab, const void* cls_lut,
+                  void* raw, void* states, int S, int L, int G, int n_ctx,
+                  void* stream) {
+  const int sg = S / G;
+  const int blocks = (S + ENC_THREADS - 1) / ENC_THREADS;
+  // most groups one block can span: its lanes cover ENC_THREADS
+  // consecutive lanes, which touch at most this many groups of sg lanes
+  const int span = std::min(G, (ENC_THREADS + sg - 1) / sg + 1);
+  const size_t smem = (size_t)span * (CTX ? n_ctx : 1) * 256 * sizeof(uint32_t);
+  const int use_smem = smem <= (size_t)STATIC_SMEM_LIMIT;
+  rans_encode_kernel<CTX><<<blocks, ENC_THREADS, use_smem ? smem : 0,
+                            (cudaStream_t)stream>>>(
+      (const uint8_t*)syms, (const uint32_t*)tab, (const uint8_t*)cls_lut,
+      (int32_t*)raw, (uint32_t*)states, S, L, sg, n_ctx, use_smem);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace vcf
 
 extern "C" {
@@ -137,19 +190,17 @@ extern "C" {
 int vcf_rans_encode_grouped(const void* syms, const void* tab, void* raw,
                             void* states, int S, int L, int G,
                             void* stream) {
-  const int sg = S / G;
-  const int blocks = (S + vcf::ENC_THREADS - 1) / vcf::ENC_THREADS;
-  // most groups one block can span: its lanes cover ENC_THREADS
-  // consecutive lanes, which touch at most this many groups of sg lanes
-  const int span = std::min(G, (vcf::ENC_THREADS + sg - 1) / sg + 1);
-  const size_t smem = (size_t)span * 256 * sizeof(uint32_t);
-  const int use_smem = smem <= (size_t)vcf::STATIC_SMEM_LIMIT;
-  vcf::rans_encode_grouped_kernel<<<blocks, vcf::ENC_THREADS,
-                                    use_smem ? smem : 0,
-                                    (cudaStream_t)stream>>>(
-      (const uint8_t*)syms, (const uint32_t*)tab, (int32_t*)raw,
-      (uint32_t*)states, S, L, sg, use_smem);
-  return (int)cudaGetLastError();
+  return vcf::launch_encode<false>(syms, tab, nullptr, raw, states, S, L, G,
+                                   1, stream);
+}
+
+// The context mode: tab (G, n_ctx, 256) packed f | cum << 16, cls_lut
+// (256,) u8 classes in [0, n_ctx); the rest as vcf_rans_encode_grouped.
+int vcf_rans_encode_ctx(const void* syms, const void* tab,
+                        const void* cls_lut, void* raw, void* states, int S,
+                        int L, int G, int n_ctx, void* stream) {
+  return vcf::launch_encode<true>(syms, tab, cls_lut, raw, states, S, L, G,
+                                  n_ctx, stream);
 }
 
 int vcf_rans_compact_tile(void) { return vcf::CMP_TILE; }

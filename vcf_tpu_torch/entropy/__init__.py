@@ -6,8 +6,9 @@ the same bytes as vcf_tpu's codec of the same name:
     payload, side = codec.encode(arr)      # arr: np.uint8 | np.uint16
     arr = codec.decode(payload, side)
 
-`tiff` and `zlib` are host numpy.  `rans` and `grans` run on a torch
-device that the caller names; on CUDA they launch the rANS kernels.
+`tiff` and `zlib` are host numpy.  `rans`, `grans` and `cgrans` run on
+a torch device that the caller names; on CUDA they launch the rANS
+kernels.
 Every other vcf_tpu codec name raises NotImplementedError naming its
 ROADMAP queue-A item.
 """
@@ -17,15 +18,17 @@ from __future__ import annotations
 import torch
 
 from vcf_tpu_torch.entropy.base import EntropyCodec
-from vcf_tpu_torch.entropy.rans import GroupedRANSCodec, RANSCodec
+from vcf_tpu_torch.entropy.rans import (CtxRANSCodec, GroupedRANSCodec,
+                                        RANSCodec)
 from vcf_tpu_torch.entropy.tiff import TIFFCodec
 from vcf_tpu_torch.entropy.zlib_codec import ZlibCodec
 
 _HOST = {"zlib": ZlibCodec, "tiff": TIFFCodec}
-_ON_DEVICE = {"rans": RANSCodec, "grans": GroupedRANSCodec}
+_ON_DEVICE = {"rans": RANSCodec, "grans": GroupedRANSCodec,
+              "cgrans": CtxRANSCodec}
 _NOT_PORTED = {
     "pnm": "A7", "png": "A7", "huffman": "A7", "cbahc": "A7", "cbaac": "A7",
-    "ihuff": "A8", "srans": "A6", "cgrans": "A6",
+    "ihuff": "A8", "srans": "A6",
 }
 
 
@@ -45,5 +48,5 @@ def get(name: str, config=None, device=None) -> EntropyCodec:
     raise KeyError(f"unknown entropy codec {name!r}")
 
 
-__all__ = ["EntropyCodec", "get", "GroupedRANSCodec", "RANSCodec",
-           "TIFFCodec", "ZlibCodec"]
+__all__ = ["EntropyCodec", "get", "CtxRANSCodec", "GroupedRANSCodec",
+           "RANSCodec", "TIFFCodec", "ZlibCodec"]

@@ -1,5 +1,5 @@
-"""Interleaved rANS (port of vcf_tpu/entropy/rans.py, the `rans` and
-`grans` part).
+"""Interleaved rANS (port of vcf_tpu/entropy/rans.py, the `rans`,
+`grans` and `cgrans` part).
 
 S streams share ONE word stream: the decoder's renormalization schedule
 is state-driven, so at each step the renormalizing streams consume the
@@ -11,9 +11,11 @@ vcf_tpu's, byte for byte: 15-bit probabilities, 32-bit states, 16-bit
 words.
 
 The three stages are the kernels of `vcf_tpu_torch.ops.cuda`: K1 encode
-to the raw grid, K2 compaction, K3 decode.  On a CUDA device every
-encode and decode launches them; on the CPU their plain torch versions
-run.  The NumPy reference implementations (`np_*`) define the format.
+to the raw grid, K2 compaction, K3 decode; the order-1 context coder
+(`cgrans`) runs the context modes of K1 and K3 (`ops.cuda.rans_ctx`)
+with K2 between them.  On a CUDA device every encode and decode launches
+them; on the CPU their plain torch versions run.  The NumPy reference
+implementations (`np_*`) define the format.
 """
 
 from __future__ import annotations
@@ -26,15 +28,20 @@ import numpy as np
 import torch
 
 from vcf_tpu_torch.entropy.base import EntropyCodec
+from vcf_tpu_torch.ops.cuda.rans_ctx import (CTX_BOUNDS, N_CTX, class_lut,
+                                             rans_decode_ctx, rans_encode_ctx)
 from vcf_tpu_torch.ops.cuda.rans_decode import rans_decode_grouped
 from vcf_tpu_torch.ops.cuda.rans_encode import (K_PROB, MASK, RANS_L,
-                                                rans_compact,
+                                                _SHIFT_EMIT, rans_compact,
                                                 rans_encode_grouped)
 
 __all__ = ["K_PROB", "RANS_L", "MASK", "quantize_freqs", "np_encode_grouped",
            "np_decode_grouped", "subband_lanes", "subband_unlanes",
-           "group_histograms", "freqs_from_counts", "RANSCodec",
-           "GroupedRANSCodec"]
+           "group_histograms", "freqs_from_counts", "N_CTX", "CTX_BOUNDS",
+           "subband_lanes_ctx", "subband_unlanes_ctx", "ctx_class",
+           "ctx_class_n", "np_encode_ctx", "ctx_group_histograms",
+           "ctx_cums", "ctx_freqs_from_counts", "RANSCodec", "GroupedRANSCodec",
+           "CtxRANSCodec"]
 
 
 # ---------------------------------------------------------------------------
@@ -180,17 +187,18 @@ def freqs_from_counts(counts_g: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return freqs_g.astype(np.uint32), cums_g
 
 
-def _tables(freqs_g: np.ndarray, cums_g: np.ndarray, device: torch.device):
-    return (torch.from_numpy(freqs_g.astype(np.int64)).to(device),
-            torch.from_numpy(cums_g.astype(np.int64)).to(device))
+def _tables(freqs: np.ndarray, cums: np.ndarray, device: torch.device):
+    return (torch.from_numpy(freqs.astype(np.int64)).to(device),
+            torch.from_numpy(cums.astype(np.int64)).to(device))
 
 
-def _encode_lanes(lanes: torch.Tensor, freqs_g: np.ndarray,
-                  cums_g: np.ndarray):
+def _encode_lanes(lanes: torch.Tensor, freqs: np.ndarray, cums: np.ndarray):
     """K1 + K2 on a (S, L) lane matrix -> (payload bytes, n_words,
-    per-step counts (L,) int32 numpy, states (S,) uint32 numpy)."""
-    fg, cg = _tables(freqs_g, cums_g, lanes.device)
-    raw, states = rans_encode_grouped(lanes, fg, cg)
+    per-step counts (L,) int32 numpy, states (S,) uint32 numpy).  (G, 256)
+    tables take K1's order-0 mode, (G, n_ctx, 256) its context mode."""
+    fg, cg = _tables(freqs, cums, lanes.device)
+    encode = rans_encode_ctx if freqs.ndim == 3 else rans_encode_grouped
+    raw, states = encode(lanes, fg, cg)
     words, n_words, counts = rans_compact(raw)
     n_words = int(n_words)
     payload = words[:n_words].cpu().numpy().astype("<u2").tobytes()
@@ -198,17 +206,128 @@ def _encode_lanes(lanes: torch.Tensor, freqs_g: np.ndarray,
             states.cpu().numpy().astype(np.uint32))
 
 
-def _decode_lanes(payload: bytes, n_words: int, states: np.ndarray,
-                  freqs_g: np.ndarray, cums_g: np.ndarray, l: int,
-                  counts, device: torch.device) -> torch.Tensor:
-    """K3 on a wire stream -> (S, L) uint8 lanes on `device`."""
-    words = np.frombuffer(payload, "<u2", n_words).astype(np.uint16)
-    fg, cg = _tables(freqs_g, cums_g, device)
-    cnt = (torch.from_numpy(counts.astype(np.int64)).to(device)
+def _decode_lanes(words: np.ndarray, states: np.ndarray, freqs: np.ndarray,
+                  cums: np.ndarray, l: int, counts,
+                  device: torch.device) -> torch.Tensor:
+    """K3 on the wire words -> (S, L) uint8 lanes on `device`; (G, 256)
+    tables take K3's order-0 mode, (G, n_ctx, 256) its context mode."""
+    fg, cg = _tables(freqs, cums, device)
+    cnt = (torch.from_numpy(np.asarray(counts).astype(np.int64)).to(device)
            if counts is not None else None)
-    return rans_decode_grouped(
-        torch.from_numpy(words).to(device),
+    decode = rans_decode_ctx if freqs.ndim == 3 else rans_decode_grouped
+    return decode(
+        torch.from_numpy(np.array(words, np.uint16)).to(device),
         torch.from_numpy(states.astype(np.int64)).to(device), fg, cg, l, cnt)
+
+
+def _wire_words(payload: bytes, n_words: int) -> np.ndarray:
+    return np.frombuffer(payload, "<u2", n_words).astype(np.uint16)
+
+
+# ---------------------------------------------------------------------------
+# Order-1 context modeling ("cgrans"): one table per (subband, class of
+# the previous symbol in the same lane).  In the lane-major layout below
+# consecutive lane positions are spatially adjacent blocks, so the
+# previous symbol is the same DCT coefficient of the neighboring block.
+# ---------------------------------------------------------------------------
+
+def subband_lanes_ctx(planes: torch.Tensor, b: int,
+                      s_streams: int) -> torch.Tensor:
+    """(N, H, W, C) SUBBAND-layout planes -> (S, L) lanes with the same
+    per-coefficient groups as subband_lanes but a LANE-MAJOR, x-adjacent
+    block order: lane j of group g codes blocks f = j*L + t with f
+    enumerating (channel, frame, block_row, block_col) raster, so a
+    lane's previous symbol is the same coefficient of the left-adjacent
+    block.  (The wrong layout still round-trips but changes the bytes.)
+    Pure reshapes/permutes."""
+    n, h, w, c = planes.shape
+    g = b * b
+    sg = s_streams // g
+    sb = planes.reshape(n, b, h // b, b, w // b, c)
+    sb = sb.permute(1, 3, 5, 0, 2, 4).reshape(g, -1)   # (G, f=(c,n,by,bx))
+    l = sb.shape[1] // sg
+    return sb.reshape(g * sg, l)
+
+
+def subband_unlanes_ctx(syms: torch.Tensor, b: int, shape) -> torch.Tensor:
+    """Inverse of subband_lanes_ctx: (S, L) -> (N, H, W, C)."""
+    n, h, w, c = shape
+    sb = syms.reshape(b, b, c, n, h // b, w // b)
+    return sb.permute(3, 0, 4, 1, 5, 2).reshape(n, h, w, c)
+
+
+def ctx_class_n(prev: torch.Tensor, n_ctx: int) -> torch.Tensor:
+    """Previous symbol -> context class by |prev - 128|: the number of
+    CTX_BOUNDS[n_ctx] thresholds it reaches (int64).  (128 is the stored
+    zero index of every quantized plane in this codec family.)"""
+    lut = torch.from_numpy(class_lut(n_ctx).astype(np.int64)).to(prev.device)
+    return lut[prev.to(torch.int64)]
+
+
+def ctx_class(prev: torch.Tensor) -> torch.Tensor:
+    """{0} -> 0, {1} -> 1, {2..4} -> 2, {>=5} -> 3 (by |prev - 128|)."""
+    return ctx_class_n(prev, N_CTX)
+
+
+def np_encode_ctx(syms: np.ndarray, freqs_gc: np.ndarray):
+    """NumPy reference of the context encode (the word order of
+    np_encode_grouped; symbol 0 of a lane takes class 0)."""
+    s_streams, l = syms.shape
+    g, n_ctx = freqs_gc.shape[:2]
+    bounds = CTX_BOUNDS[n_ctx]
+    sg = s_streams // g
+    cums = np.concatenate([np.zeros((g, n_ctx, 1), np.uint64),
+                           np.cumsum(freqs_gc, axis=2)], axis=2)
+    x = np.full(s_streams, RANS_L, np.uint64)
+    emitted = []
+    for t in range(l - 1, -1, -1):
+        for s in range(s_streams - 1, -1, -1):
+            gi = s // sg
+            if t == 0:
+                c = 0
+            else:
+                d = abs(int(syms[s, t - 1]) - 128)
+                c = sum(d >= b for b in bounds)
+            v = int(syms[s, t])
+            f = int(freqs_gc[gi, c, v])
+            if (x[s] >> _SHIFT_EMIT) >= f:
+                emitted.append(int(x[s] & 0xFFFF))
+                x[s] >>= 16
+            x[s] = (x[s] // f << K_PROB) + (x[s] % f) + int(cums[gi, c, v])
+    return np.asarray(emitted[::-1], np.uint16), x.astype(np.uint32)
+
+
+def ctx_group_histograms(lanes: torch.Tensor, g: int,
+                         n_ctx: int = N_CTX) -> torch.Tensor:
+    """(S, L) symbols -> (G, n_ctx, 256) int64 counts of (class, symbol)
+    pairs per group: one torch.bincount over
+    (group * n_ctx + class) * 256 + symbol."""
+    s_streams, l = lanes.shape
+    x = lanes.to(torch.int64)
+    prev = torch.cat([torch.full_like(x[:, :1], 128), x[:, :-1]], dim=1)
+    grp = torch.arange(s_streams, device=x.device) // (s_streams // g)
+    joint = (grp[:, None] * n_ctx + ctx_class_n(prev, n_ctx)) * 256 + x
+    return torch.bincount(joint.reshape(-1), minlength=g * n_ctx * 256
+                          ).reshape(g, n_ctx, 256)
+
+
+def ctx_cums(freqs_gc: np.ndarray) -> np.ndarray:
+    """(G, n_ctx, 256) freqs -> their exclusive prefix sums, uint32."""
+    g, n_ctx = freqs_gc.shape[:2]
+    return np.concatenate(
+        [np.zeros((g, n_ctx, 1), np.uint32),
+         np.cumsum(freqs_gc, axis=2)[:, :, :255].astype(np.uint32)], axis=2)
+
+
+def ctx_freqs_from_counts(counts_gc: np.ndarray):
+    """(G, n_ctx, 256) counts -> quantized (freqs_gc, cums_gc) uint32."""
+    g, n_ctx = counts_gc.shape[:2]
+    freqs = np.stack([
+        np.stack([quantize_freqs(np.asarray(counts_gc[gi, c]), min_all=True)
+                  for c in range(n_ctx)])
+        for gi in range(g)
+    ]).astype(np.uint32)
+    return freqs, ctx_cums(freqs)
 
 
 # ---------------------------------------------------------------------------
@@ -259,8 +378,9 @@ class RANSCodec(EntropyCodec):
         states = np.frombuffer(blob, "<u4", s_streams, off).astype(np.uint32)
         off += 4 * s_streams
         freqs = np.frombuffer(zlib.decompress(blob[off:]), "<u2").astype(np.uint32)
-        syms = _decode_lanes(payload, n_words, states, freqs[None],
-                             _cums(freqs)[None], l, None, self.device)
+        syms = _decode_lanes(_wire_words(payload, n_words), states,
+                             freqs[None], _cums(freqs)[None], l, None,
+                             self.device)
         flat = syms.t().reshape(-1).cpu().numpy()
         return flat[:n]
 
@@ -414,8 +534,99 @@ class GroupedRANSCodec(EntropyCodec):
         freqs_g = np.frombuffer(
             zlib.decompress(blob[off:]), "<u2").astype(np.uint32).reshape(g, 256)
         cums_g = np.stack([_cums(f) for f in freqs_g])
-        lanes = _decode_lanes(payload, n_words, states, freqs_g, cums_g, l,
-                              counts, self.device)
+        lanes = _decode_lanes(_wire_words(payload, n_words), states, freqs_g,
+                              cums_g, l, counts, self.device)
         full = (1,) + tuple(shape) if ndim == 3 else tuple(shape)
         out = subband_unlanes(lanes, self.b, full).cpu().numpy()
+        return out.reshape(shape)
+
+
+class CtxRANSCodec(EntropyCodec):
+    """Order-1 interleaved rANS (``cgrans``): GroupedRANSCodec's
+    per-subband tables, further conditioned on the class of the previous
+    symbol in the same lane (ctx_class_n, 4 or 15 classes).  The tables
+    sidecar is n_ctx times larger.  Inputs that are small or cannot be
+    grouped delegate to the order-0 codec (version byte 0)."""
+
+    file_extension = ".cgrans"
+
+    #: below this many symbols the (G, n_ctx, 256) tables sidecar
+    #: outweighs the stream saving; delegate to order 0
+    MIN_SYMBOLS = 4_000_000
+
+    def __init__(self, block_size: int = 8, n_streams: int = 65536,
+                 n_ctx: int = N_CTX, *, device):
+        if n_ctx not in CTX_BOUNDS:
+            raise ValueError(f"n_ctx must be one of {sorted(CTX_BOUNDS)}, "
+                             f"got {n_ctx}")
+        self.b = block_size
+        self.device = torch.device(device)
+        self.grouped = GroupedRANSCodec(block_size, n_streams,
+                                        device=self.device)
+        self.n_streams = n_streams
+        self.n_ctx = n_ctx
+
+    @classmethod
+    def from_config(cls, config=None, *, device):
+        return cls(block_size=getattr(config, "block_size", 8),
+                   n_ctx=getattr(config, "context_classes", N_CTX),
+                   device=device)
+
+    def encode(self, arr: np.ndarray) -> Tuple[bytes, Dict[str, bytes]]:
+        arr = self.check_dtype(arr)
+        if not self.grouped._groupable(arr) or arr.size < self.MIN_SYMBOLS:
+            payload, side = self.grouped.encode(arr)
+            return payload, {"cgrans_model": b"\x00" + side["grans_model"]}
+        planes = arr.reshape((1,) + arr.shape) if arr.ndim == 3 else arr
+        g = self.b * self.b
+        s_streams = self.grouped.dense._pick_streams(arr.size, self.n_streams)
+        s_streams = max(g, (s_streams // g) * g)
+        l = arr.size // s_streams
+        lanes = subband_lanes_ctx(
+            torch.from_numpy(np.ascontiguousarray(planes)).to(self.device),
+            self.b, s_streams)
+        freqs_gc, cums_gc = ctx_freqs_from_counts(
+            ctx_group_histograms(lanes, g, self.n_ctx).cpu().numpy())
+        payload, n_words, counts, states = _encode_lanes(lanes, freqs_gc,
+                                                         cums_gc)
+        counts_z = zlib.compress(counts.astype("<u4").tobytes(), 9)
+        # version 2 appends the class count (v1 readers assume 4)
+        head = struct.pack(f"<BBIIIB{arr.ndim}I", 2, self.n_ctx,
+                           s_streams, l, n_words, arr.ndim, *arr.shape)
+        side = head + struct.pack("<I", len(counts_z)) + counts_z
+        side += states.astype("<u4").tobytes()
+        side += zlib.compress(freqs_gc.astype("<u2").tobytes(), 9)
+        return payload, {"cgrans_model": side}
+
+    def decode(self, payload: bytes, side: Dict[str, bytes]) -> np.ndarray:
+        blob = side["cgrans_model"]
+        if blob[0] == 0:
+            return self.grouped.decode(payload, {"grans_model": blob[1:]})
+        if blob[0] >= 2:
+            n_ctx, base = blob[1], 2
+        else:
+            n_ctx, base = 4, 1
+        s_streams, l, n_words, ndim = struct.unpack_from("<IIIB", blob, base)
+        shape = struct.unpack_from(f"<{ndim}I", blob, base + 13)
+        if int(l) * int(s_streams) != int(np.prod(shape)):
+            raise ValueError(
+                f"cgrans sidecar inconsistent: {s_streams} lanes x {l} "
+                f"steps != prod{shape} symbols")
+        off = base + 13 + 4 * ndim
+        (cz_len,) = struct.unpack_from("<I", blob, off)
+        counts = np.frombuffer(
+            zlib.decompress(blob[off + 4: off + 4 + cz_len]), "<u4"
+        ).astype(np.int32)
+        off += 4 + cz_len
+        states = np.frombuffer(blob, "<u4", s_streams, off).astype(np.uint32)
+        off += 4 * s_streams
+        g = self.b * self.b
+        freqs_gc = np.frombuffer(
+            zlib.decompress(blob[off:]), "<u2").astype(np.uint32).reshape(
+                g, n_ctx, 256)
+        lanes = _decode_lanes(_wire_words(payload, n_words), states,
+                              freqs_gc, ctx_cums(freqs_gc), l, counts,
+                              self.device)
+        full = (1,) + tuple(shape) if ndim == 3 else tuple(shape)
+        out = subband_unlanes_ctx(lanes, self.b, full).cpu().numpy()
         return out.reshape(shape)

@@ -44,6 +44,10 @@ _SIGNATURES = {
     "vcf_rans_decode_threads": [],
     "vcf_rans_decode_grouped": [_P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _P],
+    "vcf_rans_encode_ctx": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "vcf_rans_decode_ctx_smem": [_I, _I],
+    "vcf_rans_decode_ctx": [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                            _I, _I, _P],
     "vcf_dct_forward": _DCT,
     "vcf_dct_inverse": _DCT,
     "vcf_sad_search": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

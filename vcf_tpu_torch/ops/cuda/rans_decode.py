@@ -40,6 +40,23 @@ def rans_decode_grouped_ref(words: torch.Tensor, states: torch.Tensor,
     g = f_tab.shape[0]
     sg = s_streams // g
     grp = torch.arange(s_streams, device=dev) // sg
+
+    def resolve(slot):
+        v = torch.searchsorted(c_tab, slot.view(g, sg), right=True
+                               ).view(s_streams) - 1
+        return v, f_tab[grp, v], c_tab[grp, v]
+
+    return decode_steps_ref(words, states, l, counts, resolve)
+
+
+def decode_steps_ref(words: torch.Tensor, states: torch.Tensor, l: int,
+                     counts: Optional[torch.Tensor], resolve) -> torch.Tensor:
+    """The step loop of both K3 modes' plain versions: `resolve(slot)`
+    gives every lane's (symbol, f, cum) at the current step, as int64;
+    it is called once per step, in step order.  Returns syms (S, L)
+    uint8; raises ValueError as the kernel does."""
+    dev = words.device
+    s_streams = states.shape[0]
     n_words = words.numel()
     # one zero word past the end keeps the gather in range; a stream that
     # needs it is caught by the pointer check below
@@ -51,9 +68,8 @@ def rans_decode_grouped_ref(words: torch.Tensor, states: torch.Tensor,
     ptr = torch.zeros((), dtype=torch.int64, device=dev)
     for t in range(l):
         slot = x & MASK
-        v = torch.searchsorted(c_tab, slot.view(g, sg), right=True
-                               ).view(s_streams) - 1
-        x = f_tab[grp, v] * (x >> K_PROB) + slot - c_tab[grp, v]
+        v, f, cum = resolve(slot)
+        x = f * (x >> K_PROB) + slot - cum
         renorm = (x < RANS_L).to(torch.int64)
         rank = torch.cumsum(renorm, 0) - renorm
         w = w64[(ptr + rank).clamp(max=n_words)]

@@ -73,15 +73,23 @@ def rans_encode_grouped_ref(syms: torch.Tensor, freqs_g: torch.Tensor,
     """Plain torch K1: an int64 loop over steps, vectorized over lanes.
     Same state law as np_encode_grouped; returns (raw (L, S) int32,
     states (S,) int64)."""
-    s_streams, l = syms.shape
+    s_streams = syms.shape[0]
     dev = syms.device
     g = freqs_g.shape[0]
     grp = torch.arange(s_streams, device=dev) // (s_streams // g)
     f_tab = torch.as_tensor(freqs_g).to(dev, torch.int64)
     c_tab = torch.as_tensor(cums_g).to(dev, torch.int64)
     sym_l = syms.t().to(torch.int64)                         # (L, S)
-    f_all = f_tab[grp[None, :], sym_l]
-    c_all = c_tab[grp[None, :], sym_l]
+    return encode_steps_ref(f_tab[grp[None, :], sym_l],
+                            c_tab[grp[None, :], sym_l])
+
+
+def encode_steps_ref(f_all: torch.Tensor, c_all: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The state recursion of both K1 modes' plain versions: (L, S) int64
+    (f, cum) of every symbol -> (raw (L, S) int32, states (S,) int64)."""
+    l, s_streams = f_all.shape
+    dev = f_all.device
     x = torch.full((s_streams,), RANS_L, dtype=torch.int64, device=dev)
     raw = torch.empty((l, s_streams), dtype=torch.int32, device=dev)
     for t in range(l - 1, -1, -1):

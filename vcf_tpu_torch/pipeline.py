@@ -4,8 +4,10 @@ A `Codec` is built from a `CodecConfig` and an explicit torch device.
 The ported flows are the block-DCT spatial pipeline with the deadzone
 quantizer (color transform -> 8x8 block DCT -> optional perceptual
 prescale -> subband order -> deadzone -> entropy; src/2D-DCT.py
-encode_fn/decode_fn) and the entropy-only flow.  Every other flow raises NotImplementedError when the `Codec` is
-built, naming its ROADMAP queue-A item.
+encode_fn/decode_fn), the DWT spatial pipeline with the deadzone
+quantizer (`ops.dwt.DWT`; src/2D-DWT.py) and the entropy-only flow.
+Every other flow raises NotImplementedError when the `Codec` is built,
+naming its ROADMAP queue-A item.
 
 The pixel math runs on the device as torch ops; the entropy codec gets
 the uint8 index planes and runs on the same device where it can (`rans`,
@@ -26,6 +28,7 @@ from vcf_tpu_torch.codestream import CodeStream, PAYLOAD
 from vcf_tpu_torch.config import CodecConfig
 from vcf_tpu_torch.ops import color as color_ops
 from vcf_tpu_torch.ops import dct as dct_ops
+from vcf_tpu_torch.ops import dwt as dwt_ops
 from vcf_tpu_torch.ops import quantize as q_ops
 from vcf_tpu_torch.utils.timing import StageTimer, timed_stage
 
@@ -36,15 +39,13 @@ def _not_ported(cfg: CodecConfig):
         return "the colorvq flow", "A11"
     if cfg.filter != "none":
         return f"the {cfg.filter} decode filter", "A13"
-    if cfg.spatial == "dwt":
-        return "the dwt flow", "A10"
     if cfg.spatial in ("klt", "mdct", "lbt"):
         return f"the {cfg.spatial} flow", "A12"
-    if cfg.spatial == "dct":
+    if cfg.spatial in ("dct", "dwt"):
         if cfg.quantizer in ("lloydmax", "vq"):
             return f"the {cfg.quantizer} quantizer", "A11"
         if cfg.quantizer != "deadzone":
-            return "the dct flow without a quantizer", "A17"
+            return f"the {cfg.spatial} flow without a quantizer", "A17"
         return None
     if cfg.color != "none":
         return "the color-only flow", "A17"
@@ -84,6 +85,8 @@ class Codec:
         self.spatial_offset = 128 if config.quantizer == "deadzone" else 0
         self._fwd, self._inv = color_ops.get(
             config.color if config.color != "ycocg_r" else "ycocg")
+        self._dwt = (dwt_ops.DWT(config.wavelet, config.dwt_levels)
+                     if config.spatial == "dwt" else None)
 
     # ------------------------------------------------------------------
     # Device math of the block-DCT flow
@@ -106,9 +109,11 @@ class Codec:
         return self._inv(dct_ops.synthesize(coeff, b)) + self.spatial_offset
 
     def _quantize(self, decom: torch.Tensor) -> torch.Tensor:
+        """A decomposition, or one DWT subband, -> int32 indexes."""
         return q_ops.deadzone_quantize(decom, self.config.qss)
 
     def _dequantize(self, k: torch.Tensor) -> torch.Tensor:
+        """Indexes of a decomposition, or of one DWT subband -> float32."""
         return q_ops.deadzone_dequantize(k, self.config.qss)
 
     # ------------------------------------------------------------------
@@ -121,12 +126,16 @@ class Codec:
         self.last_timings = StageTimer(self.device)
         if self.config.spatial == "dct":
             return self._encode_spatial(img)
+        if self.config.spatial == "dwt":
+            return self._dwt.encode(self, img)
         return self._encode_entropy_only(img)
 
     def decode(self, cs: CodeStream) -> np.ndarray:
         self.last_timings = StageTimer(self.device)
         if self.config.spatial == "dct":
             return self._decode_spatial(cs)
+        if self.config.spatial == "dwt":
+            return self._dwt.decode(self, cs)
         return self._decode_entropy_only(cs)
 
     # ------------------------------------------------------------------
