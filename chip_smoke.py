@@ -41,11 +41,37 @@ kernels from vcf_tpu_torch/csrc on first use.  Phases:
    reconstruction; rmse within 1e-2 of the port's CPU run of the whole
    clip, with the share of mv blocks and indexes that differ, and equal
    streams when none differs), with warm encode/decode times and the
-   split of each into its device loop and its entropy stage.
+   split of each into its device loop and its entropy stage;
+3d. the context modes of K1/K3 at S=65536, L=765, G=64 with 4 and 15
+   classes, bit-exact; 4d: the 8-frame cgrans clip; 4e: the 1088x1920
+   DWT frame (cgrans and grans) against the port's CPU run, and its
+   device-resident context route (context encode -> rans_decode_ctx_grid
+   -> synthesis), whose lanes equal the wire decode's;
+3e. the lane-grid modes at full size: B1-B4 in the subband-grid layout
+   (B1/B2 perceptual too) under the +-1 rule against their plain
+   versions and bit-exact against the block-mode kernels' output
+   permuted; K1 on the (L, S) lanes' transposed view, the row mode of
+   K2 and assemble_stream, the grid decode and K3 (each output's .t() is
+   the (L, S) layout) on the grid lanes of the 8 frames, and the context grid decode
+   on 3d's grids, each bit-exact against its plain version;
+4f. the 8-frame grans clip on the lane-grid path (bench.py's
+   composition): device-resident B3 grid -> grid_lanes_lmajor -> K1 on
+   lanes.t() -> grid decode .t() -> grid_unlanes_lmajor -> B4 grid, and
+   the wire route (K1 + row mode -> assemble_stream -> K3 .t()); both
+   give the IIICodec clip's frames bit for bit; wire bpp, rmse and
+   encode/decode times of both; then a 2-frame perceptual lane-grid clip
+   through the B1/B2 grid modes, equal to the perceptual IIICodec clip;
+4g. IPPCodec's planar grid loop on the 4c clip (benchmarks/bench_ipp.py's
+   composition): _gop_encode_grid_batch -> grid lanes -> K1 ->
+   grid decode -> _gop_decode_grid_batch; decoder == encoder; mvs and
+   indexes against the port's CPU run of the same loop; rmse, bpp,
+   encode/decode times.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Any failed check raises (non-zero exit, no result).  The last
-two lines are one JSON object of kernel results and one of the device.
+two lines are one JSON object of kernel results (with each kernel's
+bound: the larger of its bytes over HBM's rate and its operations over
+the peak rate of their type) and one of the device.
 """
 
 from __future__ import annotations
@@ -77,6 +103,15 @@ ME_BLOCK, SEARCH, GOP = 16, 8, 4
 MAX_IPP_RMSE_DIFF = 1e-2
 # the DWT frame of phase 4e (the reference bench's frame, bench.py:105)
 DWT_QSS, DWT_GRID = 16, (17, 512, 3060)
+# the IPP closed loop's +-1 rule (ROADMAP C7): a moved index moves the P
+# chain after it, so a larger share than the still codecs'
+MAX_IPP_DIFF_SHARE = 5e-4
+# the least time the card could take (H100 SXM at its 700 W limit):
+# bytes over HBM's rate, operations over the float32 peak (the type of
+# every function replaced here).  Integer operations (the rANS kernels)
+# have no peak there: their bound counts bytes.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 def require(cond: bool, msg: str) -> None:
@@ -103,6 +138,49 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     if a.numel() == 0:
         return 0
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, ops: float = 0.0) -> dict:
+    """bound_ms and bound_by of a kernel that moves n_bytes (each input
+    read once, each output written once) and does `ops` float32
+    operations."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    if t_ops > t_bytes:
+        return {"bound_ms": t_ops, "bound_by": "operations"}
+    return {"bound_ms": t_bytes, "bound_by": "bytes"}
+
+
+def kernel_row(name: str, source: str, replaces: str, err, ms: float,
+               plain_ms: float, bnd: dict, library_ms=None, **extra) -> dict:
+    """One entry of the kernels line; `launches` is filled in from the
+    main path's run."""
+    return {"name": name, "route": "cuda",
+            "source": f"vcf_tpu_torch/csrc/{source}",
+            "replaces": f"vcf_tpu/ops/pallas/{replaces}", "launches": 0,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
+            "library_ms": library_ms, **extra}
+
+
+def dct_ops_per_elem(b: int, perceptual: bool = False,
+                     color: bool = False) -> int:
+    """Operations per element of B1-B4 (a multiply-add counts 2): two
+    b-term passes, the quantizer's multiply and add, the perceptual
+    multiply, the 3-term colour row."""
+    return 4 * b + 2 + int(perceptual) + 5 * int(color)
+
+
+def zero_counts(kernels: dict) -> None:
+    """Set every launch count of the wrappers in `kernels` to 0: `launches`
+    and the grid-mode count `grid_launches`."""
+    for fn in kernels.values():
+        for attr in ("launches", "grid_launches"):
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
 
 
 def diff_rule(a: torch.Tensor, b: torch.Tensor, what: str):
@@ -200,29 +278,39 @@ def phase_kernels(dev, planes: torch.Tensor) -> list:
     print(f"kernels: bit-exact; {n} words, "
           f"{n * 16 / lanes.numel():.4f} bits/symbol")
 
+    # K2's yardstick: one torch.masked_select of the low words under the
+    # emit flags, both made before the timed call
+    low, flags = raw_k & 0xFFFF, raw_k >= 1 << 16
+    library_k2 = cuda_ms(lambda: torch.masked_select(low, flags), 20)
+    tab = g * 256 * 4                      # the packed (G, 256) u32 table
     rows = [
-        ("rans_encode_grouped", "vcf_tpu_torch/csrc/rans_encode.cu",
-         "vcf_tpu/ops/pallas/rans_encode.py:671", err1,
+        ("rans_encode_grouped", "rans_encode.cu", "rans_encode.py:671", err1,
          lambda: re_.rans_encode_grouped(lanes, fg, cg),
-         lambda: re_.rans_encode_grouped_ref(lanes, fg, cg), 20, 5),
-        ("rans_compact", "vcf_tpu_torch/csrc/rans_encode.cu",
-         "vcf_tpu/ops/pallas/rans_encode.py:858", err2,
+         lambda: re_.rans_encode_grouped_ref(lanes, fg, cg), 20, 5,
+         bound(nbytes(lanes, raw_k) + 4 * s_streams + tab), None),
+        ("rans_compact", "rans_encode.cu", "rans_encode.py:858", err2,
          lambda: re_.rans_compact(raw_k),
-         lambda: re_.rans_compact_ref(raw_k), 20, 5),
-        ("rans_decode_grouped", "vcf_tpu_torch/csrc/rans_decode.cu",
-         "vcf_tpu/ops/pallas/rans_decode.py:410", err3,
+         lambda: re_.rans_compact_ref(raw_k), 20, 5,
+         bound(nbytes(raw_k) + 2 * n + 4), library_k2),
+        ("rans_decode_grouped", "rans_decode.cu", "rans_decode.py:410", err3,
          lambda: rd.rans_decode_grouped(words, st_k, fg, cg, l, c_k),
          lambda: rd.rans_decode_grouped_ref(words, st_k, fg, cg, l, c_k),
-         3, 3),
+         3, 3, bound(2 * n + 4 * s_streams + tab + 4 * l + nbytes(out_k)),
+         None),
     ]
+    # K1 given the transposed view of (L, S) lanes is
+    # pallas_encode_grouped_raw_u8 too (timed on those lanes in phase 3e)
+    also = {"rans_encode_grouped": "vcf_tpu/ops/pallas/rans_encode.py:773"}
     results = []
-    for name, src, rep, err, kern, plain, reps_k, reps_p in rows:
+    for name, src, rep, err, kern, plain, reps_k, reps_p, bnd, lib in rows:
         ms = cuda_ms(kern, reps_k)
         plain_ms = cuda_ms(plain, reps_p)
-        print(f"time {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms")
-        results.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": 0, "max_abs_err": err,
-                        "diff_share": 0.0, "ms": ms, "plain_ms": plain_ms})
+        print(f"time {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} "
+              f"ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})"
+              + (f", torch.masked_select {lib:.4f} ms" if lib else ""))
+        extra = {"also_replaces": also[name]} if name in also else {}
+        results.append(kernel_row(name, src, rep, err, ms, plain_ms, bnd, lib,
+                                  diff_share=0.0, **extra))
     return results
 
 
@@ -260,30 +348,32 @@ def phase_dct_kernels(dev, frames: np.ndarray) -> list:
     torch.cuda.synchronize()
 
     k1p, b1p, b2p = modes[True]
-    src = "vcf_tpu_torch/csrc/dct.cu"
-    rep = "vcf_tpu/ops/pallas/dct_kernel.py:"
+    n_el = k3.numel()
     rows = [
         ("fused_dct_quantize", "153", b1p,
          lambda: dk.fused_dct_quantize(ct, perceptual=True),
-         lambda: dk.fused_dct_quantize_ref(ct, perceptual=True)),
+         lambda: dk.fused_dct_quantize_ref(ct, perceptual=True),
+         bound(nbytes(ct, k1p), n_el * dct_ops_per_elem(8, True))),
         ("fused_dequantize_idct", "207", b2p,
          lambda: dk.fused_dequantize_idct(k1p, perceptual=True),
-         lambda: dk.fused_dequantize_idct_ref(k1p, perceptual=True)),
+         lambda: dk.fused_dequantize_idct_ref(k1p, perceptual=True),
+         bound(nbytes(k1p, ct), n_el * dct_ops_per_elem(8, True))),
         ("fused_cdct_quantize", "298", b3,
          lambda: dk.fused_cdct_quantize(px, mf),
-         lambda: dk.fused_cdct_quantize_ref(px, mf)),
+         lambda: dk.fused_cdct_quantize_ref(px, mf),
+         bound(nbytes(px, k3), n_el * dct_ops_per_elem(8, color=True))),
         ("fused_dequantize_cdct", "334", b4,
          lambda: dk.fused_dequantize_cdct(k3, mi),
-         lambda: dk.fused_dequantize_cdct_ref(k3, mi)),
+         lambda: dk.fused_dequantize_cdct_ref(k3, mi),
+         bound(nbytes(k3, px), n_el * dct_ops_per_elem(8, color=True))),
     ]
     results = []
-    for name, line, (err, share), kern, plain in rows:
+    for name, line, (err, share), kern, plain, bnd in rows:
         ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 5)
-        print(f"time {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms")
-        results.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep + line, "launches": 0,
-                        "max_abs_err": err, "diff_share": share, "ms": ms,
-                        "plain_ms": plain_ms})
+        print(f"time {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} "
+              f"ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        results.append(kernel_row(name, "dct.cu", f"dct_kernel.py:{line}",
+                                  err, ms, plain_ms, bnd, diff_share=share))
     # B1/B2 in plain mode too (BatchCodec's color="none" route)
     k1, _, _ = modes[False]
     print(f"time plain mode: fused_dct_quantize "
@@ -477,7 +567,7 @@ def phase_clip(dev, frames: np.ndarray, planes_codec: torch.Tensor) -> dict:
             "fused_dequantize_cdct": launches["fused_dequantize_cdct"],
             "fused_dct_quantize": launches_p["fused_dct_quantize"],
             "fused_dequantize_idct": launches_p["fused_dequantize_idct"]}, \
-        (rec, planes, grans["bpp"])
+        (rec, planes, grans["bpp"]), rec_p
 
 
 def phase_motion_kernels(dev, clip: np.ndarray) -> list:
@@ -523,25 +613,27 @@ def phase_motion_kernels(dev, clip: np.ndarray) -> list:
           f"and SADs equal ({moving:.3f} of blocks move); MC planar and "
           "channel-last bit-exact")
 
+    # SAD: |cur - ref| and the sum, 3 operations per term, float32 in the
+    # function replaced (the kernel's float64 sums are its own choice, C6)
+    sad_ops = 3 * mv_k[..., 0].numel() * (2 * SEARCH + 1) ** 2 * ME_BLOCK ** 2
     rows = [
-        ("sad_search", "vcf_tpu/ops/pallas/sad_kernel.py:58",
-         "vcf_tpu/ops/pallas/sad_kernel.py:141", sad_err,
+        ("sad_search", "sad_kernel.py:58", "sad_kernel.py:141", sad_err,
          lambda: sk.sad_search(ref_l, cur_l, ME_BLOCK, SEARCH),
-         lambda: sk.sad_search_ref(ref_l, cur_l, ME_BLOCK, SEARCH)),
-        ("mc_apply_planar", "vcf_tpu/ops/pallas/mc_kernel.py:115",
-         "vcf_tpu/ops/pallas/mc_kernel.py:103", mc_err,
+         lambda: sk.sad_search_ref(ref_l, cur_l, ME_BLOCK, SEARCH),
+         bound(nbytes(ref_l, cur_l, mv_k, sad_k), sad_ops)),
+        ("mc_apply_planar", "mc_kernel.py:115", "mc_kernel.py:103", mc_err,
          lambda: mk.mc_apply_planar(frames, mv_t, ME_BLOCK),
-         lambda: mk.mc_apply_planar_ref(frames, mv_t, ME_BLOCK)),
+         lambda: mk.mc_apply_planar_ref(frames, mv_t, ME_BLOCK),
+         bound(nbytes(frames, mv_t, out_k))),
     ]
     results = []
-    for name, rep, also, err, kern, plain in rows:
+    for name, rep, also, err, kern, plain, bnd in rows:
         ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 3)
-        print(f"time {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms")
-        results.append({"name": name, "route": "cuda",
-                        "source": "vcf_tpu_torch/csrc/motion.cu",
-                        "replaces": rep, "also_replaces": also, "launches": 0,
-                        "max_abs_err": err, "diff_share": 0.0, "ms": ms,
-                        "plain_ms": plain_ms})
+        print(f"time {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} "
+              f"ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        results.append(kernel_row(name, "motion.cu", rep, err, ms, plain_ms,
+                                  bnd, also_replaces=f"vcf_tpu/ops/pallas/{also}",
+                                  diff_share=0.0))
     print(f"time mc_apply (channel-last): kernel "
           f"{cuda_ms(lambda: mk.mc_apply(frames_cl, mv_t, ME_BLOCK), 20):.4f}"
           f" ms, plain torch "
@@ -707,7 +799,13 @@ def phase_ctx_kernels(dev, planes: torch.Tensor) -> tuple:
                                                          l, c_k), 3),
             "dec_plain_ms": cuda_ms(lambda: rc.rans_decode_ctx_ref(
                 words, st_k, fg, cg, l, c_k), 2)}
-        out[n_ctx] = (err1, err3, mode, times, words)
+        g_tab = g * n_ctx * 256
+        times["bound"] = bound(nbytes(lanes, raw_k) + 4 * s_streams + 4 * g_tab)
+        times["dec_bound"] = bound(2 * n + 4 * s_streams + 2 * 257 * g * n_ctx
+                                   + 256
+                                   + 4 * l + nbytes(out_k))
+        out[n_ctx] = (err1, err3, mode, times, words,
+                      (raw_k, st_k, fg, cg, out_k))
         print(f"ctx kernels: {n_ctx} classes, S={s_streams} L={l} G={g}: "
               f"bit-exact; {n} words, {n * 16 / lanes.numel():.4f} bits/symbol; "
               f"tables {t_tables:.2f} s (host); decode tables in {mode} memory")
@@ -717,26 +815,24 @@ def phase_ctx_kernels(dev, planes: torch.Tensor) -> tuple:
               f"{times['dec_ms']:.4f} ms, plain torch "
               f"{times['dec_plain_ms']:.4f} ms")
     rows = []
-    for name, src, rep, also, ms_key, plain_key, err_i in (
-            ("rans_encode_ctx", "vcf_tpu_torch/csrc/rans_encode.cu",
-             "vcf_tpu/ops/pallas/rans_ctx.py:256",
-             "vcf_tpu/ops/pallas/rans_ctx.py:142", "ms", "plain_ms", 0),
-            ("rans_decode_ctx", "vcf_tpu_torch/csrc/rans_decode.cu",
-             "vcf_tpu/ops/pallas/rans_ctx.py:510", None, "dec_ms",
-             "dec_plain_ms", 1)):
-        row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
-               "launches": 0,
-               "max_abs_err": max(out[c][err_i] for c in (4, 15)),
-               "diff_share": 0.0, "ms": out[4][3][ms_key],
-               "plain_ms": out[4][3][plain_key],
-               "ms_15_classes": out[15][3][ms_key],
-               "plain_ms_15_classes": out[15][3][plain_key]}
+    for name, src, rep, also, key, err_i in (
+            ("rans_encode_ctx", "rans_encode.cu", "rans_ctx.py:256",
+             "rans_ctx.py:142", "", 0),
+            ("rans_decode_ctx", "rans_decode.cu", "rans_ctx.py:510", None,
+             "dec_", 1)):
+        t4, t15 = out[4][3], out[15][3]
+        extra = {"ms_15_classes": t15[key + "ms"],
+                 "plain_ms_15_classes": t15[key + "plain_ms"],
+                 "bound_ms_15_classes": t15[key + "bound"]["bound_ms"]}
         if also:
-            row["also_replaces"] = also
+            extra["also_replaces"] = f"vcf_tpu/ops/pallas/{also}"
         else:
-            row["table_mode"] = {"4": out[4][2], "15": out[15][2]}
-        rows.append(row)
-    return rows, out[4][4]
+            extra["table_mode"] = {"4": out[4][2], "15": out[15][2]}
+        rows.append(kernel_row(
+            name, src, rep, max(out[c][err_i] for c in (4, 15)),
+            t4[key + "ms"], t4[key + "plain_ms"], t4[key + "bound"],
+            diff_share=0.0, **extra))
+    return rows, out[4][4], {c: out[c][5] for c in (4, 15)}
 
 
 def phase_cgrans_clip(dev, frames: np.ndarray, planes_k: torch.Tensor,
@@ -836,6 +932,8 @@ def phase_dwt(dev, frame: np.ndarray) -> dict:
         rmse, rmse_cpu = metrics.rmse(frame, rec), metrics.rmse(frame, rec_cpu)
         require(abs(rmse - rmse_cpu) < 1e-3, f"DWT {ent} rmse {rmse} vs CPU "
                 f"{rmse_cpu}")
+        if ent == "cgrans":
+            ctx_launches = dwt_ctx_grid_route(dev, codec, frame, cs, grid, rec)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         cs_w = codec.encode(frame)
@@ -858,7 +956,516 @@ def phase_dwt(dev, frame: np.ndarray) -> dict:
     print(f"dwt: cgrans {out['cgrans']['bpp']:.6f} bpp against grans "
           f"{out['grans']['bpp']:.6f} "
           f"({100 * (out['cgrans']['bpp'] / out['grans']['bpp'] - 1):+.2f}%)")
-    return out
+    return ctx_launches
+
+
+def dwt_ctx_grid_route(dev, codec, frame: np.ndarray, cs, grid: torch.Tensor,
+                       rec: np.ndarray) -> dict:
+    """4e, device-resident: the DWT frame's context lanes -> the context
+    encode's raw grid -> rans_decode_ctx_grid -> synthesis (the decode
+    of benchmarks/sweep_tpu.py:326-333); its lanes equal the wire
+    decode's and its frame the codec's."""
+    from vcf_tpu_torch.entropy import dwt_device as dd
+    from vcf_tpu_torch.ops.cuda import rans_ctx as rc
+
+    kernels = {"rans_encode_ctx": rc.rans_encode_ctx,
+               "rans_decode_ctx_grid": rc.rans_decode_ctx_grid}
+    (g, sg, l, n_words, _, states, counts, fg, cg,
+     _) = dd.unpack_model(cs["gdwt_model"])
+    fgt = torch.from_numpy(fg.astype(np.int64)).to(dev)
+    cgt = torch.from_numpy(cg.astype(np.int64)).to(dev)
+    dwt = codec._dwt
+    zero_counts(kernels)
+    raw, st = rc.rans_encode_ctx(grid, fgt, cgt)
+    lanes = rc.rans_decode_ctx_grid(raw, st, fgt, cgt, l)
+    bands = dd.grid_to_bands(lanes, dwt._grid_sizes(frame.shape), sg)
+    rec_dev = dwt._synthesis(codec, dwt._grid_flat(
+        codec, bands, dwt._band_shapes(frame.shape)), frame.shape)
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    print(f"dwt cgrans device-resident path: launches {launches}")
+    for name, count in launches.items():
+        require(count > 0, f"kernel {name} was not launched on the DWT "
+                "device-resident path")
+    words = np.frombuffer(cs["gdwt_words"], "<u2")[:n_words]
+    wire = dd.decode_grid(words, states, counts, fg, cg, l, dev)
+    require(np.array_equal(st.cpu().numpy(), states.astype(np.int64)),
+            "the context encode's states differ from the stream's")
+    require(torch.equal(lanes, wire) and torch.equal(lanes, grid),
+            "rans_decode_ctx_grid's lanes differ from the wire decode's")
+    require(np.array_equal(rec_dev, rec),
+            "the device-resident DWT frame differs from the codec's")
+    print(f"dwt cgrans device-resident route ({g}x{sg} lanes, L={l}): "
+          "lanes equal the wire decode's, frame equals the codec's")
+    return launches
+
+
+def grid_lanes_of(planes: torch.Tensor):
+    """(N, 3, H, W) grid-layout index planes -> ((L, S) lanes, S, cw),
+    the lane count as the library picks it (bench.py, bench_ipp.py)."""
+    from vcf_tpu_torch.entropy import rans
+    from vcf_tpu_torch.ops.cuda import dct_kernel as dk
+
+    s_streams = rans.RANSCodec._pick_streams(planes.numel(), 65536)
+    cw = dk._chunk_w(planes.shape[-1], 8)
+    return rans.grid_lanes_lmajor(planes, 8, s_streams, cw=cw), s_streams, cw
+
+
+def grid_tables(dev, lanes_lm: torch.Tensor):
+    """(G, 256) tables trained on (L, S) grid lanes, on the device, and
+    their numpy freqs."""
+    from vcf_tpu_torch.entropy import rans
+
+    fg_np, cg_np = rans.freqs_from_counts(
+        rans.group_histograms(lanes_lm.t(), 64).cpu().numpy())
+    return (torch.from_numpy(fg_np.astype(np.int64)).to(dev),
+            torch.from_numpy(cg_np.astype(np.int64)).to(dev), fg_np)
+
+
+def phase_grid_kernels(dev, frames: np.ndarray, ctx_grids: dict) -> list:
+    """3e: the lane-grid modes at full size against their plain versions."""
+    from vcf_tpu_torch.ops import color as color_ops
+    from vcf_tpu_torch.ops.cuda import dct_kernel as dk
+    from vcf_tpu_torch.ops.cuda import rans_ctx as rc
+    from vcf_tpu_torch.ops.cuda import rans_decode as rd
+    from vcf_tpu_torch.ops.cuda import rans_encode as re_
+
+    b = 8
+    x = torch.from_numpy(frames).to(dev)
+    px = x.permute(0, 3, 1, 2).contiguous()
+    ct = color_ops.ycocg_forward(x.to(torch.float32) - 128
+                                 ).permute(0, 3, 1, 2).contiguous()
+    mf = dk.static_mat(color_ops.YCOCG_FWD)
+    mi = dk.static_mat(color_ops.YCOCG_INV)
+    k3 = dk.fused_cdct_quantize(px, mf, grid_layout=True)
+    k3_blk = dk.fused_cdct_quantize(px, mf)
+    require(torch.equal(k3, dk.to_grid(k3_blk, b)),
+            "B3 grid mode differs from the block mode permuted")
+    b3 = diff_rule(k3, dk.fused_cdct_quantize_ref(px, mf, grid_layout=True),
+                   "B3 grid")
+    p4 = dk.fused_dequantize_cdct(k3, mi, grid_layout=True)
+    require(torch.equal(p4, dk.fused_dequantize_cdct(k3_blk, mi)),
+            "B4 grid mode differs from the block mode on the same indexes")
+    b4 = diff_rule(p4, dk.fused_dequantize_cdct_ref(k3, mi, grid_layout=True),
+                   "B4 grid")
+    b12 = {}
+    for perc in (False, True):
+        k1 = dk.fused_dct_quantize(ct, perceptual=perc, grid_layout=True)
+        require(torch.equal(k1, dk.to_grid(
+            dk.fused_dct_quantize(ct, perceptual=perc), b)),
+            f"B1 grid mode (perceptual={perc}) differs from the block mode "
+            "permuted")
+        b1 = diff_rule(k1, dk.fused_dct_quantize_ref(
+            ct, perceptual=perc, grid_layout=True), f"B1 grid perc={perc}")
+        x2 = dk.fused_dequantize_idct(k1, perceptual=perc, grid_layout=True)
+        require(torch.equal(x2, dk.fused_dequantize_idct(
+            dk.from_grid(k1, b), perceptual=perc)),
+            f"B2 grid mode (perceptual={perc}) differs from the block mode")
+        err2 = float((x2 - dk.fused_dequantize_idct_ref(
+            k1, perceptual=perc, grid_layout=True)).abs().max())
+        require(err2 <= MAX_PLANE_ERR, f"B2 grid perceptual={perc} differs "
+                f"from its plain version by {err2}")
+        b12[perc] = (k1, b1, (err2, 0.0))
+    print(f"grid kernels: B1-B4 grid modes = block modes permuted, bit for "
+          f"bit; against plain: B3 max {b3[0]} share {b3[1]:.3e}, B4 max "
+          f"{b4[0]} share {b4[1]:.3e}, B1 perceptual max {b12[True][1][0]} "
+          f"share {b12[True][1][1]:.3e}, B2 perceptual max "
+          f"{b12[True][2][0]:.3e}")
+
+    lanes, s_streams, cw = grid_lanes_of(k3)
+    l = lanes.shape[0]
+    fg, cg, _ = grid_tables(dev, lanes)
+    # the (L, S) lanes reach K1 as their transposed view, with no copy
+    raw, st = re_.rans_encode_grouped(lanes.t(), fg, cg)
+    raw_t, st_t = re_.rans_encode_grouped(lanes.t().contiguous(), fg, cg)
+    raw_p, st_p = re_.rans_encode_grouped_ref(lanes.t(), fg, cg)
+    err_k1 = max(max_abs_err(raw, raw_p), max_abs_err(st, st_p))
+    require(err_k1 == 0 and torch.equal(raw, raw_t) and torch.equal(st, st_t),
+            f"K1 on the (L, S) lanes differs from its plain version "
+            f"({err_k1}) or from K1 on an (S, L) copy")
+    rows, counts, st_r = re_.rans_encode_rows(lanes.t(), fg, cg)
+    rows_p, counts_p = re_.rans_compact_rows_ref(raw)
+    # only each row's prefix is defined; the plain version zeroes the tail
+    prefix = torch.arange(s_streams, device=dev) < counts[:, None]
+    err_rows = max(max_abs_err(rows.masked_fill(~prefix, 0), rows_p),
+                   max_abs_err(counts, counts_p))
+    require(err_rows == 0 and torch.equal(st_r, st),
+            f"the row mode of K2 differs from its plain version by {err_rows}")
+    words, n_words = re_.assemble_stream(rows, counts)
+    w2, n2, c2 = re_.rans_compact(raw)
+    n = int(n_words)
+    require(n == int(n2) and torch.equal(words[:n], w2[:n])
+            and torch.equal(counts, c2),
+            "assemble_stream's words differ from K2's on the same grid")
+    dec = rd.rans_decode_grouped_grid(raw, st, fg, cg, l).t()
+    dec_p = rd.rans_decode_grouped_grid_ref(raw, st, fg, cg, l)   # (L, S)
+    err_dec = max_abs_err(dec, dec_p)
+    require(err_dec == 0 and torch.equal(dec, lanes) and dec.is_contiguous(),
+            f"the grid decode differs from its plain version ({err_dec}) or "
+            "from the encoded lanes")
+    wire = words[:n].clone()
+    require(torch.equal(rd.rans_decode_grouped(wire, st, fg, cg, l, counts
+                                               ).t(), lanes),
+            "K3's output differs from the lanes")
+    print(f"grid kernels: S={s_streams} L={l} cw={cw}: K1 on the (L, S) "
+          f"lanes, the row mode, assemble_stream ({n} words), the grid "
+          "decode and K3 bit-exact")
+    k1_bnd = bound(nbytes(lanes, raw) + 4 * s_streams + 64 * 256 * 4)
+    print(f"time rans_encode_grouped on the (L, S) lanes' view: kernel "
+          f"{cuda_ms(lambda: re_.rans_encode_grouped(lanes.t(), fg, cg), 20):.4f}"
+          f" ms, plain torch "
+          f"{cuda_ms(lambda: re_.rans_encode_grouped_ref(lanes.t(), fg, cg), 3):.4f}"
+          f" ms, bound {k1_bnd['bound_ms']:.4f} ms ({k1_bnd['bound_by']})")
+    ctx_out = {}
+    for n_ctx, (raw_c, st_c, fgc, cgc, lanes_c) in ctx_grids.items():
+        out_c = rc.rans_decode_ctx_grid(raw_c, st_c, fgc, cgc, l)
+        out_cp = rc.rans_decode_ctx_grid_ref(raw_c, st_c, fgc, cgc, l)
+        err_c = max_abs_err(out_c, out_cp.t())
+        require(err_c == 0 and torch.equal(out_c, lanes_c),
+                f"rans_decode_ctx_grid ({n_ctx} classes) differs from its "
+                f"plain version ({err_c}) or from rans_decode_ctx's output")
+        g_rows = fgc.shape[0] * n_ctx * 257 * 2
+        ctx_out[n_ctx] = (err_c, {
+            "ms": cuda_ms(lambda: rc.rans_decode_ctx_grid(
+                raw_c, st_c, fgc, cgc, l), 5),
+            "plain_ms": cuda_ms(lambda: rc.rans_decode_ctx_grid_ref(
+                raw_c, st_c, fgc, cgc, l), 2),
+            "bound": bound(nbytes(raw_c, out_c) + 4 * s_streams + g_rows
+                           + 256)})
+    print("grid kernels: rans_decode_ctx_grid (4 and 15 classes) bit-exact "
+          "against its plain version and rans_decode_ctx on 3d's grids")
+
+    n_el = k3.numel()
+    tab = 64 * 256 * 4
+    k1p = b12[True][0]
+    rows_spec = [
+        ("fused_dct_quantize", "dct.cu", "dct_kernel.py:153", b12[True][1],
+         lambda: dk.fused_dct_quantize(ct, perceptual=True, grid_layout=True),
+         lambda: dk.fused_dct_quantize_ref(ct, perceptual=True,
+                                           grid_layout=True), 20, 5,
+         bound(nbytes(ct, k1p), n_el * dct_ops_per_elem(8, True))),
+        ("fused_dequantize_idct", "dct.cu", "dct_kernel.py:207", b12[True][2],
+         lambda: dk.fused_dequantize_idct(k1p, perceptual=True,
+                                          grid_layout=True),
+         lambda: dk.fused_dequantize_idct_ref(k1p, perceptual=True,
+                                              grid_layout=True), 20, 5,
+         bound(nbytes(k1p, ct), n_el * dct_ops_per_elem(8, True))),
+        ("fused_cdct_quantize", "dct.cu", "dct_kernel.py:298", b3,
+         lambda: dk.fused_cdct_quantize(px, mf, grid_layout=True),
+         lambda: dk.fused_cdct_quantize_ref(px, mf, grid_layout=True), 20, 5,
+         bound(nbytes(px, k3), n_el * dct_ops_per_elem(8, color=True))),
+        ("fused_dequantize_cdct", "dct.cu", "dct_kernel.py:334", b4,
+         lambda: dk.fused_dequantize_cdct(k3, mi, grid_layout=True),
+         lambda: dk.fused_dequantize_cdct_ref(k3, mi, grid_layout=True),
+         20, 5, bound(nbytes(k3, px), n_el * dct_ops_per_elem(8, color=True))),
+        # the function's output is each row's prefix: n words and counts
+        ("rans_compact_rows", "rans_encode.cu", "rans_encode.py:496",
+         (err_rows, 0.0), lambda: re_.rans_compact_rows(raw),
+         lambda: re_.rans_compact_rows_ref(raw), 20, 5,
+         bound(nbytes(raw, counts) + 2 * n)),
+        ("rans_decode_grouped_grid", "rans_grid.cu", "rans_decode.py:349",
+         (err_dec, 0.0), lambda: rd.rans_decode_grouped_grid(
+             raw, st, fg, cg, l),
+         lambda: rd.rans_decode_grouped_grid_ref(raw, st, fg, cg, l), 5, 2,
+         bound(nbytes(raw, dec) + 4 * s_streams + tab)),
+    ]
+    modes = ["grid_layout"] * 4 + ["rows", "grid"]
+    also = {"rans_compact_rows": "vcf_tpu/ops/pallas/rans_encode.py:613"}
+    results = []
+    for mode, (name, src, rep, (err, share), kern, plain, reps_k, reps_p,
+               bnd) in zip(modes, rows_spec):
+        ms, plain_ms = cuda_ms(kern, reps_k), cuda_ms(plain, reps_p)
+        print(f"time {name} [{mode}]: kernel {ms:.4f} ms, plain torch "
+              f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']})")
+        extra = {"also_replaces": also[name]} if name in also else {}
+        # a mode of a wrapper that has an entry of its own is named apart
+        shared = mode == "grid_layout"
+        results.append(kernel_row(f"{name}[{mode}]" if shared else name, src,
+                                  rep, err, ms, plain_ms, bnd, mode=mode,
+                                  diff_share=share, **extra))
+    c4, c15 = ctx_out[4][1], ctx_out[15][1]
+    for n_ctx, (_, t) in ctx_out.items():
+        print(f"time rans_decode_ctx_grid ({n_ctx} classes): kernel "
+              f"{t['ms']:.4f} ms, plain torch {t['plain_ms']:.4f} ms, bound "
+              f"{t['bound']['bound_ms']:.4f} ms ({t['bound']['bound_by']})")
+    results.append(kernel_row(
+        "rans_decode_ctx_grid", "rans_grid.cu", "rans_ctx.py:415",
+        max(ctx_out[4][0], ctx_out[15][0]), c4["ms"], c4["plain_ms"],
+        c4["bound"], mode="grid", diff_share=0.0,
+        ms_15_classes=c15["ms"], plain_ms_15_classes=c15["plain_ms"],
+        bound_ms_15_classes=c15["bound"]["bound_ms"]))
+    return results
+
+
+def grid_clip_route(dev, fg, cg, l: int, s_streams: int, cw: int,
+                    n: int, h: int, w: int):
+    """bench.py's lane-grid composition for (N, H, W, 3) u8 frames on the
+    device: the device-resident route (encode_dev, decode_dev) and the
+    wire route (encode_wire, decode_wire), B3/B4 in the grid layout."""
+    from vcf_tpu_torch.entropy import rans
+    from vcf_tpu_torch.ops import color as color_ops
+    from vcf_tpu_torch.ops.cuda import dct_kernel as dk
+    from vcf_tpu_torch.ops.cuda import rans_decode as rd
+    from vcf_tpu_torch.ops.cuda import rans_encode as re_
+
+    mf = dk.static_mat(color_ops.YCOCG_FWD)
+    mi = dk.static_mat(color_ops.YCOCG_INV)
+
+    def lanes_of(x):
+        planes = dk.fused_cdct_quantize(x.permute(0, 3, 1, 2), mf,
+                                        grid_layout=True)
+        return rans.grid_lanes_lmajor(planes, 8, s_streams, cw=cw)
+
+    def frames_of(lanes_lm):
+        planes = rans.grid_unlanes_lmajor(lanes_lm, 8, (n, 3, h, w), cw=cw)
+        return dk.fused_dequantize_cdct(planes, mi, grid_layout=True
+                                        ).permute(0, 2, 3, 1)
+
+    def encode_dev(x):
+        return re_.rans_encode_grouped(lanes_of(x).t(), fg, cg)
+
+    def decode_dev(raw, st):
+        return frames_of(rd.rans_decode_grouped_grid(raw, st, fg, cg, l).t())
+
+    def encode_wire(x, cap):
+        rows, counts, st = re_.rans_encode_rows(lanes_of(x).t(), fg, cg)
+        words, n_words = re_.assemble_stream(rows[:, :cap], counts)
+        return words, n_words, st, counts
+
+    def decode_wire(words, n_words, st, counts):
+        return frames_of(rd.rans_decode_grouped(
+            words[:int(n_words)], st, fg, cg, l, counts).t())
+
+    return encode_dev, decode_dev, encode_wire, decode_wire, lanes_of, frames_of
+
+
+def phase_grid_clip(dev, frames: np.ndarray, grans_clip, perceptual_rec
+                    ) -> dict:
+    """4f: the 8-frame grans clip on the lane-grid path (bench.py:317-421),
+    then the 2-frame perceptual clip through the B1/B2 grid modes."""
+    import zlib
+
+    from vcf_tpu_torch import metrics
+    from vcf_tpu_torch.config import CodecConfig
+    from vcf_tpu_torch.entropy import rans
+    from vcf_tpu_torch.ops import color as color_ops
+    from vcf_tpu_torch.ops.cuda import dct_kernel as dk
+    from vcf_tpu_torch.ops.cuda import rans_decode as rd
+    from vcf_tpu_torch.ops.cuda import rans_encode as re_
+    from vcf_tpu_torch.parallel import BatchCodec
+    from vcf_tpu_torch.parallel.mesh import _on_device
+
+    kernels = {"fused_cdct_quantize": dk.fused_cdct_quantize,
+               "fused_dequantize_cdct": dk.fused_dequantize_cdct,
+               "rans_encode_grouped": re_.rans_encode_grouped,
+               "rans_compact_rows": re_.rans_compact_rows,
+               "rans_decode_grouped_grid": rd.rans_decode_grouped_grid,
+               "rans_decode_grouped": rd.rans_decode_grouped}
+    n, h, w, _ = frames.shape
+    x = torch.from_numpy(frames).to(dev)
+    # set-up, as bench.py: the tables trained once on the clip's lanes,
+    # and the wire route's column cap from a probe (sweep_tpu.py's rule)
+    lanes0, s_streams, cw = grid_lanes_of(dk.fused_cdct_quantize(
+        x.permute(0, 3, 1, 2), dk.static_mat(color_ops.YCOCG_FWD),
+        grid_layout=True))
+    l = lanes0.shape[0]
+    fg, cg, fg_np = grid_tables(dev, lanes0)
+    _, counts0, _ = re_.rans_encode_rows(lanes0.t(), fg, cg)
+    cap = min(max(-(-int(counts0.max()) * 2 // 128) * 128, 128), s_streams)
+    (encode_dev, decode_dev, encode_wire, decode_wire, lanes_of,
+     frames_of) = grid_clip_route(dev, fg, cg, l, s_streams, cw, n, h, w)
+
+    zero_counts(kernels)
+    raw, st = encode_dev(x)
+    rec_dev = decode_dev(raw, st)
+    words, n_words, st_w, counts = encode_wire(x, cap)
+    rec_wire = decode_wire(words, n_words, st_w, counts)
+    torch.cuda.synchronize()
+    launches = {"fused_cdct_quantize": dk.fused_cdct_quantize.grid_launches,
+                "fused_dequantize_cdct":
+                    dk.fused_dequantize_cdct.grid_launches,
+                "rans_encode_grouped": re_.rans_encode_grouped.launches,
+                "rans_compact_rows": re_.rans_compact_rows.launches,
+                "rans_decode_grouped_grid":
+                    rd.rans_decode_grouped_grid.launches,
+                "rans_decode_grouped": rd.rans_decode_grouped.launches}
+    print(f"lane-grid clip path: launches {launches}")
+    for name, count in launches.items():
+        require(count > 0, f"kernel {name} was not launched on the lane-grid "
+                "clip path")
+    nw = int(n_words)
+    w2, n2, c2 = re_.rans_compact(raw)
+    require(nw == int(n2) and torch.equal(words[:nw], w2[:nw])
+            and torch.equal(st_w, st) and torch.equal(counts, c2),
+            "the wire route's words differ from K2's on the raw grid")
+    rec_np = rec_dev.cpu().numpy()
+    require(torch.equal(rec_dev, rec_wire),
+            "the device-resident and wire routes reconstruct different frames")
+    grans_rec = grans_clip[0]
+    require(np.array_equal(rec_np, grans_rec),
+            "the lane-grid clip's frames differ from the IIICodec clip's")
+    side = (4 * s_streams + len(zlib.compress(fg_np.astype("<u2").tobytes(), 9))
+            + len(zlib.compress(counts.cpu().numpy().astype("<u4").tobytes(),
+                                9)))
+    times = {
+        "device_encode_ms": cuda_ms(lambda: encode_dev(x), 5),
+        "device_decode_ms": cuda_ms(lambda: decode_dev(raw, st), 3),
+        "wire_encode_ms": cuda_ms(lambda: encode_wire(x, cap), 5),
+        "wire_decode_ms": cuda_ms(
+            lambda: decode_wire(words, n_words, st_w, counts), 3),
+        # the split: B3 grid + laning, and unlaning + B4 grid
+        "b3_and_lanes_ms": cuda_ms(lambda: lanes_of(x), 5),
+        "unlanes_and_b4_ms": cuda_ms(lambda: frames_of(lanes0), 5)}
+    report = {"rmse": metrics.rmse(frames, rec_np),
+              "wire_bpp": (2 * nw + side) * 8 / (n * h * w),
+              "iii_clip_bpp": grans_clip[2], "n_words": nw, "cap": cap,
+              "lanes": [s_streams, l], "cw": cw, **times,
+              "device_gb_per_s": frames.nbytes / (
+                  (times["device_encode_ms"] + times["device_decode_ms"])
+                  * 1e6),
+              "wire_gb_per_s": frames.nbytes / (
+                  (times["wire_encode_ms"] + times["wire_decode_ms"]) * 1e6)}
+    print(f"lane-grid clip {n}x{h}x{w} grans (frames equal the IIICodec "
+          f"clip's; CUDA events, warm): {json.dumps(report)}")
+
+    # the perceptual lane-grid clip: BatchCodec's colour in torch around
+    # the B1/B2 grid modes, on the frames as BatchCodec uploads them
+    p_kernels = {"fused_dct_quantize": dk.fused_dct_quantize,
+                 "fused_dequantize_idct": dk.fused_dequantize_idct,
+                 **kernels}
+    pn = len(perceptual_rec)
+    bc = BatchCodec(CodecConfig(entropy="grans", perceptual=True), dev)
+    ctp = bc._fwd(_on_device(frames[:pn], dev).to(torch.float32) - 128
+                  ).permute(0, 3, 1, 2).contiguous()
+    lanes_p, _, cw_p = grid_lanes_of(dk.fused_dct_quantize(
+        ctp, perceptual=True, grid_layout=True))
+    fgp, cgp, _ = grid_tables(dev, lanes_p)
+    zero_counts(p_kernels)
+    planes = dk.fused_dct_quantize(ctp, perceptual=True, grid_layout=True)
+    lanes_e, _, _ = grid_lanes_of(planes)
+    raw_p, st_p = re_.rans_encode_grouped(lanes_e.t(), fgp, cgp)
+    back = rd.rans_decode_grouped_grid(raw_p, st_p, fgp, cgp,
+                                       lanes_e.shape[0]).t()
+    ct_d = dk.fused_dequantize_idct(rans.grid_unlanes_lmajor(
+        back, 8, planes.shape, cw=cw_p), perceptual=True, grid_layout=True)
+    y = bc._inv(ct_d.permute(0, 2, 3, 1)) + 128
+    rec_p = torch.clamp(torch.round(y), 0, 255).to(torch.uint8).cpu().numpy()
+    p_launches = {
+        "fused_dct_quantize": dk.fused_dct_quantize.grid_launches,
+        "fused_dequantize_idct": dk.fused_dequantize_idct.grid_launches,
+        "rans_encode_grouped": re_.rans_encode_grouped.launches,
+        "rans_decode_grouped_grid": rd.rans_decode_grouped_grid.launches}
+    print(f"perceptual lane-grid clip path: launches {p_launches}")
+    for name, count in p_launches.items():
+        require(count > 0, f"kernel {name} was not launched on the "
+                "perceptual lane-grid clip path")
+    require(np.array_equal(rec_p, perceptual_rec),
+            "the perceptual lane-grid clip's frames differ from the "
+            "perceptual IIICodec clip's")
+    print(f"perceptual lane-grid clip {pn}x{h}x{w}: frames equal the "
+          "perceptual IIICodec clip's")
+    return launches, p_launches
+
+
+def phase_ipp_grid(dev, clip: np.ndarray) -> dict:
+    """4g: IPPCodec's planar grid loop (benchmarks/bench_ipp.py:57-172)."""
+    import zlib
+
+    from vcf_tpu_torch import CodecConfig, metrics, video
+    from vcf_tpu_torch.config import VideoConfig
+    from vcf_tpu_torch.entropy import rans
+    from vcf_tpu_torch.ops.cuda import dct_kernel as dk
+    from vcf_tpu_torch.ops.cuda import mc_kernel as mk
+    from vcf_tpu_torch.ops.cuda import rans_decode as rd
+    from vcf_tpu_torch.ops.cuda import rans_encode as re_
+    from vcf_tpu_torch.ops.cuda import sad_kernel as sk
+
+    kernels = {"sad_search": sk.sad_search,
+               "mc_apply_planar": mk.mc_apply_planar,
+               "fused_cdct_quantize": dk.fused_cdct_quantize,
+               "fused_dequantize_cdct": dk.fused_dequantize_cdct,
+               "rans_encode_grouped": re_.rans_encode_grouped,
+               "rans_decode_grouped_grid": rd.rans_decode_grouped_grid}
+    n, h, w, _ = clip.shape
+    vcfg = VideoConfig(mode="ipp", n_frames=n, gop_size=GOP,
+                       me_block=ME_BLOCK, search_range=SEARCH)
+    ccfg = CodecConfig(entropy="grans", subbands=False)
+    ipp = video.get(vcfg, ccfg, dev)
+    enc, dec = ipp._gop_encode_grid_batch, ipp._gop_decode_grid_batch
+    gops = torch.from_numpy(clip).to(dev).reshape(-1, GOP, h, w, 3)
+    # set-up, as bench_ipp.py: tables trained once on the clip's planes
+    planes0, _ = enc(gops)
+    lanes0, s_streams, cw = grid_lanes_of(planes0.reshape(-1, 3, h, w))
+    l = lanes0.shape[0]
+    fg, cg, fg_np = grid_tables(dev, lanes0)
+
+    def encode_full(g):
+        planes, mvs = enc(g)
+        lanes, _, _ = grid_lanes_of(planes.reshape(-1, 3, h, w))
+        raw, st = re_.rans_encode_grouped(lanes.t(), fg, cg)
+        return planes, mvs, raw, st
+
+    def decode_full(raw, st, mvs):
+        lanes = rd.rans_decode_grouped_grid(raw, st, fg, cg, l).t()
+        planes = rans.grid_unlanes_lmajor(lanes, 8, (n, 3, h, w), cw=cw)
+        return dec(planes.reshape(-1, GOP, 3, h, w), mvs)
+
+    zero_counts(kernels)
+    planes, mvs, raw, st = encode_full(gops)
+    recs = decode_full(raw, st, mvs)
+    torch.cuda.synchronize()
+    launches = {"sad_search": sk.sad_search.launches,
+                "mc_apply_planar": mk.mc_apply_planar.launches,
+                "fused_cdct_quantize": dk.fused_cdct_quantize.grid_launches,
+                "fused_dequantize_cdct":
+                    dk.fused_dequantize_cdct.grid_launches,
+                "rans_encode_grouped": re_.rans_encode_grouped.launches,
+                "rans_decode_grouped_grid":
+                    rd.rans_decode_grouped_grid.launches}
+    print(f"ipp grid path: launches {launches}")
+    for name, count in launches.items():
+        require(count > 0, f"kernel {name} was not launched on the IPP grid "
+                "path")
+    require(torch.equal(recs, ipp.last_grid_recon),
+            "the grid decoder differs from the encoder's reconstruction")
+    rec = torch.clamp(torch.round(recs), 0, 255).to(torch.uint8).permute(
+        0, 1, 3, 4, 2).reshape(n, h, w, 3).cpu().numpy()
+
+    cpu = video.get(vcfg, ccfg, "cpu")
+    t0 = time.perf_counter()
+    planes_c, mvs_c = cpu._gop_encode_grid_batch(
+        torch.from_numpy(clip).reshape(-1, GOP, h, w, 3))
+    cpu_s = time.perf_counter() - t0
+    mv_diff = int((mvs.cpu() != mvs_c).any(-1).sum())
+    d = (planes.cpu().to(torch.int64) - planes_c.to(torch.int64)).abs()
+    idx_diff = int((d != 0).sum())
+    require(int(d.max()) <= 1 and idx_diff <= MAX_IPP_DIFF_SHARE * d.numel(),
+            f"IPP grid indexes vs the CPU run: {idx_diff} differ, max "
+            f"{int(d.max())}")
+    rec_c = torch.clamp(torch.round(cpu.last_grid_recon), 0, 255).to(
+        torch.uint8).permute(0, 1, 3, 4, 2).reshape(n, h, w, 3).numpy()
+    rmse, rmse_cpu = metrics.rmse(clip, rec), metrics.rmse(clip, rec_c)
+    require(abs(rmse - rmse_cpu) <= MAX_IPP_RMSE_DIFF,
+            f"IPP grid rmse {rmse} vs CPU run {rmse_cpu}")
+    _, nw, counts = re_.rans_compact(raw)
+    side = (4 * s_streams + len(zlib.compress(fg_np.astype("<u2").tobytes(), 9))
+            + len(zlib.compress(counts.cpu().numpy().astype("<u4").tobytes(),
+                                9)))
+    mv_bytes = mvs.numel()                     # int8 per component
+    enc_ms = cuda_ms(lambda: encode_full(gops), 3)
+    dec_ms = cuda_ms(lambda: decode_full(raw, st, mvs), 3)
+    loop_ms = {"encode: GOP loop": cuda_ms(lambda: enc(gops), 3),
+               "decode: GOP loop": cuda_ms(lambda: dec(planes, mvs), 3)}
+    report = {"rmse": rmse, "rmse_cpu": rmse_cpu,
+              "bpp": (2 * int(nw) + side + mv_bytes) * 8 / (n * h * w),
+              "cpu_run": f"GOP loop, {cpu_s:.1f} s",
+              "mv_blocks_differing_from_cpu": mv_diff / mvs[..., 0].numel(),
+              "indexes_differing_from_cpu": idx_diff / d.numel(),
+              "encode_ms": enc_ms, "decode_ms": dec_ms, **loop_ms,
+              "gb_per_s": clip.nbytes / ((enc_ms + dec_ms) * 1e6)}
+    print(f"ipp grid clip {n}x{h}x{w} grans (CUDA events, warm): "
+          f"{json.dumps(report)}")
+    return launches
 
 
 def main() -> None:
@@ -878,18 +1485,30 @@ def main() -> None:
 
     clip = test_video(FRAMES, H, W, seed=7)
     results += phase_motion_kernels(dev, clip)
-    ctx_rows, ctx_words = phase_ctx_kernels(dev, planes)
+    ctx_rows, ctx_words, ctx_grids = phase_ctx_kernels(dev, planes)
     results += ctx_rows
+    grid_rows = phase_grid_kernels(dev, frames, ctx_grids)
+    del ctx_grids
     launches = phase_main_path(dev, frames, planes)
-    clip_launches, grans_clip = phase_clip(dev, frames, planes)
+    clip_launches, grans_clip, perceptual_rec = phase_clip(dev, frames, planes)
     launches.update(clip_launches)
+    # the lane-grid modes' launches: the sum over the paths that run them
+    grid_launches = {}
+    for counts in (*phase_grid_clip(dev, frames, grans_clip, perceptual_rec),
+                   phase_ipp_grid(dev, clip)):
+        for name, count in counts.items():
+            grid_launches[name] = grid_launches.get(name, 0) + count
     launches.update(phase_ipp(dev, clip))
     launches.update(phase_cgrans_clip(dev, frames, planes, ctx_words,
                                       grans_clip))
-    phase_dwt(dev, base)
+    ctx_grid_launches = phase_dwt(dev, base)
+    grid_launches["rans_decode_ctx_grid"] = \
+        ctx_grid_launches["rans_decode_ctx_grid"]
     for row in results:
         row["launches"] = launches[row["name"]]
-    print(json.dumps({"kernels": results}))
+    for row in grid_rows:
+        row["launches"] = grid_launches[row["name"].split("[")[0]]
+    print(json.dumps({"kernels": results + grid_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -401,3 +401,120 @@ def test_deadzone_quantize_on_cuda_is_ieee(dev, qss):
     x = torch.cat([x, k * qss, torch.nextafter(k * qss, k * qss - 1)])
     assert torch.equal(q_ops.deadzone_quantize(x.to(dev), qss).cpu(),
                        q_ops.deadzone_quantize(x, qss))
+
+
+# ---------------------------------------------------------------------------
+# The lane-grid path: grid modes of B1-B4, K1 L-major, the row mode of K2,
+# the routing-free grid decodes, IPPCodec's planar grid loop
+# ---------------------------------------------------------------------------
+
+GRID_DCT_CASES = [(2, 64, 256, 8, 32), (1, 32, 2048, 8, 32),
+                  (2, 64, 128, 4, 24), (1, 32, 96, 8, 24)]
+
+
+@pytest.mark.parametrize("n,h,w,b,qss", GRID_DCT_CASES)
+def test_dct_grid_modes_are_block_modes_permuted(dev, n, h, w, b, qss):
+    """The grid mode permutes the block mode's stores and loads: equal to
+    the block-mode kernel's output permuted, bit for bit, and within the
+    +-1 rule of the plain version."""
+    rng = np.random.default_rng(h + w + b)
+    px = torch.from_numpy(rng.integers(0, 256, (n, 3, h, w), np.uint8)).to(dev)
+    planes = torch.from_numpy(rng.normal(0, 80, (n, 3, h, w)).astype(
+        np.float32)).to(dev)
+    mf = dk.static_mat(color_ops.YCOCG_FWD)
+    mi = dk.static_mat(color_ops.YCOCG_INV)
+    kw = dict(b=b, qss=qss)
+    k3 = dk.fused_cdct_quantize(px, mf, grid_layout=True, **kw)
+    assert torch.equal(k3, dk.to_grid(dk.fused_cdct_quantize(px, mf, **kw), b))
+    d = (k3.cpu().to(torch.int64) - dk.fused_cdct_quantize_ref(
+        px, mf, grid_layout=True, **kw).cpu()).abs()
+    assert d.max() <= 1 and (d != 0).sum() <= 1e-4 * d.numel()
+    p4 = dk.fused_dequantize_cdct(k3, mi, grid_layout=True, **kw)
+    assert torch.equal(p4, dk.fused_dequantize_cdct(dk.from_grid(k3, b), mi,
+                                                    **kw))
+    for perc in (False, True):
+        k1 = dk.fused_dct_quantize(planes, perceptual=perc, grid_layout=True,
+                                   **kw)
+        assert torch.equal(k1, dk.to_grid(dk.fused_dct_quantize(
+            planes, perceptual=perc, **kw), b))
+        x2 = dk.fused_dequantize_idct(k1, perceptual=perc, grid_layout=True,
+                                      **kw)
+        assert torch.equal(x2, dk.fused_dequantize_idct(
+            dk.from_grid(k1, b), perceptual=perc, **kw))
+        x2p = dk.fused_dequantize_idct_ref(k1, perceptual=perc,
+                                           grid_layout=True, **kw)
+        assert float((x2 - x2p).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("g,sg,l", CASES)
+def test_lane_grid_rans_modes_match_plain_versions(dev, g, sg, l):
+    syms, fg, cg = _case(g, sg, l, seed=g * l)
+    s = torch.from_numpy(syms).to(dev)
+    s_l = s.t().contiguous()
+    ft = torch.from_numpy(fg.astype(np.int64)).to(dev)
+    ct = torch.from_numpy(cg.astype(np.int64)).to(dev)
+    raw, st = re_.rans_encode_grouped(s_l.t(), ft, ct)
+    raw_t, st_t = re_.rans_encode_grouped(s, ft, ct)
+    assert torch.equal(raw, raw_t) and torch.equal(st, st_t)
+    rows, counts, st_r = re_.rans_encode_rows(s_l.t(), ft, ct)
+    rows_p, counts_p = re_.rans_compact_rows_ref(raw)
+    assert torch.equal(counts, counts_p)
+    # only each row's prefix is defined; the plain version zeroes the tail
+    prefix = torch.arange(rows.shape[1], device=dev) < counts[:, None]
+    assert torch.equal(rows.masked_fill(~prefix, 0), rows_p)
+    assert torch.equal(st_r, st)
+    words, n_words = re_.assemble_stream(rows, counts)
+    w2, n2, c2 = re_.rans_compact(raw)
+    n = int(n_words)
+    assert n == int(n2) and torch.equal(words[:n], w2[:n])
+    assert torch.equal(counts, c2)
+    out = rd.rans_decode_grouped_grid(raw, st, ft, ct, l)
+    assert torch.equal(out, s) and torch.equal(out.t(), s_l)
+    assert out.t().is_contiguous()
+    assert torch.equal(rd.rans_decode_grouped(
+        words[:n].clone(), st, ft, ct, l, counts), out)
+    assert torch.equal(rd.rans_decode_grouped_grid_ref(raw, st, ft, ct, l),
+                       s_l)
+
+
+def test_grid_decode_rejects_a_bad_grid(dev):
+    syms, fg, cg = _case(4, 64, 8, seed=5)
+    ft = torch.from_numpy(fg.astype(np.int64)).to(dev)
+    ct = torch.from_numpy(cg.astype(np.int64)).to(dev)
+    raw, st = re_.rans_encode_grouped(torch.from_numpy(syms).to(dev), ft, ct)
+    t, s = (raw >> 16).nonzero()[0].tolist()
+    raw[t, s] &= 0xFFFF
+    with pytest.raises(ValueError, match="emit flags"):
+        rd.rans_decode_grouped_grid(raw, st, ft, ct, 8)
+
+
+@pytest.mark.parametrize("g,sg,l,n_ctx", CTX_CASES)
+def test_ctx_grid_decode_matches_plain_version(dev, g, sg, l, n_ctx):
+    rng = np.random.default_rng(g + n_ctx)
+    syms = (128 + rng.normal(0, 20, (g * sg, l))).clip(0, 255).astype(np.uint8)
+    s = torch.from_numpy(syms).to(dev)
+    fg, cg = rans.ctx_freqs_from_counts(
+        rans.ctx_group_histograms(s, g, n_ctx).cpu().numpy())
+    ft = torch.from_numpy(fg.astype(np.int64)).to(dev)
+    ct = torch.from_numpy(cg.astype(np.int64)).to(dev)
+    raw, st = rc.rans_encode_ctx(s, ft, ct)
+    out = rc.rans_decode_ctx_grid(raw, st, ft, ct, l)
+    assert torch.equal(out, s)
+    assert torch.equal(rc.rans_decode_ctx_grid_ref(raw, st, ft, ct, l), s.t())
+
+
+def test_ipp_planar_grid_loop_on_cuda_matches_cpu(dev):
+    frames = make_test_video(4, 64, 128, seed=9)
+    vcfg = VideoConfig(mode="ipp", n_frames=4, gop_size=4, search_range=4)
+    ccfg = CodecConfig(entropy="grans")
+    gpu, cpu = video.get(vcfg, ccfg, dev), video.get(vcfg, ccfg, "cpu")
+    gops = torch.from_numpy(frames)[None]
+    planes, mvs = gpu._gop_encode_grid_batch(gops.to(dev))
+    planes_c, mvs_c = cpu._gop_encode_grid_batch(gops)
+    assert torch.equal(mvs.cpu(), mvs_c)
+    d = (planes.cpu().to(torch.int64) - planes_c).abs()
+    assert d.max() <= 1 and (d != 0).sum() <= 5e-4 * d.numel()
+    rec = gpu._gop_decode_grid_batch(planes, mvs)
+    assert torch.equal(rec, gpu.last_grid_recon)
+    assert torch.equal(rec.cpu(), cpu._gop_decode_grid_batch(planes.cpu(),
+                                                             mvs.cpu()))

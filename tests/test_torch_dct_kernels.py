@@ -134,8 +134,16 @@ def test_wrappers_route_by_device():
     with pytest.raises(ValueError, match="3 channels"):
         tk.fused_cdct_quantize(torch.zeros((2, 16, 16), dtype=torch.uint8),
                                tk.static_mat(jcolor.YCOCG_FWD))
-    assert tk.fused_dct_quantize_any is tk.fused_dct_quantize
-    assert tk.fused_dequantize_idct_any is tk.fused_dequantize_idct
+    # the `_any` names call the same functions, and refuse grid_layout
+    # where vcf_tpu's would pad (H % 32 or W % 128)
+    k = tk.fused_dct_quantize_any(planes)
+    assert torch.equal(k, tk.fused_dct_quantize(planes))
+    assert torch.equal(tk.fused_dequantize_idct_any(k),
+                       tk.fused_dequantize_idct(k))
+    with pytest.raises(ValueError, match="kernel-native"):
+        tk.fused_dct_quantize_any(planes, grid_layout=True)
+    with pytest.raises(ValueError, match="kernel-native"):
+        tk.fused_dequantize_idct_any(k, grid_layout=True)
 
 
 def test_static_mat_equals_vcf_tpu():

@@ -153,8 +153,14 @@ def test_ipp_routes():
         assert IPPCodec(vcfg, ccfg, "cpu")._make_search(h, 112).kind == kind
     codec = IPPCodec(VideoConfig(mode="ipp"), CodecConfig(), "cpu")
     assert codec._make_search(100, 112).kind == "full_search"
-    assert codec._gop_encode_grid_batch is None
-    assert codec._gop_decode_grid_batch is None
+    # the planar grid loop exists for ycocg + deadzone only, as in vcf_tpu
+    assert callable(codec._gop_encode_grid_batch)
+    assert callable(codec._gop_decode_grid_batch)
+    for color in ("none", "ycrcb"):
+        other = IPPCodec(VideoConfig(mode="ipp"), CodecConfig(color=color),
+                         "cpu")
+        assert other._gop_encode_grid_batch is None
+        assert other._gop_decode_grid_batch is None
     counters = (sk.sad_search, mk.mc_apply_planar, mk.mc_apply,
                 dk.fused_dct_quantize, dk.fused_dequantize_idct)
     before = [f.launches for f in counters]

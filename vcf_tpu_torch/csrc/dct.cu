@@ -33,6 +33,16 @@
 // is not carried over.  Plain fp32 on the CUDA cores: the tensor cores
 // would offer only TF32 here, which the port forbids.
 //
+// Both kernels take a layout flag, `cw`: 0 for the block layout, else the
+// lane chunk of vcf_tpu's subband-grid tile layout (grid_layout=True,
+// dct_kernel.py _grid_perm / _kron_dct_grid): inside each (32, cw) tile,
+// rows go in (coeff_y, block_y) and columns in (coeff_x, block_x) order.
+// The TPU kernels folded that permutation into their kron matrices; here
+// it is only another store index (forward) or load index (inverse), the
+// arithmetic untouched, so a grid-layout output is the block-layout
+// output permuted, bit for bit.  cw is vcf_tpu's `_chunk_w(W, b)` (128
+// at W = 1920): it fixes the lane order and so the wire bytes.
+//
 // Rounding: the color rows, the perceptual multiply and divide, the
 // quantizer's multiply by float32(1/qss) and the final + offset use
 // __fmul_rn / __fadd_rn / __fdiv_rn, so they round as the plain torch
@@ -51,6 +61,7 @@ constexpr int DCT_THREADS = 256;
 constexpr int DCT_STRIP = 1024;  // tile elements per channel: b x (1024 / b)
 constexpr int DCT_MAXB = 32;
 constexpr int DCT_DSTRIDE = DCT_MAXB + 1;
+constexpr int DCT_GRID_ROWS = 32;  // tile rows of the subband-grid layout
 
 struct Mat3 {
   float m[9];  // row-major 3x3
@@ -61,6 +72,17 @@ __device__ __forceinline__ float color_row(const Mat3& m, int d, float x0,
   return __fadd_rn(__fadd_rn(__fmul_rn(m.m[3 * d], x0),
                              __fmul_rn(m.m[3 * d + 1], x1)),
                    __fmul_rn(m.m[3 * d + 2], x2));
+}
+
+// Offset in a plane of block-layout element (y, x) in the subband-grid
+// layout: tile row ty = blk * b + g moves to g * (32 / b) + blk, and the
+// same with cw / b blocks along the tile's columns.
+__device__ __forceinline__ size_t grid_at(int y, int x, int W, int b,
+                                          int cw) {
+  const int ty = y % DCT_GRID_ROWS, tx = x % cw;
+  const int gy = (y - ty) + (ty % b) * (DCT_GRID_ROWS / b) + ty / b;
+  const int gx = (x - tx) + (tx % b) * (cw / b) + tx / b;
+  return (size_t)gy * W + gx;
 }
 
 // The b x b DCT matrix into s_d (row stride b + 1), and the b x b
@@ -82,7 +104,7 @@ __global__ void __launch_bounds__(DCT_THREADS)
 dct_forward_kernel(const void* __restrict__ in, uint8_t* __restrict__ out,
                    const float* __restrict__ dmat,
                    const float* __restrict__ scale, Mat3 m, int C, int H,
-                   int W, int b, float recip, int offset) {
+                   int W, int b, float recip, int offset, int cw) {
   constexpr int CH = COLOR ? 3 : 1;
   __shared__ float s_x[CH][DCT_STRIP];
   __shared__ float s_y[CH][DCT_STRIP];
@@ -92,8 +114,8 @@ dct_forward_kernel(const void* __restrict__ in, uint8_t* __restrict__ out,
   const int x0 = blockIdx.x * tw;
   const int width = min(tw, W - x0);
   const size_t plane = (size_t)H * W;
-  const size_t base = (size_t)blockIdx.z * CH * plane +
-                      (size_t)blockIdx.y * b * W + x0;
+  const size_t fbase = (size_t)blockIdx.z * CH * plane;
+  const size_t base = fbase + (size_t)blockIdx.y * b * W + x0;
   const float* table =
       scale ? scale + ((blockIdx.z % C) == 0 ? 0 : b * b) : nullptr;
   load_consts(dmat, table, b, s_d, s_sc);
@@ -142,7 +164,10 @@ dct_forward_kernel(const void* __restrict__ in, uint8_t* __restrict__ out,
     if (table) acc = __fmul_rn(acc, s_sc[u * b + v]);
     int k = __float2int_rz(__fmul_rn(acc, recip)) + offset;
     k = min(max(k, 0), 255);
-    out[base + c * plane + (size_t)u * W + j] = (uint8_t)k;
+    const size_t at =
+        cw ? fbase + grid_at(blockIdx.y * b + u, x0 + j, W, b, cw)
+           : base + (size_t)u * W + j;
+    out[at + c * plane] = (uint8_t)k;
   }
 }
 
@@ -153,7 +178,7 @@ __global__ void __launch_bounds__(DCT_THREADS)
 dct_inverse_kernel(const uint8_t* __restrict__ in, void* __restrict__ out,
                    const float* __restrict__ dmat,
                    const float* __restrict__ scale, Mat3 m, int C, int H,
-                   int W, int b, float qss, int offset) {
+                   int W, int b, float qss, int offset, int cw) {
   constexpr int CH = COLOR ? 3 : 1;
   __shared__ float s_x[CH][DCT_STRIP];
   __shared__ float s_y[CH][DCT_STRIP];
@@ -163,8 +188,8 @@ dct_inverse_kernel(const uint8_t* __restrict__ in, void* __restrict__ out,
   const int x0 = blockIdx.x * tw;
   const int width = min(tw, W - x0);
   const size_t plane = (size_t)H * W;
-  const size_t base = (size_t)blockIdx.z * CH * plane +
-                      (size_t)blockIdx.y * b * W + x0;
+  const size_t fbase = (size_t)blockIdx.z * CH * plane;
+  const size_t base = fbase + (size_t)blockIdx.y * b * W + x0;
   const float* table =
       scale ? scale + ((blockIdx.z % C) == 0 ? 0 : b * b) : nullptr;
   load_consts(dmat, table, b, s_d, s_sc);
@@ -176,7 +201,10 @@ dct_inverse_kernel(const uint8_t* __restrict__ in, void* __restrict__ out,
     const int u = rem / tw, j = rem - u * tw;
     float coeff = 0.f;
     if (j < width) {
-      const int k = (int)in[base + c * plane + (size_t)u * W + j] - offset;
+      const size_t at =
+          cw ? fbase + grid_at(blockIdx.y * b + u, x0 + j, W, b, cw)
+             : base + (size_t)u * W + j;
+      const int k = (int)in[at + c * plane] - offset;
       coeff = __fmul_rn((float)k, qss);
       if (table) coeff = __fdiv_rn(coeff, s_sc[u * b + (j & (b - 1))]);
     }
@@ -233,10 +261,11 @@ dct_inverse_kernel(const uint8_t* __restrict__ in, void* __restrict__ out,
 // Launch geometry shared by both directions; returns false for a shape
 // the kernels do not take.
 static bool dct_grid(const float* m, int N, int C, int H, int W, int b,
-                     dim3* grid, Mat3* mat) {
+                     int cw, dim3* grid, Mat3* mat) {
   if (b < 1 || b > DCT_MAXB || (b & (b - 1)) || H % b || W % b || N < 1 ||
       C < 1 || (m && C != 3))
     return false;
+  if (cw && (cw < 0 || H % DCT_GRID_ROWS || cw % b || W % cw)) return false;
   const int tw = DCT_STRIP / b;
   *grid = dim3((W + tw - 1) / tw, H / b, m ? N : N * C);
   for (int i = 0; i < 9; ++i) mat->m[i] = m ? m[i] : 0.f;
@@ -252,20 +281,21 @@ extern "C" {
 // null on the device.  Returns cudaGetLastError() after the launch.
 int vcf_dct_forward(const void* in, void* out, const void* dmat,
                     const void* scale, const float* m, int N, int C, int H,
-                    int W, int b, float recip, int offset, void* stream) {
+                    int W, int b, float recip, int offset, int cw,
+                    void* stream) {
   dim3 grid;
   vcf::Mat3 mat;
-  if (!vcf::dct_grid(m, N, C, H, W, b, &grid, &mat))
+  if (!vcf::dct_grid(m, N, C, H, W, b, cw, &grid, &mat))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (m)
     vcf::dct_forward_kernel<true><<<grid, vcf::DCT_THREADS, 0, st>>>(
         in, (uint8_t*)out, (const float*)dmat, nullptr, mat, C, H, W, b,
-        recip, offset);
+        recip, offset, cw);
   else
     vcf::dct_forward_kernel<false><<<grid, vcf::DCT_THREADS, 0, st>>>(
         in, (uint8_t*)out, (const float*)dmat, (const float*)scale, mat, C,
-        H, W, b, recip, offset);
+        H, W, b, recip, offset, cw);
   return (int)cudaGetLastError();
 }
 
@@ -273,20 +303,21 @@ int vcf_dct_forward(const void* in, void* out, const void* dmat,
 // (m = 3x3 inverse matrix on the host, C == 3); dmat and scale as above.
 int vcf_dct_inverse(const void* in, void* out, const void* dmat,
                     const void* scale, const float* m, int N, int C, int H,
-                    int W, int b, float qss, int offset, void* stream) {
+                    int W, int b, float qss, int offset, int cw,
+                    void* stream) {
   dim3 grid;
   vcf::Mat3 mat;
-  if (!vcf::dct_grid(m, N, C, H, W, b, &grid, &mat))
+  if (!vcf::dct_grid(m, N, C, H, W, b, cw, &grid, &mat))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (m)
     vcf::dct_inverse_kernel<true><<<grid, vcf::DCT_THREADS, 0, st>>>(
         (const uint8_t*)in, out, (const float*)dmat, nullptr, mat, C, H, W,
-        b, qss, offset);
+        b, qss, offset, cw);
   else
     vcf::dct_inverse_kernel<false><<<grid, vcf::DCT_THREADS, 0, st>>>(
         (const uint8_t*)in, out, (const float*)dmat, (const float*)scale, mat,
-        C, H, W, b, qss, offset);
+        C, H, W, b, qss, offset, cw);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,9 @@
 // K1 rans_encode_grouped and K2 rans_compact: the grouped interleaved
 // rANS encoder as two passes, the same split as the TPU library path.
 //
-// K1 replaces vcf_tpu/ops/pallas/rans_encode.py:pallas_encode_grouped_raw.
+// K1 replaces vcf_tpu/ops/pallas/rans_encode.py:pallas_encode_grouped_raw
+// and, given the transposed view of (L, S) lanes (its (L, S) copy is
+// then no copy), pallas_encode_grouped_raw_u8.
 // One thread per lane walks its L symbols newest first and writes the raw
 // grid word (emit << 16) | (x & 0xFFFF) of decode step t, plus the final
 // state.  What bounds it: the per-lane dependency chain through the state
@@ -43,6 +45,22 @@
 // are direct in CUDA; Triton's block model has no ordered scan across
 // programs, so it would need the same three launches with less control
 // over the order of the writes.
+//
+// K2 has a row mode, `rans_compact_rows`: K1 followed by it is
+// `rans_encode_rows`, which replaces the compacting encodes
+// vcf_tpu/ops/pallas/rans_encode.py:pallas_encode_grouped and
+// pallas_encode_grouped_u8 (one output, two TPU input layouts).  Row t
+// of the output holds the words that decode step t reads, in lane order,
+// as a prefix; the rest of the row is left unwritten (the TPU kernels
+// leave it unspecified too), and counts[t] is the prefix length.  The prefix is per
+// row, so one block owns a row and carries its running offset through
+// rounds of blockDim lanes, each ranked by a block scan: no offset
+// crosses blocks, and one launch does it.  The TPU's per-step in-kernel
+// compaction (matmul ranks, carry-hi packing) is not carried over: the
+// per-step prefix across all S lanes is a grid-wide dependency that K1's
+// one-thread-per-lane walk cannot carry, so it stays a second pass.
+// What bounds it: memory traffic, the 4-byte grid read once and the
+// 2-byte words and the counts written once.
 
 #include <algorithm>
 
@@ -55,6 +73,7 @@ constexpr int CMP_THREADS = 256;
 constexpr int CMP_ROUNDS = 16;
 constexpr int CMP_TILE = CMP_THREADS * CMP_ROUNDS;  // grid entries per block
 constexpr int SCAN_THREADS = 1024;
+constexpr int ROW_THREADS = 1024;
 constexpr int STATIC_SMEM_LIMIT = 48 * 1024;
 
 // CTX = false: order 0, tab (G, 256).  CTX = true: the context mode, tab
@@ -163,6 +182,26 @@ compact_scatter_kernel(const int32_t* __restrict__ raw, long long n,
   }
 }
 
+// One block per row t of the (L, S) raw grid.
+__global__ void __launch_bounds__(ROW_THREADS)
+compact_rows_kernel(const int32_t* __restrict__ raw, int S,
+                    uint16_t* __restrict__ rows,
+                    int32_t* __restrict__ counts) {
+  __shared__ int scratch[33];
+  const size_t base = (size_t)blockIdx.x * S;
+  int run = 0;
+  for (int s0 = 0; s0 < S; s0 += blockDim.x) {
+    const int s = s0 + threadIdx.x;
+    const int32_t v = s < S ? raw[base + s] : 0;
+    const int flag = (v >> 16) != 0;
+    int total;
+    const int rank = block_exclusive_scan(flag, &total, scratch);
+    if (flag) rows[base + run + rank] = (uint16_t)(v & 0xFFFF);
+    run += total;
+  }
+  if (threadIdx.x == 0) counts[blockIdx.x] = run;
+}
+
 template <bool CTX>
 int launch_encode(const void* syms, const void* tab, const void* cls_lut,
                   void* raw, void* states, int S, int L, int G, int n_ctx,
@@ -204,6 +243,16 @@ int vcf_rans_encode_ctx(const void* syms, const void* tab,
 }
 
 int vcf_rans_compact_tile(void) { return vcf::CMP_TILE; }
+
+// K2's row mode: raw (L, S) i32 grid -> rows (L, S) u16 (each row's
+// flagged words as a prefix, the tail unwritten) and counts (L,) i32.
+int vcf_rans_compact_rows(const void* raw, int S, int L, void* rows,
+                          void* counts, void* stream) {
+  if (S < 1 || L < 1) return (int)cudaErrorInvalidValue;
+  vcf::compact_rows_kernel<<<L, vcf::ROW_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)raw, S, (uint16_t*)rows, (int32_t*)counts);
+  return (int)cudaGetLastError();
+}
 
 // raw (n,) i32 grid in decode order; tile_counts/tile_offsets scratch of
 // ceil(n / tile) i32; words (n,) u16 out (valid prefix), n_words (1,) i32.

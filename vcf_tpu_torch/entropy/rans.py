@@ -16,6 +16,11 @@ to the raw grid, K2 compaction, K3 decode; the order-1 context coder
 with K2 between them.  On a CUDA device every encode and decode launches
 them; on the CPU their plain torch versions run.  The NumPy reference
 implementations (`np_*`) define the format.
+
+`grid_lanes*` / `grid_unlanes*` lay out the index planes of the
+subband-grid tile layout (the `grid_layout` modes of B1-B4) as lanes
+with plain reshapes: the device-resident lane-grid path, whose raw
+(L, S) grid the routing-free grid decode reads directly.
 """
 
 from __future__ import annotations
@@ -37,7 +42,8 @@ from vcf_tpu_torch.ops.cuda.rans_encode import (K_PROB, MASK, RANS_L,
 
 __all__ = ["K_PROB", "RANS_L", "MASK", "quantize_freqs", "np_encode_grouped",
            "np_decode_grouped", "subband_lanes", "subband_unlanes",
-           "group_histograms", "freqs_from_counts", "N_CTX", "CTX_BOUNDS",
+           "grid_lanes", "grid_lanes_lmajor", "grid_unlanes",
+           "grid_unlanes_lmajor", "group_histograms", "freqs_from_counts", "N_CTX", "CTX_BOUNDS",
            "subband_lanes_ctx", "subband_unlanes_ctx", "ctx_class",
            "ctx_class_n", "np_encode_ctx", "ctx_group_histograms",
            "ctx_cums", "ctx_freqs_from_counts", "RANSCodec", "GroupedRANSCodec",
@@ -168,6 +174,78 @@ def subband_unlanes(syms: torch.Tensor, b: int, shape) -> torch.Tensor:
     sb = syms.reshape(g, sg, l).permute(0, 2, 1).reshape(g, -1)
     sb = sb.reshape(b, b, n, h // b, w // b, c)
     return sb.permute(2, 0, 3, 1, 4, 5).reshape(n, h, w, c)
+
+
+def _grid_dims(shape, b: int, s_streams: int, rows: int, cw: int):
+    """(g, sg, l, (j_t, br, k_t, bc)) of (N, C, H, W) grid-layout planes
+    cut into s_streams lanes; raise unless the tiles and lanes fit."""
+    n, c, h, w = shape
+    g = b * b
+    sg = s_streams // g
+    j_t, k_t = h // rows, w // cw
+    br, bc = rows // b, cw // b
+    n_g = n * c * j_t * br * k_t * bc
+    if h % rows or w % cw or sg < 1 or s_streams % g or n_g % sg:
+        raise ValueError(f"grid lanes: planes {tuple(shape)} do not tile into "
+                         f"({rows}, {cw}) tiles and {s_streams} lanes")
+    return g, sg, n_g // sg, (j_t, br, k_t, bc)
+
+
+def _grid_split(planes_grid: torch.Tensor, b: int, s_streams: int,
+                rows: int, cw: int):
+    """(N, C, H, W) grid-layout planes -> the (gy, gx, N, C, J, BR, K, BC)
+    view every lane layout reads, with (g, sg, l)."""
+    n, c = planes_grid.shape[:2]
+    g, sg, l, (j_t, br, k_t, bc) = _grid_dims(planes_grid.shape, b,
+                                              s_streams, rows, cw)
+    x = planes_grid.reshape(n, c, j_t, b, br, k_t, b, bc)
+    return x.permute(3, 6, 0, 1, 2, 4, 5, 7), g, sg, l
+
+
+def _grid_join(xt: torch.Tensor, shape) -> torch.Tensor:
+    """(gy, gx, N, C, J, BR, K, BC) -> (N, C, H, W) grid-layout planes."""
+    return xt.permute(2, 3, 4, 0, 5, 6, 1, 7).reshape(shape)
+
+
+def grid_lanes(planes_grid: torch.Tensor, b: int, s_streams: int,
+               rows: int = 32, cw: int = 128) -> torch.Tensor:
+    """(N, C, H, W) u8 planes in the SUBBAND-GRID tile layout of
+    `fused_cdct_quantize(grid_layout=True)` (tile rows in (coeff_y,
+    block_y) order, columns in (coeff_x, block_x) order) -> the (S, L)
+    lane matrix with one group per coefficient (lane // (S / b^2) =
+    gy * b + gx) and lane-major block order.  `cw` is the layout's tile
+    width (`ops.cuda.dct_kernel._chunk_w`).  Pure reshapes/permutes."""
+    xt, g, sg, l = _grid_split(planes_grid, b, s_streams, rows, cw)
+    return xt.reshape(g * sg, l)
+
+
+def grid_lanes_lmajor(planes_grid: torch.Tensor, b: int, s_streams: int,
+                      rows: int = 32, cw: int = 128) -> torch.Tensor:
+    """`grid_lanes` in the (L, S) layout that K1 reads (pass it `.t()`,
+    a view): one permute, no transpose of the (S, L) matrix."""
+    xt, g, sg, l = _grid_split(planes_grid, b, s_streams, rows, cw)
+    return xt.reshape(g, sg, l).permute(2, 0, 1).reshape(l, g * sg)
+
+
+def grid_unlanes(syms: torch.Tensor, b: int, shape, rows: int = 32,
+                 cw: int = 128) -> torch.Tensor:
+    """Inverse of `grid_lanes`: (S, L) -> (N, C, H, W) grid-layout planes
+    (the input of `fused_dequantize_cdct(grid_layout=True)`)."""
+    n, c = shape[:2]
+    _, _, _, (j_t, br, k_t, bc) = _grid_dims(shape, b, syms.shape[0], rows, cw)
+    return _grid_join(syms.reshape(b, b, n, c, j_t, br, k_t, bc), shape)
+
+
+def grid_unlanes_lmajor(syms: torch.Tensor, b: int, shape, rows: int = 32,
+                        cw: int = 128) -> torch.Tensor:
+    """Inverse of `grid_lanes_lmajor`: (L, S), the `.t()` of the grid
+    decode's and K3's output -> (N, C, H, W) grid-layout planes."""
+    n, c = shape[:2]
+    l, s_streams = syms.shape
+    g, sg, _, (j_t, br, k_t, bc) = _grid_dims(shape, b, s_streams, rows, cw)
+    xt = syms.reshape(l, g, sg).permute(1, 2, 0).reshape(
+        b, b, n, c, j_t, br, k_t, bc)
+    return _grid_join(xt, shape)
 
 
 def group_histograms(lanes: torch.Tensor, g: int) -> torch.Tensor:

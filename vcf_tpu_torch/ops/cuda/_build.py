@@ -34,13 +34,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F, _FP = ctypes.c_float, ctypes.POINTER(ctypes.c_float)
-_DCT = [_P, _P, _P, _P, _FP, _I, _I, _I, _I, _I, _F, _I, _P]
+_DCT = [_P, _P, _P, _P, _FP, _I, _I, _I, _I, _I, _F, _I, _I, _P]
 # C entry -> argtypes; every pointer and the stream are c_void_p so
 # ctypes never narrows them to a 32-bit int
 _SIGNATURES = {
     "vcf_rans_encode_grouped": [_P, _P, _P, _P, _I, _I, _I, _P],
     "vcf_rans_compact_tile": [],
     "vcf_rans_compact": [_P, _LL, _P, _P, _P, _P, _P],
+    "vcf_rans_compact_rows": [_P, _I, _I, _P, _P, _P],
     "vcf_rans_decode_threads": [],
     "vcf_rans_decode_grouped": [_P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _P],
@@ -48,6 +49,8 @@ _SIGNATURES = {
     "vcf_rans_decode_ctx_smem": [_I, _I],
     "vcf_rans_decode_ctx": [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                             _I, _I, _P],
+    "vcf_rans_decode_grid": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "vcf_rans_decode_ctx_grid": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vcf_dct_forward": _DCT,
     "vcf_dct_inverse": _DCT,
     "vcf_sad_search": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -16,9 +16,19 @@ Every function also takes a leading frame axis (N, C, H, W), where
 vcf_tpu used jax.vmap, so one launch covers a clip.  The kernels take
 any H, W that are multiples of b, for every b that divides 32; the
 TPU's 32-row / 128-lane tiling gates (`supports`) and the pad-and-crop
-`_any` wrappers have no counterpart, so the `_any` names are the same
-functions.  The subband-grid output layout of the TPU kernels
-(`grid_layout=True`) is not ported yet (ROADMAP next 3).
+of the `_any` wrappers have no counterpart, so the `_any` names call the
+same functions (and, as vcf_tpu's, refuse `grid_layout` where they
+would have padded).
+
+`grid_layout=True` is vcf_tpu's subband-grid tile layout: inside each
+(ROWS=32, cw) tile of the index planes, rows go in (coeff_y, block_y)
+order and columns in (coeff_x, block_x) order, cw = `_chunk_w(W, b)`
+(128 at W = 1920).  cw is a layout constant, not a memory gate: it fixes
+the lane order of `entropy.rans.grid_lanes`, and so the wire bytes.  The
+kernels permute only their store (forward) or load (inverse) index, so
+a grid-layout output equals the block-layout output permuted bit for
+bit; the plain versions permute the block layout (`to_grid`,
+`from_grid`).  It needs H % 32 == 0.
 
 Each wrapper runs its plain torch version for a CPU tensor and launches
 its CUDA kernel (csrc/dct.cu) for a CUDA tensor; nothing else.  The
@@ -27,7 +37,7 @@ vertical DCT pass before the horizontal one, quantize by a multiply with
 the float32 reciprocal of qss, divide by the perceptual table on
 decode.  Kernel against plain version follows the +-1 rule (float32
 sums in another order), not bit-exactness.  `launches` counts kernel
-launches.
+launches, `grid_launches` those in the grid layout.
 """
 
 from __future__ import annotations
@@ -42,6 +52,51 @@ from vcf_tpu_torch.ops import dct as dct_ops
 from vcf_tpu_torch.ops.cuda import _build
 
 BLOCK_SIZES = (1, 2, 4, 8, 16, 32)
+ROWS = 32  # tile rows of the subband-grid layout
+CW = 512   # widest lane chunk of the subband-grid layout
+
+
+def _chunk_w(w: int, b: int) -> int:
+    """The subband-grid tile width of a W-wide plane (vcf_tpu
+    dct_kernel.py `_chunk_w`, verbatim)."""
+    cw = min(w, CW)
+    while w % cw:
+        cw //= 2
+    return max(cw, b)
+
+
+def _grid_cw(x: torch.Tensor, b: int, what: str) -> int:
+    """cw of the grid layout of x (..., H, W); raise unless it tiles."""
+    h, w = x.shape[-2:]
+    cw = _chunk_w(w, b)
+    if h % ROWS or w % cw:
+        raise ValueError(f"{what}: grid_layout needs H % {ROWS} == 0 and "
+                         f"W % {cw} == 0, got {h}x{w}")
+    return cw
+
+
+def _grid_view(x: torch.Tensor, b: int, cw: int, rows_first: bool
+               ) -> torch.Tensor:
+    """Swap the (block, coeff) pair of both tile axes of (..., H, W).
+    rows_first: x is in block layout, viewed as (block, coeff) pairs."""
+    *lead, h, w = x.shape
+    nr, nc = ROWS // b, cw // b
+    shape = ((nr, b, w // cw, nc, b) if rows_first
+             else (b, nr, w // cw, b, nc))
+    y = x.reshape(*lead, h // ROWS, *shape)
+    return y.transpose(-5, -4).transpose(-2, -1).reshape(x.shape)
+
+
+def to_grid(x: torch.Tensor, b: int) -> torch.Tensor:
+    """Block-layout planes (..., H, W) -> the subband-grid tile layout:
+    new tile index g * (n / b) + blk holds old blk * b + g (vcf_tpu
+    `_grid_perm`), along the 32 tile rows and the cw tile columns."""
+    return _grid_view(x, b, _grid_cw(x, b, "to_grid"), rows_first=True)
+
+
+def from_grid(x: torch.Tensor, b: int) -> torch.Tensor:
+    """Inverse of `to_grid`."""
+    return _grid_view(x, b, _grid_cw(x, b, "from_grid"), rows_first=False)
 
 
 def static_mat(m) -> tuple:
@@ -131,17 +186,21 @@ def _color(x: torch.Tensor, m: Sequence[Sequence[float]]) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def fused_dct_quantize_ref(planes: torch.Tensor, b: int = 8, qss: int = 32,
-                           offset: int = 128,
-                           perceptual: bool = False) -> torch.Tensor:
+                           offset: int = 128, perceptual: bool = False,
+                           grid_layout: bool = False) -> torch.Tensor:
     coeff = _dct_fwd(planes, b)
     if perceptual:
         coeff = _percep_apply(coeff, b, inverse=False)
-    return _quantize(coeff, qss, offset)
+    k = _quantize(coeff, qss, offset)
+    return to_grid(k, b) if grid_layout else k
 
 
 def fused_dequantize_idct_ref(planes_u8: torch.Tensor, b: int = 8,
                               qss: int = 32, offset: int = 128,
-                              perceptual: bool = False) -> torch.Tensor:
+                              perceptual: bool = False,
+                              grid_layout: bool = False) -> torch.Tensor:
+    if grid_layout:
+        planes_u8 = from_grid(planes_u8, b)
     coeff = _dequantize(planes_u8, qss, offset)
     if perceptual:
         coeff = _percep_apply(coeff, b, inverse=True)
@@ -149,14 +208,18 @@ def fused_dequantize_idct_ref(planes_u8: torch.Tensor, b: int = 8,
 
 
 def fused_cdct_quantize_ref(planes: torch.Tensor, m, b: int = 8,
-                            qss: int = 32, offset: int = 128) -> torch.Tensor:
+                            qss: int = 32, offset: int = 128,
+                            grid_layout: bool = False) -> torch.Tensor:
     ct = _color(planes.to(torch.float32) - offset, m)
-    return _quantize(_dct_fwd(ct, b), qss, offset)
+    k = _quantize(_dct_fwd(ct, b), qss, offset)
+    return to_grid(k, b) if grid_layout else k
 
 
 def fused_dequantize_cdct_ref(planes_u8: torch.Tensor, m, b: int = 8,
-                              qss: int = 32, offset: int = 128
-                              ) -> torch.Tensor:
+                              qss: int = 32, offset: int = 128,
+                              grid_layout: bool = False) -> torch.Tensor:
+    if grid_layout:
+        planes_u8 = from_grid(planes_u8, b)
     ct = _dct_inv(_dequantize(planes_u8, qss, offset), b)
     pix = _color(ct, m) + offset
     return torch.clamp(torch.round(pix).to(torch.int32), 0, 255
@@ -168,9 +231,10 @@ def fused_dequantize_cdct_ref(planes_u8: torch.Tensor, m, b: int = 8,
 # ---------------------------------------------------------------------------
 
 def _launch(entry: str, x: torch.Tensor, out: torch.Tensor, b: int,
-            step: float, offset: int, perceptual: bool, m) -> None:
+            step: float, offset: int, perceptual: bool, m, cw: int) -> None:
     """Call one C entry of csrc/dct.cu; x and the fresh `out` are
-    (C, H, W) or (N, C, H, W)."""
+    (C, H, W) or (N, C, H, W); cw is 0 (block layout) or the grid
+    layout's chunk width."""
     lib = _build.load()
     x = x.contiguous()
     n = x.shape[0] if x.dim() == 4 else 1
@@ -186,79 +250,109 @@ def _launch(entry: str, x: torch.Tensor, out: torch.Tensor, b: int,
         rc = getattr(lib, entry)(
             x.data_ptr(), out.data_ptr(), dmat.data_ptr(),
             None if scale is None else scale.data_ptr(), mat,
-            n, c, h, w, b, step, offset, _build.stream_of(x))
+            n, c, h, w, b, step, offset, cw, _build.stream_of(x))
     _build.check(rc, entry)
 
 
+def _run(fn, entry: str, x: torch.Tensor, out_dtype, b: int, step: float,
+         offset: int, perceptual: bool, m, grid_layout: bool) -> torch.Tensor:
+    """Launch one kernel for the CUDA tensor x and count it on `fn`."""
+    cw = _grid_cw(x, b, fn.__name__) if grid_layout else 0
+    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    _launch(entry, x, out, b, step, offset, perceptual, m, cw)
+    fn.launches += 1
+    fn.grid_launches += bool(grid_layout)
+    return out
+
+
 def fused_dct_quantize(planes: torch.Tensor, b: int = 8, qss: int = 32,
-                       offset: int = 128,
-                       perceptual: bool = False) -> torch.Tensor:
+                       offset: int = 128, perceptual: bool = False,
+                       grid_layout: bool = False) -> torch.Tensor:
     """(C, H, W) or (N, C, H, W) float32 -> uint8 quantization indexes,
-    block layout (subband reordering stays outside).  perceptual=True
+    block layout (subband reordering stays outside) or, with
+    grid_layout, the subband-grid tile layout.  perceptual=True
     multiplies the coefficients by the JPEG tables before the quantizer
     (luma for channel 0, chroma for the others)."""
     _check(planes, torch.float32, b, "fused_dct_quantize")
     if _build.runs_plain(planes):
-        return fused_dct_quantize_ref(planes, b, qss, offset, perceptual)
-    out = torch.empty(planes.shape, dtype=torch.uint8, device=planes.device)
-    _launch("vcf_dct_forward", planes, out, b, _recip(qss), offset,
-            perceptual, None)
-    fused_dct_quantize.launches += 1
-    return out
+        return fused_dct_quantize_ref(planes, b, qss, offset, perceptual,
+                                      grid_layout)
+    return _run(fused_dct_quantize, "vcf_dct_forward", planes, torch.uint8,
+                b, _recip(qss), offset, perceptual, None, grid_layout)
 
 
 def fused_dequantize_idct(planes_u8: torch.Tensor, b: int = 8, qss: int = 32,
-                          offset: int = 128,
-                          perceptual: bool = False) -> torch.Tensor:
-    """(C, H, W) or (N, C, H, W) uint8 indexes -> float32 planes (color
-    inverse and +offset stay outside).  perceptual=True divides the
-    dequantized coefficients by the JPEG tables."""
+                          offset: int = 128, perceptual: bool = False,
+                          grid_layout: bool = False) -> torch.Tensor:
+    """(C, H, W) or (N, C, H, W) uint8 indexes (in the grid layout with
+    grid_layout) -> float32 planes (color inverse and +offset stay
+    outside).  perceptual=True divides the dequantized coefficients by
+    the JPEG tables."""
     _check(planes_u8, torch.uint8, b, "fused_dequantize_idct")
     if _build.runs_plain(planes_u8):
         return fused_dequantize_idct_ref(planes_u8, b, qss, offset,
-                                         perceptual)
-    out = torch.empty(planes_u8.shape, dtype=torch.float32,
-                      device=planes_u8.device)
-    _launch("vcf_dct_inverse", planes_u8, out, b, float(qss), offset,
-            perceptual, None)
-    fused_dequantize_idct.launches += 1
-    return out
+                                         perceptual, grid_layout)
+    return _run(fused_dequantize_idct, "vcf_dct_inverse", planes_u8,
+                torch.float32, b, float(qss), offset, perceptual, None,
+                grid_layout)
 
 
 def fused_cdct_quantize(planes: torch.Tensor, m, b: int = 8, qss: int = 32,
-                        offset: int = 128) -> torch.Tensor:
+                        offset: int = 128,
+                        grid_layout: bool = False) -> torch.Tensor:
     """(3, H, W) or (N, 3, H, W) uint8 pixels -> uint8 quantization
-    indexes with the color forward fused in; `m` is the 3x3 forward
-    matrix (`static_mat`)."""
+    indexes (block or grid layout) with the color forward fused in; `m`
+    is the 3x3 forward matrix (`static_mat`)."""
     _check(planes, torch.uint8, b, "fused_cdct_quantize", channels=3)
     if _build.runs_plain(planes):
-        return fused_cdct_quantize_ref(planes, m, b, qss, offset)
-    out = torch.empty(planes.shape, dtype=torch.uint8, device=planes.device)
-    _launch("vcf_dct_forward", planes, out, b, _recip(qss), offset, False, m)
-    fused_cdct_quantize.launches += 1
-    return out
+        return fused_cdct_quantize_ref(planes, m, b, qss, offset, grid_layout)
+    return _run(fused_cdct_quantize, "vcf_dct_forward", planes, torch.uint8,
+                b, _recip(qss), offset, False, m, grid_layout)
 
 
 def fused_dequantize_cdct(planes_u8: torch.Tensor, m, b: int = 8,
-                          qss: int = 32, offset: int = 128) -> torch.Tensor:
-    """(3, H, W) or (N, 3, H, W) uint8 indexes -> uint8 pixels with the
-    color inverse and round/clip fused in; `m` is the 3x3 INVERSE
-    matrix (`static_mat`)."""
+                          qss: int = 32, offset: int = 128,
+                          grid_layout: bool = False) -> torch.Tensor:
+    """(3, H, W) or (N, 3, H, W) uint8 indexes (block or grid layout) ->
+    uint8 pixels with the color inverse and round/clip fused in; `m` is
+    the 3x3 INVERSE matrix (`static_mat`)."""
     _check(planes_u8, torch.uint8, b, "fused_dequantize_cdct", channels=3)
     if _build.runs_plain(planes_u8):
-        return fused_dequantize_cdct_ref(planes_u8, m, b, qss, offset)
-    out = torch.empty(planes_u8.shape, dtype=torch.uint8,
-                      device=planes_u8.device)
-    _launch("vcf_dct_inverse", planes_u8, out, b, float(qss), offset,
-            False, m)
-    fused_dequantize_cdct.launches += 1
-    return out
+        return fused_dequantize_cdct_ref(planes_u8, m, b, qss, offset,
+                                         grid_layout)
+    return _run(fused_dequantize_cdct, "vcf_dct_inverse", planes_u8,
+                torch.uint8, b, float(qss), offset, False, m, grid_layout)
 
 
 for _fn in (fused_dct_quantize, fused_dequantize_idct, fused_cdct_quantize,
             fused_dequantize_cdct):
     _fn.launches = 0
+    _fn.grid_launches = 0
 
-# vcf_tpu's pad-and-crop names: the kernels take any block-multiple shape
-fused_dct_quantize_any = fused_dct_quantize
-fused_dequantize_idct_any = fused_dequantize_idct
+
+def _any_check(x: torch.Tensor, grid_layout: bool, what: str) -> None:
+    """vcf_tpu's `_any` wrappers pad to 32-row / 128-column tiles and
+    refuse grid_layout where they would pad."""
+    h, w = x.shape[-2:]
+    if grid_layout and (h % ROWS or w % 128):
+        raise ValueError(f"{what}: grid_layout requires kernel-native "
+                         f"shapes, got {h}x{w}")
+
+
+def fused_dct_quantize_any(planes: torch.Tensor, b: int = 8, qss: int = 32,
+                           offset: int = 128, perceptual: bool = False,
+                           grid_layout: bool = False) -> torch.Tensor:
+    """vcf_tpu's pad-and-crop name: the kernel takes any block-multiple
+    shape, so this is `fused_dct_quantize` (grid_layout as vcf_tpu's)."""
+    _any_check(planes, grid_layout, "fused_dct_quantize_any")
+    return fused_dct_quantize(planes, b, qss, offset, perceptual, grid_layout)
+
+
+def fused_dequantize_idct_any(planes_u8: torch.Tensor, b: int = 8,
+                              qss: int = 32, offset: int = 128,
+                              perceptual: bool = False,
+                              grid_layout: bool = False) -> torch.Tensor:
+    """`fused_dequantize_idct` under vcf_tpu's pad-and-crop name."""
+    _any_check(planes_u8, grid_layout, "fused_dequantize_idct_any")
+    return fused_dequantize_idct(planes_u8, b, qss, offset, perceptual,
+                                 grid_layout)

@@ -9,8 +9,11 @@ K2 `rans_compact` unchanged.  It is the context mode of K1's kernel.
 `rans_decode_ctx` replaces `pallas_decode_ctx` and its pre-pass
 `build_windows`: the wire words -> (S, L) u8, K3's contract and error
 codes, the class taken from the symbol the lane decoded one step before.
-It is the context mode of K3's kernel.  Design notes and bounds are in
-csrc/rans_encode.cu and csrc/rans_decode.cu.
+It is the context mode of K3's kernel.  `rans_decode_ctx_grid` replaces
+`pallas_decode_ctx_grid`: the routing-free decode straight from the
+encoder's raw (L, S) grid (as `rans_decode_grouped_grid`), the class
+carried per lane.  Design notes and bounds are in csrc/rans_encode.cu,
+csrc/rans_decode.cu and csrc/rans_grid.cu.
 
 The class of a previous symbol p is #{b in CTX_BOUNDS[n_ctx] : |p - 128|
 >= b}; the first symbol of a lane takes the class of 128, which is 0.
@@ -30,7 +33,8 @@ import numpy as np
 import torch
 
 from vcf_tpu_torch.ops.cuda import _build
-from vcf_tpu_torch.ops.cuda.rans_decode import _ERRORS, decode_steps_ref
+from vcf_tpu_torch.ops.cuda.rans_decode import (
+    _ERRORS, check_grid, decode_steps_ref, grid_steps_ref, launch_grid)
 from vcf_tpu_torch.ops.cuda.rans_encode import (
     K_PROB, _require, _require_cuda, encode_steps_ref, i32_as_u32,
     pack_tables, u32_as_i32)
@@ -149,10 +153,17 @@ def rans_decode_ctx_ref(words: torch.Tensor, states: torch.Tensor,
     found by ONE searchsorted over the flattened (G * n_ctx * 256)
     cumulative table, row r offset by r * 2^15 so that it is sorted
     (O(S log(G * n_ctx * 256)) a step).  Returns syms (S, L) uint8."""
-    dev = words.device
+    resolve = _ctx_resolver(freqs_gc, cums_gc, states.shape[0], words.device)
+    return decode_steps_ref(words, states, l, counts, resolve)
+
+
+def _ctx_resolver(freqs_gc, cums_gc, s_streams: int, dev):
+    """The plain context decodes' `resolve(slot)`: every lane's (symbol,
+    f, cum) at the next step, the class taken from the symbol it resolved
+    one call before (128, class 0, at the first call)."""
     f, c = _check_tables(freqs_gc, cums_gc)
     g, n_ctx = f.shape[:2]
-    grp = _groups(states.shape[0], g, dev)
+    grp = _groups(s_streams, g, dev)
     lut = torch.from_numpy(class_lut(n_ctx).astype(np.int64)).to(dev)
     f_flat = f.to(dev).reshape(-1)
     rows = torch.arange(g * n_ctx, device=dev)
@@ -168,7 +179,7 @@ def rans_decode_ctx_ref(words: torch.Tensor, states: torch.Tensor,
         prev = idx - (row << 8)
         return prev, f_flat[idx], c_flat[idx]
 
-    return decode_steps_ref(words, states, l, counts, resolve)
+    return resolve
 
 
 def cum_rows(f: torch.Tensor, c: torch.Tensor, device) -> torch.Tensor:
@@ -239,3 +250,38 @@ def rans_decode_ctx(words: torch.Tensor, states: torch.Tensor,
 
 
 rans_decode_ctx.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The routing-free grid decode, context mode
+# ---------------------------------------------------------------------------
+
+def rans_decode_ctx_grid_ref(raw: torch.Tensor, states: torch.Tensor,
+                             freqs_gc, cums_gc, l: int) -> torch.Tensor:
+    """Plain torch context grid decode: `rans_decode_ctx_ref`'s resolve
+    and the grid's words, no routing.  Returns syms (L, S) uint8."""
+    resolve = _ctx_resolver(freqs_gc, cums_gc, states.shape[0], raw.device)
+    return grid_steps_ref(raw, states, l, resolve)
+
+
+def rans_decode_ctx_grid(raw: torch.Tensor, states: torch.Tensor,
+                         freqs_gc, cums_gc, l: int) -> torch.Tensor:
+    """raw (L, S) int32 grid from the context encode ((emit << 16) |
+    low16 per decode step); states (S,) int64 in [0, 2^32);
+    freqs_gc/cums_gc (G, n_ctx, 256).  Returns syms (S, L) uint8 (a
+    transposed view of the (L, S) output)."""
+    f, c = _check_tables(freqs_gc, cums_gc)
+    g, n_ctx = f.shape[:2]
+    check_grid(raw, states, l, g)
+    if raw.device.type == "cpu":
+        return rans_decode_ctx_grid_ref(raw, states, f, c, l).t()
+    _require_cuda(raw)
+    dev = raw.device
+    lut = torch.from_numpy(class_lut(n_ctx)).to(dev)
+    out = launch_grid("vcf_rans_decode_ctx_grid", raw, states,
+                      (cum_rows(f, c, dev), lut), l, g, n_ctx)
+    rans_decode_ctx_grid.launches += 1
+    return out.t()
+
+
+rans_decode_ctx_grid.launches = 0

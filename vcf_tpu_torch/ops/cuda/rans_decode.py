@@ -6,10 +6,18 @@ carries the stream pointer itself, so it needs no windows and no counts.
 When the per-step counts of a v2 sidecar are given they are checked at
 every step.  A stream that does not decode cleanly (count mismatch, read
 past the end, words left over) raises ValueError, never returns garbage.
-Design notes and bounds are in csrc/rans_decode.cu.
+It returns a transposed view of the kernel's (L, S) output, so the
+caller's `.t()` is vcf_tpu's `lmajor` output at no cost.  Design notes
+and bounds are in csrc/rans_decode.cu.
 
-The wrapper runs the plain torch version for a CPU tensor and launches
-the CUDA kernel for a CUDA tensor; `launches` counts kernel launches.
+`rans_decode_grouped_grid` replaces `pallas_decode_grouped_grid`: the
+routing-free decode straight from K1's raw (L, S) grid, whose emit flags
+are the decoder's renormalization flags lane for lane.  A grid whose
+flags disagree with the decode, or whose states do not end at RANS_L,
+raises ValueError.  Design notes and bounds are in csrc/rans_grid.cu.
+
+Each wrapper runs the plain torch version for a CPU tensor and launches
+its CUDA kernel for a CUDA tensor; `launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -33,8 +41,13 @@ def rans_decode_grouped_ref(words: torch.Tensor, states: torch.Tensor,
                             ) -> torch.Tensor:
     """Plain torch K3: an int64 loop over steps with a torch.cumsum
     rank.  Returns syms (S, L) uint8."""
-    dev = words.device
-    s_streams = states.shape[0]
+    resolve = _resolver(freqs_g, cums_g, states.shape[0], words.device)
+    return decode_steps_ref(words, states, l, counts, resolve)
+
+
+def _resolver(freqs_g, cums_g, s_streams: int, dev):
+    """Order 0's `resolve(slot)` for the plain decodes: every lane's
+    (symbol, f, cum) by one searchsorted over its group's cums."""
     f_tab = torch.as_tensor(freqs_g).to(dev, torch.int64)
     c_tab = torch.as_tensor(cums_g).to(dev, torch.int64)
     g = f_tab.shape[0]
@@ -46,7 +59,7 @@ def rans_decode_grouped_ref(words: torch.Tensor, states: torch.Tensor,
                                ).view(s_streams) - 1
         return v, f_tab[grp, v], c_tab[grp, v]
 
-    return decode_steps_ref(words, states, l, counts, resolve)
+    return resolve
 
 
 def decode_steps_ref(words: torch.Tensor, states: torch.Tensor, l: int,
@@ -92,8 +105,8 @@ def rans_decode_grouped(words: torch.Tensor, states: torch.Tensor,
                         ) -> torch.Tensor:
     """words (n_words,) uint16 wire stream; states (S,) int64 in
     [0, 2^32); freqs_g/cums_g (G, 256); counts (L,) per-step word counts
-    or None.  Returns syms (S, L) uint8 (a transposed view of the kernel's
-    (L, S) output)."""
+    or None.  Returns syms (S, L) uint8, a transposed view of the kernel's
+    (L, S) output."""
     _require(words.dim() == 1 and words.dtype == torch.uint16,
              f"words must be 1-D uint16, got {words.dtype}")
     _require(states.dim() == 1, "states must be (S,)")
@@ -135,3 +148,101 @@ def rans_decode_grouped(words: torch.Tensor, states: torch.Tensor,
 
 
 rans_decode_grouped.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The routing-free grid decode
+# ---------------------------------------------------------------------------
+
+_GRID_ERROR = ("rans grid decode: the raw grid's emit flags differ from the "
+               "decode's renormalizations, or a state does not end at RANS_L")
+
+
+def grid_steps_ref(raw: torch.Tensor, states: torch.Tensor, l: int,
+                   resolve) -> torch.Tensor:
+    """The step loop of both grid decodes' plain versions: `resolve(slot)`
+    gives every lane's (symbol, f, cum) at the current step (called once
+    per step, in step order); lane s renormalizes with raw[t, s] & 0xFFFF.
+    Returns syms (L, S) uint8; raises ValueError as the kernel does."""
+    dev = raw.device
+    x = states.to(dev, torch.int64).clone()
+    out = torch.empty((l, x.numel()), dtype=torch.uint8, device=dev)
+    bad = torch.zeros((), dtype=torch.bool, device=dev)
+    for t in range(l):
+        slot = x & MASK
+        v, f, cum = resolve(slot)
+        x = f * (x >> K_PROB) + slot - cum
+        word = raw[t].to(torch.int64)
+        renorm = x < RANS_L
+        bad |= (renorm != ((word >> 16) != 0)).any()
+        x = torch.where(renorm, (x << 16) | (word & 0xFFFF), x)
+        out[t] = v.to(torch.uint8)
+    if bool(bad | (x != RANS_L).any()):
+        raise ValueError(_GRID_ERROR)
+    return out
+
+
+def check_grid(raw: torch.Tensor, states: torch.Tensor, l: int, g: int
+               ) -> None:
+    """Raise unless raw is the (l, S) int32 grid of S = states.numel()
+    lanes on the device of states, and the lanes split into g groups."""
+    _require(raw.dim() == 2 and raw.dtype == torch.int32,
+             f"raw grid must be (L, S) int32, got {raw.dtype} "
+             f"{tuple(raw.shape)}")
+    _require(states.dim() == 1 and raw.shape == (l, states.shape[0]),
+             f"raw grid {tuple(raw.shape)} is not ({l}, S) for "
+             f"{states.shape[0]} states")
+    _require(g >= 1 and states.shape[0] % g == 0,
+             f"{states.shape[0]} lanes do not split into {g} groups")
+    _require(states.device == raw.device, "raw and states on two devices")
+
+
+def launch_grid(entry: str, raw: torch.Tensor, states: torch.Tensor,
+                tables: tuple, l: int, g: int, *extra) -> torch.Tensor:
+    """Launch one C entry of csrc/rans_grid.cu; returns its (L, S) u8
+    output, raising ValueError if it flagged the grid."""
+    dev = raw.device
+    lib = _build.load()
+    raw = raw.contiguous()
+    st32 = u32_as_i32(states.to(torch.int64)).contiguous()
+    s_streams = st32.numel()
+    out = torch.empty((l, s_streams), dtype=torch.uint8, device=dev)
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = getattr(lib, entry)(
+            raw.data_ptr(), st32.data_ptr(), *[t.data_ptr() for t in tables],
+            out.data_ptr(), err.data_ptr(), s_streams, l, g, *extra,
+            _build.stream_of(raw))
+    _build.check(rc, entry)
+    if int(err[0]):
+        raise ValueError(_GRID_ERROR)
+    return out
+
+
+def rans_decode_grouped_grid_ref(raw: torch.Tensor, states: torch.Tensor,
+                                 freqs_g, cums_g, l: int) -> torch.Tensor:
+    """Plain torch grid decode: K3's resolve, no routing.  Returns syms
+    (L, S) uint8."""
+    resolve = _resolver(freqs_g, cums_g, states.shape[0], raw.device)
+    return grid_steps_ref(raw, states, l, resolve)
+
+
+def rans_decode_grouped_grid(raw: torch.Tensor, states: torch.Tensor,
+                             freqs_g, cums_g, l: int) -> torch.Tensor:
+    """raw (L, S) int32 grid from K1 ((emit << 16) | low16 per decode
+    step); states (S,) int64 in [0, 2^32); freqs_g/cums_g (G, 256).
+    Returns syms (S, L) uint8, a transposed view of the (L, S) output
+    (its `.t()` is vcf_tpu's `lmajor` output, at no cost)."""
+    g = torch.as_tensor(freqs_g).shape[0]
+    check_grid(raw, states, l, g)
+    if raw.device.type == "cpu":
+        out = rans_decode_grouped_grid_ref(raw, states, freqs_g, cums_g, l)
+    else:
+        _require_cuda(raw)
+        tab = pack_tables(freqs_g, cums_g, raw.device)
+        out = launch_grid("vcf_rans_decode_grid", raw, states, (tab,), l, g)
+        rans_decode_grouped_grid.launches += 1
+    return out.t()
+
+
+rans_decode_grouped_grid.launches = 0

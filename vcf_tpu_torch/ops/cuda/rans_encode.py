@@ -3,10 +3,17 @@ vcf_tpu/ops/pallas/rans_encode.py).
 
 K1 `rans_encode_grouped` replaces `pallas_encode_grouped_raw`: syms (S, L)
 u8 with lane s using table s // (S // G) -> the raw grid (L, S) int32 of
-(emit << 16) | low16 in decode-step order, and the final states.
+(emit << 16) | low16 in decode-step order, and the final states.  The
+kernel reads (L, S), so the transposed view `lanes.t()` of the (L, S)
+lanes of `entropy.rans.grid_lanes_lmajor` reaches it with no copy: that
+is `pallas_encode_grouped_raw_u8` (either layout).
 K2 `rans_compact` replaces `finish_stream_pallas`: the raw grid -> the
 wire words in (t asc, s asc) order, their count and the per-step counts.
-Design notes and bounds are in csrc/rans_encode.cu.
+K2's row mode `rans_compact_rows` packs each row of the raw grid on its
+own: `rans_encode_rows` (K1 then the row mode) replaces the compacting
+encodes `pallas_encode_grouped` and `pallas_encode_grouped_u8`, and
+`assemble_stream` (torch ops, as it was XLA in vcf_tpu) joins the rows
+into the wire words.  Design notes and bounds are in csrc/rans_encode.cu.
 
 Each wrapper runs the plain torch version for a CPU tensor and launches
 its CUDA kernel for a CUDA tensor; nothing else.  `launches` counts the
@@ -73,13 +80,13 @@ def rans_encode_grouped_ref(syms: torch.Tensor, freqs_g: torch.Tensor,
     """Plain torch K1: an int64 loop over steps, vectorized over lanes.
     Same state law as np_encode_grouped; returns (raw (L, S) int32,
     states (S,) int64)."""
-    s_streams = syms.shape[0]
+    sym_l = syms.t().to(torch.int64)   # (L, S)
+    s_streams = sym_l.shape[1]
     dev = syms.device
     g = freqs_g.shape[0]
     grp = torch.arange(s_streams, device=dev) // (s_streams // g)
     f_tab = torch.as_tensor(freqs_g).to(dev, torch.int64)
     c_tab = torch.as_tensor(cums_g).to(dev, torch.int64)
-    sym_l = syms.t().to(torch.int64)                         # (L, S)
     return encode_steps_ref(f_tab[grp[None, :], sym_l],
                             c_tab[grp[None, :], sym_l])
 
@@ -104,11 +111,13 @@ def encode_steps_ref(f_all: torch.Tensor, c_all: torch.Tensor
 
 def rans_encode_grouped(syms: torch.Tensor, freqs_g, cums_g
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """syms (S, L) uint8, lane s on table s // (S // G); freqs_g/cums_g
+    """syms (S, L) uint8 (the transposed view of (L, S) lanes is read
+    with no copy), lane s on table s // (S // G); freqs_g/cums_g
     (G, 256).  Returns (raw (L, S) int32 with (emit << 16) | low16 per
     decode step, final states (S,) int64 in [0, 2^32))."""
     _require(syms.dim() == 2 and syms.dtype == torch.uint8,
-             f"syms must be (S, L) uint8, got {syms.dtype} {tuple(syms.shape)}")
+             f"syms must be (S, L) uint8, got {syms.dtype} "
+             f"{tuple(syms.shape)}")
     g = torch.as_tensor(freqs_g).shape[0]
     s_streams, l = syms.shape
     _require(g >= 1 and s_streams % g == 0,
@@ -118,7 +127,8 @@ def rans_encode_grouped(syms: torch.Tensor, freqs_g, cums_g
     _require_cuda(syms)
     lib = _build.load()
     tab = pack_tables(freqs_g, cums_g, syms.device)
-    sym_l = syms.t().contiguous()          # (L, S): coalesced per-step reads
+    # (L, S): coalesced per-step reads
+    sym_l = syms.t().contiguous()
     raw = torch.empty((l, s_streams), dtype=torch.int32, device=syms.device)
     states = torch.empty(s_streams, dtype=torch.int32, device=syms.device)
     with torch.cuda.device(syms.device):
@@ -185,3 +195,92 @@ def rans_compact(raw: torch.Tensor
 
 
 rans_compact.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2's row mode: each decode step's words as a prefix of its own row
+# ---------------------------------------------------------------------------
+
+def _as_i16(v: torch.Tensor) -> torch.Tensor:
+    """16-bit values held in a wider int -> the same bits as int16."""
+    return torch.where(v >= 1 << 15, v - (1 << 16), v).to(torch.int16)
+
+
+def rans_compact_rows_ref(raw: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch row mode: a stable per-row rank of the flagged words
+    (cumsum along the row), one scatter."""
+    l, s_streams = raw.shape
+    flags = (raw >> 16) != 0
+    rank = torch.cumsum(flags, dim=1) - 1
+    dest = (torch.arange(l, device=raw.device)[:, None] * s_streams + rank)
+    rows = torch.zeros(l * s_streams, dtype=torch.int16, device=raw.device)
+    rows[dest[flags]] = _as_i16((raw & 0xFFFF)[flags])
+    return rows.view(l, s_streams), flags.sum(dim=1, dtype=torch.int32)
+
+
+def rans_compact_rows(raw: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """raw (L, S) int32 grid from K1 -> (rows (L, S) int16: row t holds
+    the low16 words of the lanes that emit at decode step t, in lane
+    order, as a prefix, the rest of the row unspecified (as in vcf_tpu's
+    kernels; the plain version zeroes it); counts (L,) int32 prefix
+    lengths)."""
+    _require(raw.dim() == 2 and raw.dtype == torch.int32,
+             f"raw grid must be (L, S) int32, got {raw.dtype} "
+             f"{tuple(raw.shape)}")
+    if raw.device.type == "cpu":
+        return rans_compact_rows_ref(raw)
+    _require_cuda(raw)
+    raw = raw.contiguous()
+    l, s_streams = raw.shape
+    _require(l > 0 and s_streams > 0, "empty raw grid")
+    lib = _build.load()
+    rows = torch.empty((l, s_streams), dtype=torch.int16, device=raw.device)
+    counts = torch.empty(l, dtype=torch.int32, device=raw.device)
+    with torch.cuda.device(raw.device):
+        rc = lib.vcf_rans_compact_rows(raw.data_ptr(), s_streams, l,
+                                       rows.data_ptr(), counts.data_ptr(),
+                                       _build.stream_of(raw))
+    _build.check(rc, "rans_compact_rows")
+    rans_compact_rows.launches += 1
+    return rows, counts
+
+
+rans_compact_rows.launches = 0
+
+
+def rans_encode_rows(syms: torch.Tensor, freqs_g, cums_g
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1 then K2's row mode: syms (S, L) uint8 -> (rows (L, S) int16
+    per-step word prefixes, counts (L,) int32, states (S,) int64), the
+    output of vcf_tpu's `pallas_encode_grouped` and
+    `pallas_encode_grouped_u8`; only each row's prefix is defined."""
+    raw, states = rans_encode_grouped(syms, freqs_g, cums_g)
+    rows, counts = rans_compact_rows(raw)
+    return rows, counts, states
+
+
+def assemble_stream(rows: torch.Tensor, counts: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(L, S) int16 prefix rows + (L,) counts -> (words (L*S,) uint16 with
+    the stream as a prefix and zeros after it, n_words 0-d int32),
+    vcf_tpu's `assemble_stream` (XLA there, torch ops here): row t's
+    prefix lands at the sum of the counts before it, one gather.  `rows`
+    may be a column slice rows[:, :cap] (then L * cap words) if no count
+    passes cap."""
+    _require(rows.dim() == 2 and rows.dtype == torch.int16,
+             f"rows must be (L, S) int16, got {rows.dtype} "
+             f"{tuple(rows.shape)}")
+    l, cap = rows.shape
+    _require(counts.shape == (l,), f"counts must be ({l},)")
+    c = counts.to(torch.int64)
+    ends = torch.cumsum(c, 0)
+    n_words, c_max = (int(v) for v in torch.stack([ends[-1], c.max()]).cpu())
+    _require(c_max <= cap, f"a step has {c_max} words, more than the "
+             f"{cap} columns of the rows")
+    pos = torch.arange(n_words, device=rows.device)
+    t = torch.searchsorted(ends, pos, right=True)
+    words = torch.zeros(l * cap, dtype=torch.int16, device=rows.device)
+    words[:n_words] = rows[t, pos - (ends[t] - c[t])]
+    return (words.view(torch.uint16),
+            torch.tensor(n_words, dtype=torch.int32, device=rows.device))

@@ -28,18 +28,25 @@ the torch route (`motion.full_search`, `motion.compensate`, `analyze` ->
 The color transforms run as `ops.color.fma_rows`, the bits of vcf_tpu's
 color dots on any device.
 
+For color "ycocg" the codec also has vcf_tpu's planar subband-grid
+closed loop (`_build_planar_gop`, vcf_tpu ipp.py:377-457):
+`_gop_encode_grid_batch(gops)` -> (index planes (G, T, 3, H, W) u8 in
+the subband-grid tile layout, mvs) and `_gop_decode_grid_batch(planes,
+mvs)` -> the reconstruction (G, T, 3, H, W) float32, over the grid
+modes of B3/B4 (`fused_cdct_quantize` / `fused_dequantize_cdct`).  The
+planes feed `entropy.rans.grid_lanes_lmajor` with plain reshapes.  For
+every other color both are None, as in vcf_tpu.  Its luma is vcf_tpu's
+planar one: the FMA chain on round(ref), with no clip and no u8 cast.
+
 Not ported here: the generic closed loop through the still `Codec`
 (vcf_tpu ipp.py:601-667, for non dct+deadzone compositions) raises,
-naming ROADMAP A10/A11; the planar subband-grid loop
-(`_build_planar_gop`, :377-457) waits for ROADMAP next 3 (the grid_layout
-modes of B3/B4), so `_gop_encode_grid_batch` and `_gop_decode_grid_batch`
-are None, as vcf_tpu sets them where that path is absent; the mesh
-(vcf_tpu's `_shard_gops`) waits for A15: the padded GOPs are stacked
-on the one device.
+naming ROADMAP A10/A11; the mesh (vcf_tpu's `_shard_gops`) waits for
+A15: the padded GOPs are stacked on the one device.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List
 
 import numpy as np
@@ -89,9 +96,15 @@ class IPPCodec:
                                          self.device)
         cname = "ycocg" if codec_config.color == "ycocg_r" else codec_config.color
         self._mats = color_ops.MATRICES.get(cname)       # None: color "none"
-        # the planar subband-grid loop is not ported (ROADMAP next 3)
-        self._gop_encode_grid_batch = None
-        self._gop_decode_grid_batch = None
+        #: the planar subband-grid loop (ycocg only: deadzone is the only
+        #: quantizer this class takes), else None as in vcf_tpu
+        self._gop_encode_grid_batch = self._gop_decode_grid_batch = None
+        if codec_config.color == "ycocg":
+            (self._gop_encode_grid_batch,
+             self._gop_decode_grid_batch) = self._build_planar_gop()
+        #: the encoder's reconstruction (G, T, 3, H, W) float32 of the last
+        #: `_gop_encode_grid_batch` call, which the grid decode reproduces
+        self.last_grid_recon = None
         #: of the last encode: the stored (n, H, W, 3) uint8 index planes
         #: (numpy), and the closed-loop reconstruction, an (n, H, W, 3)
         #: float32 tensor left on the device (no copy to the host), which
@@ -246,27 +259,25 @@ class IPPCodec:
             ks.append(k)
             recs.append(ref)
             mvs.append(mv)
-        if mvs:
-            mvs_t = torch.stack(mvs, 1)
-            modes_t = torch.stack(modes, 1) if rdo else None
-        else:                                       # gop_size 1: I frames only
-            m = self.vcfg.me_block
-            g, _, h, w, _ = gops.shape
-            mvs_t = torch.zeros((g, 0, h // m, w // m, 2), dtype=torch.int32,
-                                device=gops.device)
-            modes_t = mvs_t[..., 0].to(torch.bool) if rdo else None
+        mvs_t = self._stack_mvs(mvs, gops)           # gop_size 1: no P frame
+        modes_t = None
+        if rdo:
+            modes_t = (torch.stack(modes, 1) if modes
+                       else mvs_t[..., 0].to(torch.bool))
         return torch.stack(ks, 1), mvs_t, modes_t, torch.stack(recs, 1)
 
     def _gop_decode(self, planes: torch.Tensor, mvs: torch.Tensor,
-                    modes=None) -> torch.Tensor:
+                    modes=None, dec=None) -> torch.Tensor:
         """Block-layout planes (G, T, 3, H, W) uint8, mvs (G, T-1, nby,
         nbx, 2), modes (G, T-1, nby, nbx) or None -> (G, T, 3, H, W)
-        float32 reconstruction."""
-        ref = self._dec(planes[:, 0])
+        float32 reconstruction.  `dec` decodes one frame's planes (default
+        self._dec; the planar grid loop passes its B4 grid decode)."""
+        dec = dec or self._dec
+        ref = dec(planes[:, 0])
         recs = [ref]
         for t in range(1, planes.shape[1]):
             pred = self._compensate(ref, mvs[:, t - 1])
-            rec = self._dec(planes[:, t])
+            rec = dec(planes[:, t])
             if modes is None:
                 ref = _clip(pred + rec - 128.0)
             else:
@@ -274,6 +285,63 @@ class IPPCodec:
                                   _clip(pred + rec - 128.0), rec)
             recs.append(ref)
         return torch.stack(recs, 1)
+
+    def _build_planar_gop(self):
+        """(gop_encode_planar, gop_decode_planar): vcf_tpu's planar
+        subband-grid closed loop over a GOP batch.  Pixels stay (G, 3, H,
+        W) float32 holding integers, so the u8 cast at B3 is exact; the
+        index planes come out of B3 in the grid layout and go back into
+        B4 in it."""
+        b, qss = self.ccfg.block_size, self.ccfg.qss
+        mf = dk.static_mat(color_ops.YCOCG_FWD)
+        mi = dk.static_mat(color_ops.YCOCG_INV)
+
+        def enc_p(img):
+            return dk.fused_cdct_quantize(img.to(torch.uint8), mf, b=b,
+                                          qss=qss, offset=_OFF,
+                                          grid_layout=True)
+
+        def dec_p(k):
+            return dk.fused_dequantize_cdct(k, mi, b=b, qss=qss, offset=_OFF,
+                                            grid_layout=True).to(torch.float32)
+
+        def gop_encode_planar(gops: torch.Tensor):
+            """(G, T, H, W, 3) uint8 -> (planes (G, T, 3, H, W) uint8 in
+            the grid layout, mvs (G, T-1, nby, nbx, 2) int32)."""
+            frames = gops.permute(0, 1, 4, 2, 3).to(torch.float32)
+            k = enc_p(frames[:, 0])
+            ref = dec_p(k)
+            ks, recs, mvs = [k], [ref], []
+            for t in range(1, gops.shape[1]):
+                cur = frames[:, t]
+                # vcf_tpu's planar luma: round(ref), no clip, no u8 cast
+                ref_l = motion.to_luma(torch.round(ref), channel_axis=-3)
+                cur_l = motion.to_luma(cur, channel_axis=-3)
+                mv, _ = self._make_search(*cur_l.shape[-2:])(ref_l, cur_l)
+                pred = self._compensate(ref, mv)
+                k = enc_p(_clip(cur - pred + 128.0))
+                ref = _clip(pred + dec_p(k) - 128.0)
+                ks.append(k)
+                recs.append(ref)
+                mvs.append(mv)
+            self.last_grid_recon = torch.stack(recs, 1)
+            return torch.stack(ks, 1), self._stack_mvs(mvs, gops)
+
+        # grid-layout planes (G, T, 3, H, W) uint8 and mvs -> (G, T, 3, H,
+        # W) float32 reconstruction
+        return gop_encode_planar, functools.partial(self._gop_decode,
+                                                    dec=dec_p)
+
+    def _stack_mvs(self, mvs: List[torch.Tensor], gops: torch.Tensor
+                   ) -> torch.Tensor:
+        """The P frames' (G, nby, nbx, 2) mvs -> (G, T-1, nby, nbx, 2);
+        (G, 0, nby, nbx, 2) int32 for GOPs of one frame."""
+        if mvs:
+            return torch.stack(mvs, 1)
+        m = self.vcfg.me_block
+        g, _, h, w, _ = gops.shape
+        return torch.zeros((g, 0, h // m, w // m, 2), dtype=torch.int32,
+                           device=gops.device)
 
     # ------------------------------------------------------------------
     def encode(self, frames: np.ndarray) -> CodeStream:
