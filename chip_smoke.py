@@ -10,7 +10,10 @@ kernels from vcf_tpu_torch/csrc on first use.  Phases:
 3. rANS kernels K1-K3: each against its plain torch version on the card,
    on the index planes of 8 rolled 1088x1920 frames (S=65536 lanes,
    L=765 steps, 64 subband tables), bit-exact, with CUDA-event times of
-   both;
+   both; K2 (one pass) also against its three-kernel form's outputs
+   (masked_select's words, torch's row sum) and timed beside
+   masked_select; K3's look-back kernel (counts given) also timed as a
+   launch alone, and its one-block kernel (no counts) checked and timed;
 3b. DCT kernels B1-B4 on the same 8 frames: the color-fused pair (ycocg)
    on the pixels, B1/B2 in plain and perceptual mode on the
    ycocg-transformed planes; each against its plain version under the
@@ -43,8 +46,8 @@ kernels from vcf_tpu_torch/csrc on first use.  Phases:
    streams when none differs), with warm encode/decode times and the
    split of each into its device loop and its entropy stage;
 3d. the context modes of K1/K3 at S=65536, L=765, G=64 with 4 and 15
-   classes, bit-exact; 4d: the 8-frame cgrans clip; 4e: the 1088x1920
-   DWT frame (cgrans and grans) against the port's CPU run, and its
+   classes, bit-exact (K3 with counts and without); 4d: the 8-frame
+   cgrans clip; 4e: the 1088x1920 DWT frame (cgrans and grans) against the port's CPU run, and its
    device-resident context route (context encode -> rans_decode_ctx_grid
    -> synthesis), whose lanes equal the wire decode's;
 3e. the lane-grid modes at full size: B1-B4 in the subband-grid layout
@@ -226,6 +229,16 @@ def phase_build() -> None:
           f"({_build.library_path().name}, nvcc {' '.join(_build.NVCC_FLAGS)})")
 
 
+def clip_frames() -> tuple:
+    """(base, frames): test_image(H, W, seed=3) and the FRAMES-frame clip
+    of its rolled copies that phases 3, 3b, 4, 4b, 4d and 4f encode."""
+    from vcf_tpu_torch.io import test_image
+
+    base = test_image(H, W, seed=3)
+    return base, np.stack([np.roll(base, (7 * i, 13 * i), (0, 1))
+                           for i in range(FRAMES)])
+
+
 def index_planes(codec, frames: np.ndarray) -> torch.Tensor:
     """(N, H, W, 3) u8 frames -> stored u8 index planes on the codec's
     device, as Codec.encode computes them."""
@@ -268,6 +281,13 @@ def phase_kernels(dev, planes: torch.Tensor) -> list:
     require(n == int(n_p), f"K2 n_words {n} vs plain {int(n_p)}")
     err2 = max(max_abs_err(w_k[:n], w_p[:n]), max_abs_err(c_k, c_p))
     require(err2 == 0, f"K2 differs from its plain version by {err2}")
+    # K2 is one pass now; what its three-kernel form returned: the
+    # flagged words in order (masked_select's) and torch's row sum
+    low, flags = raw_k & 0xFFFF, raw_k >= 1 << 16
+    sel = torch.masked_select(low, flags)
+    require(torch.equal(w_k[:n].to(torch.int32), sel.to(torch.int32))
+            and torch.equal(c_k, (raw_k >> 16).sum(dim=1, dtype=torch.int32)),
+            "K2 differs from its three-kernel form's outputs")
 
     words = w_k[:n].clone()
     out_k = rd.rans_decode_grouped(words, st_k, fg, cg, l, c_k)
@@ -275,14 +295,27 @@ def phase_kernels(dev, planes: torch.Tensor) -> list:
     err3 = max_abs_err(out_k, out_p)
     require(err3 == 0, f"K3 differs from its plain version by {err3}")
     require(torch.equal(out_k, lanes), "K3 output differs from the lanes")
+    # the one-block kernel: the path of a stream without counts
+    require(torch.equal(rd.rans_decode_grouped(words, st_k, fg, cg, l), lanes),
+            "K3 without counts (one block) differs from the lanes")
     print(f"kernels: bit-exact; {n} words, "
           f"{n * 16 / lanes.numel():.4f} bits/symbol")
 
     # K2's yardstick: one torch.masked_select of the low words under the
     # emit flags, both made before the timed call
-    low, flags = raw_k & 0xFFFF, raw_k >= 1 << 16
     library_k2 = cuda_ms(lambda: torch.masked_select(low, flags), 20)
     tab = g * 256 * 4                      # the packed (G, 256) u32 table
+    packed = re_.pack_tables(fg, cg, dev)
+    k3_extra = {
+        # the look-back launch alone: tables packed before, no error read
+        "launch_ms": cuda_ms(lambda: rd.launch_decode(
+            words, st_k, packed, None, c_k, l, g, 0), 20),
+        # the dense v0 stream has no counts: the one-block kernel
+        "ms_no_counts": cuda_ms(
+            lambda: rd.rans_decode_grouped(words, st_k, fg, cg, l), 3)}
+    print(f"time rans_decode_grouped: look-back launch alone "
+          f"{k3_extra['launch_ms']:.4f} ms; one-block kernel (no counts) "
+          f"{k3_extra['ms_no_counts']:.4f} ms")
     rows = [
         ("rans_encode_grouped", "rans_encode.cu", "rans_encode.py:671", err1,
          lambda: re_.rans_encode_grouped(lanes, fg, cg),
@@ -291,16 +324,18 @@ def phase_kernels(dev, planes: torch.Tensor) -> list:
         ("rans_compact", "rans_encode.cu", "rans_encode.py:858", err2,
          lambda: re_.rans_compact(raw_k),
          lambda: re_.rans_compact_ref(raw_k), 20, 5,
-         bound(nbytes(raw_k) + 2 * n + 4), library_k2),
+         bound(nbytes(raw_k, c_k) + 2 * n + 4), library_k2),
         ("rans_decode_grouped", "rans_decode.cu", "rans_decode.py:410", err3,
          lambda: rd.rans_decode_grouped(words, st_k, fg, cg, l, c_k),
          lambda: rd.rans_decode_grouped_ref(words, st_k, fg, cg, l, c_k),
-         3, 3, bound(2 * n + 4 * s_streams + tab + 4 * l + nbytes(out_k)),
+         20, 3, bound(2 * n + 4 * s_streams + tab + 4 * l + nbytes(out_k)),
          None),
     ]
     # K1 given the transposed view of (L, S) lanes is
     # pallas_encode_grouped_raw_u8 too (timed on those lanes in phase 3e)
-    also = {"rans_encode_grouped": "vcf_tpu/ops/pallas/rans_encode.py:773"}
+    extras = {"rans_encode_grouped": {
+        "also_replaces": "vcf_tpu/ops/pallas/rans_encode.py:773"},
+        "rans_decode_grouped": k3_extra}
     results = []
     for name, src, rep, err, kern, plain, reps_k, reps_p, bnd, lib in rows:
         ms = cuda_ms(kern, reps_k)
@@ -308,9 +343,8 @@ def phase_kernels(dev, planes: torch.Tensor) -> list:
         print(f"time {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} "
               f"ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})"
               + (f", torch.masked_select {lib:.4f} ms" if lib else ""))
-        extra = {"also_replaces": also[name]} if name in also else {}
         results.append(kernel_row(name, src, rep, err, ms, plain_ms, bnd, lib,
-                                  diff_share=0.0, **extra))
+                                  diff_share=0.0, **extras.get(name, {})))
     return results
 
 
@@ -755,6 +789,7 @@ def phase_ctx_kernels(dev, planes: torch.Tensor) -> tuple:
     """3d: the context modes of K1 and K3 at the clip's timing shape."""
     from vcf_tpu_torch.entropy import rans
     from vcf_tpu_torch.ops.cuda import rans_ctx as rc
+    from vcf_tpu_torch.ops.cuda import rans_decode as rd
     from vcf_tpu_torch.ops.cuda import rans_encode as re_
 
     g = 64
@@ -790,13 +825,20 @@ def phase_ctx_kernels(dev, planes: torch.Tensor) -> tuple:
         require(torch.equal(out_k, lanes),
                 f"rans_decode_ctx ({n_ctx} classes) output differs from the "
                 "lanes")
-        mode = rc.decode_table_mode(g, n_ctx)
+        mode = rc.decode_table_mode(s_streams, g, n_ctx)
+        rows_c = rc.cum_rows(fg, cg, dev)
+        lut = torch.from_numpy(rc.class_lut(n_ctx)).to(dev)
+        require(torch.equal(rc.rans_decode_ctx(words, st_k, fg, cg, l), lanes),
+                f"rans_decode_ctx ({n_ctx} classes) without counts (one "
+                "block) differs from the lanes")
         times = {
             "ms": cuda_ms(lambda: rc.rans_encode_ctx(lanes, fg, cg), 20),
             "plain_ms": cuda_ms(lambda: rc.rans_encode_ctx_ref(lanes, fg, cg),
                                 3),
             "dec_ms": cuda_ms(lambda: rc.rans_decode_ctx(words, st_k, fg, cg,
-                                                         l, c_k), 3),
+                                                         l, c_k), 20),
+            "dec_launch_ms": cuda_ms(lambda: rd.launch_decode(
+                words, st_k, rows_c, lut, c_k, l, g, n_ctx), 20),
             "dec_plain_ms": cuda_ms(lambda: rc.rans_decode_ctx_ref(
                 words, st_k, fg, cg, l, c_k), 2)}
         g_tab = g * n_ctx * 256
@@ -813,7 +855,8 @@ def phase_ctx_kernels(dev, planes: torch.Tensor) -> tuple:
               f"{times['ms']:.4f} ms, plain torch {times['plain_ms']:.4f} ms")
         print(f"time rans_decode_ctx ({n_ctx} classes, {mode} tables): kernel "
               f"{times['dec_ms']:.4f} ms, plain torch "
-              f"{times['dec_plain_ms']:.4f} ms")
+              f"{times['dec_plain_ms']:.4f} ms; look-back launch alone "
+              f"{times['dec_launch_ms']:.4f} ms")
     rows = []
     for name, src, rep, also, key, err_i in (
             ("rans_encode_ctx", "rans_encode.cu", "rans_ctx.py:256",
@@ -828,6 +871,8 @@ def phase_ctx_kernels(dev, planes: torch.Tensor) -> tuple:
             extra["also_replaces"] = f"vcf_tpu/ops/pallas/{also}"
         else:
             extra["table_mode"] = {"4": out[4][2], "15": out[15][2]}
+            extra["launch_ms"] = t4["dec_launch_ms"]
+            extra["launch_ms_15_classes"] = t15["dec_launch_ms"]
         rows.append(kernel_row(
             name, src, rep, max(out[c][err_i] for c in (4, 15)),
             t4[key + "ms"], t4[key + "plain_ms"], t4[key + "bound"],
@@ -1472,11 +1517,8 @@ def main() -> None:
     dev = phase_device()
     phase_build()
     from vcf_tpu_torch import Codec, CodecConfig
-    from vcf_tpu_torch.io import test_image
 
-    base = test_image(H, W, seed=3)
-    frames = np.stack([np.roll(base, (7 * i, 13 * i), (0, 1))
-                       for i in range(FRAMES)])
+    base, frames = clip_frames()
     planes = index_planes(Codec(CodecConfig(entropy="grans"), device=dev),
                           frames)
     results = phase_kernels(dev, planes)

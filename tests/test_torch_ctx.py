@@ -188,6 +188,21 @@ def test_decode_rejects_corrupt_stream():
                             _t(cgc), l)
 
 
+@pytest.mark.parametrize("step", [0, 5, 11])
+def test_decode_names_first_bad_step(step):
+    """The context decode raises at the first step whose total differs
+    from the counts sidecar, as the kernels report it."""
+    g, sg, l, n_ctx = 4, 8, 12, 15
+    syms, fgc, cgc = _case(g, sg, l, n_ctx, seed=4)
+    _, states, words, counts = _encode(syms, fgc, cgc)
+    bad = counts.clone()
+    bad[step] += 1
+    bad[-1] -= 1 if step < l - 1 else 0
+    with pytest.raises(ValueError,
+                       match=rf"counts sidecar \(step {step}\)$"):
+        trc.rans_decode_ctx(words, states, _t(fgc), _t(cgc), l, bad)
+
+
 def test_tables_are_validated():
     syms, fgc, cgc = _case(4, 8, 12, 4)
     s = torch.from_numpy(syms)

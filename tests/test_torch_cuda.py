@@ -11,7 +11,8 @@ also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: K1-K3 and their context modes bit-exact against their plain
-versions; the DWT's subbands equal the CPU's (the float32 FMA chain is
+versions (K3 with counts runs its look-back kernel, without counts its
+one-block kernel; a corrupt stream raises the plain version's error); the DWT's subbands equal the CPU's (the float32 FMA chain is
 evaluated exactly on both); B1/B3
 indexes and the codecs' indexes follow the +-1 rule (a float32 sum taken
 in another order moves an index by at most 1, on at most 0.01% of
@@ -99,6 +100,102 @@ def test_kernel_decode_rejects_corrupt_stream(dev):
         rd.rans_decode_grouped(words, st, ft, ct, 8, bad)
     with pytest.raises(ValueError, match="ends before"):
         rd.rans_decode_grouped(words[:-1].clone(), st, ft, ct, 8)
+
+
+# (G, sg, L) for K3's look-back kernel and K2's one pass: S not a
+# multiple of 128 (1100, 600) nor of K2's 4096-entry tile (tiles cross
+# rows: 15000, 1100), sg < 128 (a block spans many groups), sg = 1024,
+# L = 1, and S = 65536
+LOOKBACK_CASES = [(1, 1100, 5), (3, 5000, 4), (64, 8, 8), (2, 1024, 12),
+                  (2, 300, 1), (64, 1024, 3)]
+
+
+def _tables(dev, fg, cg):
+    return (torch.from_numpy(fg.astype(np.int64)).to(dev),
+            torch.from_numpy(cg.astype(np.int64)).to(dev))
+
+
+@pytest.mark.parametrize("g,sg,l", LOOKBACK_CASES)
+def test_lookback_decode_and_one_pass_compact(dev, g, sg, l):
+    syms, fg, cg = _case(g, sg, l, seed=g * sg + l)
+    s = torch.from_numpy(syms).to(dev)
+    ft, ct = _tables(dev, fg, cg)
+    raw, st = re_.rans_encode_grouped(s, ft, ct)
+    before = re_.rans_compact.launches
+    words, n_words, counts = re_.rans_compact(raw)
+    assert re_.rans_compact.launches == before + 1
+    words_p, n_p, counts_p = re_.rans_compact_ref(raw)
+    n = int(n_words)
+    assert n == int(n_p) and torch.equal(counts, counts_p)
+    assert torch.equal(words[:n], words_p[:n])
+    words = words[:n].clone()
+    tab = re_.pack_tables(ft, ct, dev)
+    out, err = rd.launch_decode(words, st, tab, None, counts, l, g, 0)
+    assert err.tolist() == [0, 0] and torch.equal(out.t(), s)
+    # counts=None: the one-block kernel
+    out1, err1 = rd.launch_decode(words, st, tab, None, None, l, g, 0)
+    assert err1.tolist() == [0, 0] and torch.equal(out1, out)
+
+
+def test_compact_and_decode_steps_without_words(dev):
+    """Lanes that mostly repeat one symbol renormalize rarely: steps with
+    no word, and a grid with no flag at all (n_words = 0)."""
+    rng = np.random.default_rng(2)
+    syms = np.where(rng.random((192, 48)) < 0.03,
+                    rng.integers(0, 256, (192, 48)), 0).astype(np.uint8)
+    fg, cg = rans.freqs_from_counts(np.stack([np.bincount(
+        syms[i * 64:(i + 1) * 64].reshape(-1), minlength=256)
+        for i in range(3)]))
+    ft, ct = _tables(dev, fg, cg)
+    s = torch.from_numpy(syms).to(dev)
+    raw, st = re_.rans_encode_grouped(s, ft, ct)
+    words, n_words, counts = re_.rans_compact(raw)
+    assert bool((counts == 0).any()) and bool((counts > 0).any())
+    words = words[:int(n_words)].clone()
+    assert torch.equal(rd.rans_decode_grouped(words, st, ft, ct, 48, counts),
+                       s)
+    w0, n0, c0 = re_.rans_compact(raw & 0xFFFF)
+    assert int(n0) == 0 and not bool(c0.any())
+
+
+def _message(fn):
+    with pytest.raises(ValueError) as info:
+        fn()
+    return str(info.value)
+
+
+@pytest.mark.parametrize("n_ctx", [0, 4, 15])
+def test_lookback_decode_names_first_bad_step(dev, n_ctx):
+    """Corrupt counts at steps 0, mid and L-1 (up and down), and words cut
+    short or padded: the look-back kernel raises the plain version's
+    ValueError, naming the same first bad step, and does not hang."""
+    g, sg, l = 4, 300, 16
+    if n_ctx:
+        syms, fg, cg = _ctx_case(g, sg, l, n_ctx, seed=5)
+        encode, decode = rc.rans_encode_ctx, rc.rans_decode_ctx
+        plain = rc.rans_decode_ctx_ref
+    else:
+        syms, fg, cg = _case(g, sg, l, seed=5)
+        encode, decode = re_.rans_encode_grouped, rd.rans_decode_grouped
+        plain = rd.rans_decode_grouped_ref
+    ft, ct = _tables(dev, fg, cg)
+    raw, st = encode(torch.from_numpy(syms).to(dev), ft, ct)
+    words, n_words, counts = re_.rans_compact(raw)
+    words = words[:int(n_words)].clone()
+    for t in (0, l // 2, l - 1):
+        for delta in (1, -1):
+            bad = counts.clone()
+            bad[t] += delta
+            want = _message(lambda: plain(words, st, ft, ct, l, bad))
+            assert want.endswith(f"counts sidecar (step {t})")
+            assert _message(lambda: decode(words, st, ft, ct, l, bad)) == want
+    for wv, match in ((words[:-1].clone(), "ends before"),
+                      (words[:len(words) // 3].clone(), "ends before"),
+                      (torch.cat([words, words[:2]]), "left over")):
+        want = _message(lambda: plain(wv, st, ft, ct, l, counts))
+        assert match in want
+        assert _message(lambda: decode(wv, st, ft, ct, l, counts)) == want
+    torch.cuda.synchronize()
 
 
 def test_codec_on_cuda_matches_cpu(dev):
@@ -304,11 +401,12 @@ def _ctx_case(g, sg, l, n_ctx, seed):
 
 
 # (G, sg, L, n_ctx): 4 and 15 classes; sg = 2 spans many groups per
-# encode block (the use_smem=0 global-table path); G = 64 with 15
-# classes keeps the decode rows in global memory, the others in shared
-# memory; a ragged S = 1100
+# encode and decode block (the global-table paths); G = 64 with 15
+# classes at sg = 128, whose decode rows the one-block kernel reads from
+# global memory and the look-back kernel's blocks hold in shared memory;
+# a ragged S = 1100
 CTX_CASES = [(4, 8, 12, 4), (64, 2, 10, 4), (64, 4, 24, 15), (17, 16, 8, 15),
-             (2, 128, 8, 4), (1, 1100, 5, 4)]
+             (2, 128, 8, 4), (1, 1100, 5, 4), (64, 128, 6, 15)]
 
 
 @pytest.mark.parametrize("g,sg,l,n_ctx", CTX_CASES)
@@ -330,8 +428,13 @@ def test_ctx_kernels_match_plain_versions(dev, g, sg, l, n_ctx):
     assert torch.equal(rc.rans_decode_ctx(words, st, ft, ct, l), s)
     assert (rc.rans_encode_ctx.launches, rc.rans_decode_ctx.launches) == (
         before[0] + 1, before[1] + 2)
+    # with counts a 128-lane block holds the rows of the groups it spans,
+    # in at most 48 KiB; without, the one-block kernel all G groups' rows
+    span = min(g, -(-128 // sg) + 1)
+    want = "global" if span * n_ctx * 257 * 2 > 48 * 1024 else "shared"
+    assert rc.decode_table_mode(g * sg, g, n_ctx) == want
     want = "global" if g * n_ctx * 257 * 2 > 200 * 1024 else "shared"
-    assert rc.decode_table_mode(g, n_ctx) == want
+    assert rc.decode_table_mode(g * sg, g, n_ctx, counts=False) == want
 
 
 @pytest.mark.parametrize("n_ctx", [4, 15])

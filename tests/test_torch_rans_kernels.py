@@ -147,6 +147,39 @@ def test_decode_rejects_wrong_stream_length(cut, match):
         trd.rans_decode_grouped(words, st, *_torch_tables(fg, cg), l)
 
 
+@pytest.mark.parametrize("where", ["first", "mid", "last"])
+@pytest.mark.parametrize("delta", [1, -1])
+def test_decode_names_first_bad_step(where, delta):
+    """A corrupt counts sidecar raises at the first step whose total
+    differs, as the kernels report it; a later bad step does not hide
+    it."""
+    _, fg, cg, words, st, counts, l = _encoded(l=12)
+    t = {"first": 0, "mid": l // 2, "last": l - 1}[where]
+    bad = counts.clone()
+    bad[t] += delta
+    if t + 2 < l:
+        bad[t + 2] += 5
+    with pytest.raises(ValueError, match=rf"counts sidecar \(step {t}\)$"):
+        trd.rans_decode_grouped(words, st, *_torch_tables(fg, cg), l, bad)
+
+
+@pytest.mark.parametrize("cut,match", [(1, "ends before"), (-1, "left over")])
+def test_decode_names_step_of_wrong_stream_length(cut, match):
+    """A stream cut short raises at the first step whose words end past
+    it; a padded one at step L, with or without counts."""
+    _, fg, cg, words, st, counts, l = _encoded()
+    ends = torch.cumsum(counts, 0)
+    if cut > 0:
+        words = words[:-cut]
+        step = int((ends > words.numel()).nonzero()[0])
+    else:
+        words = torch.cat([words, words[:1]])
+        step = l
+    for cnt in (counts, None):
+        with pytest.raises(ValueError, match=rf"{match}.*\(step {step}\)$"):
+            trd.rans_decode_grouped(words, st, *_torch_tables(fg, cg), l, cnt)
+
+
 def test_wrappers_check_inputs():
     syms, fg, cg = _case(2, 8, 4)
     ft, ct = _torch_tables(fg, cg)

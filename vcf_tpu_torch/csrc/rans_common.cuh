@@ -54,4 +54,122 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* total,
   return out;
 }
 
+// Decoupled look-back (K2 over tiles, K3 over the blocks of one step).
+//
+// Each block owns one 64-bit descriptor: status << 32 | value, status
+// LB_EMPTY (zeroed by the launch code's memset), LB_AGGREGATE (value =
+// the block's own count) or LB_INCLUSIVE (value = the prefix through the
+// block).  Status and value travel in one aligned 64-bit word, written by
+// one store and read by one load, both strong (relaxed) at GPU scope: a
+// 64-bit access is single-copy atomic, so a reader sees a status only
+// with its value, and asm volatile keeps every read of a spin in L2.  No
+// other data passes through a descriptor (the value is the prefix), so
+// release/acquire would order nothing more, and on the H100 it made K3
+// and K2 slower (lookback_ab.py, PERF.md).  A block takes its virtual
+// index from an atomic ticket (`lb_ticket`), not from blockIdx.x: it then
+// waits only on blocks that were already running when it started, so the
+// spin below cannot deadlock whatever order the hardware schedules blocks
+// in.  Values stay below 2^31.
+constexpr uint32_t LB_EMPTY = 0;
+constexpr uint32_t LB_AGGREGATE = 1;
+constexpr uint32_t LB_INCLUSIVE = 2;
+
+__device__ __forceinline__ unsigned long long lb_load(
+    const unsigned long long* p) {
+#ifdef __CUDA_ARCH__
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+#else
+  return __atomic_load_n(p, __ATOMIC_RELAXED);
+#endif
+}
+
+__device__ __forceinline__ void lb_publish(unsigned long long* p,
+                                           uint32_t status, uint32_t value) {
+  const unsigned long long v = ((unsigned long long)status << 32) | value;
+#ifdef __CUDA_ARCH__
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+#else
+  __atomic_store_n(p, v, __ATOMIC_RELAXED);
+#endif
+}
+
+__device__ __forceinline__ int lb_flag(const int* p) {
+#ifdef __CUDA_ARCH__
+  int v;
+  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+#else
+  return __atomic_load_n(p, __ATOMIC_RELAXED);
+#endif
+}
+
+// The block's virtual index; every thread of the block must call it.
+__device__ __forceinline__ int lb_ticket(int* ticket, int* s_slot) {
+  if (threadIdx.x == 0) *s_slot = atomicAdd(ticket, 1);
+  __syncthreads();
+  return *s_slot;
+}
+
+// The exclusive prefix of block `vb` over desc[0, vb).  Called by one
+// whole warp, it returns the same value in every lane.  Lane i reads
+// desc[top - i]: a window of 32 predecessors, nearest first.  The window
+// is summed up to its first INCLUSIVE; every descriptor up to that one
+// must have been published at least as AGGREGATE, else the warp reads
+// the window again.  Without an INCLUSIVE it moves 32 blocks back.  A
+// non-null `abort` is polled while waiting: -1 once it is non-zero.  It
+// only ends an error path early: a caller must publish every descriptor a
+// later block waits on, also on its way out (rans_decode.cu says how K3
+// does).
+__device__ __forceinline__ long long lb_exclusive(
+    const unsigned long long* desc, int vb, const int* abort) {
+  const int lane = threadIdx.x & 31;
+  long long excl = 0;
+  for (int top = vb - 1; top >= 0; top -= 32) {
+    const int j = top - lane;
+    unsigned long long d;
+    uint32_t upto;  // lanes up to the first INCLUSIVE (all if none)
+    bool done;
+    while (true) {
+      // before desc[0] counts as an INCLUSIVE of 0
+      d = j >= 0 ? lb_load(desc + j)
+                 : (unsigned long long)LB_INCLUSIVE << 32;
+      const uint32_t st = (uint32_t)(d >> 32);
+      const uint32_t incl = __ballot_sync(0xffffffffu, st == LB_INCLUSIVE);
+      const uint32_t empty = __ballot_sync(0xffffffffu, st == LB_EMPTY);
+      done = incl != 0;
+      upto = done ? ((incl & (0u - incl)) << 1) - 1u : 0xffffffffu;
+      if (!(empty & upto)) break;
+      if (abort != nullptr && __any_sync(0xffffffffu, lb_flag(abort) != 0))
+        return -1;
+    }
+    long long v = (upto >> lane) & 1u ? (long long)(uint32_t)d : 0;
+#pragma unroll
+    for (int o = 16; o >= 1; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    excl += v;
+    if (done) break;
+  }
+  return excl;
+}
+
+// Publish AGGREGATE (unless block 0), look back, publish INCLUSIVE;
+// returns the exclusive prefix, or -1 on abort.  One whole warp.
+__device__ __forceinline__ long long lb_scan(unsigned long long* desc, int vb,
+                                             uint32_t total,
+                                             const int* abort) {
+  const int lane = threadIdx.x & 31;
+  long long excl = 0;
+  if (vb > 0) {
+    if (lane == 0) lb_publish(desc + vb, LB_AGGREGATE, total);
+    excl = lb_exclusive(desc, vb, abort);
+  }
+  if (excl >= 0 && lane == 0)
+    lb_publish(desc + vb, LB_INCLUSIVE, (uint32_t)(excl + total));
+  return excl;
+}
+
 }  // namespace vcf

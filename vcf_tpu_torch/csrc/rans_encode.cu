@@ -33,18 +33,25 @@
 //
 // K2 replaces vcf_tpu/ops/pallas/rans_encode.py:finish_stream_pallas.
 // It is a stream compaction of the (L, S) raw grid, row-major over the
-// flagged entries, into the wire words.  What bounds it: memory traffic
-// (it reads the 4-byte grid twice and writes 2 bytes per word).  The
-// design is three kernels: per-tile flag counts, one block that scans the
-// tile counts, and a scatter in which each tile recomputes its flags and
-// places its words with a block-wide scan.  It replaces the TPU's
-// butterfly compaction per chunk plus stitch scan.  CUDA and not Triton:
-// the scatter carries a running offset through the rounds of a tile and
-// ranks each round with a shuffle scan over the block, and the middle
-// pass is a single-block scan that leaves the total on the device.  Both
-// are direct in CUDA; Triton's block model has no ordered scan across
-// programs, so it would need the same three launches with less control
-// over the order of the writes.
+// flagged entries (bit 16 set), into the wire words, plus the per-step
+// counts and n_words.  What bounds it: memory traffic, the 4-byte grid
+// read once and 2 bytes written per word.  The design is ONE pass
+// (`compact_kernel`): a tile of 256 threads x 16 entries, each thread
+// loading 4 x 16-byte vectors (round k of a tile is 1024 consecutive
+// entries, 4 a thread, so every load of a warp is 512 contiguous bytes).
+// The thread's 4 per-round flag counts are packed in 16-bit fields of one
+// u64, so one warp shuffle scan plus a sum over the 8 warps ranks all 4
+// rounds at once.  The tile stages its words in shared memory in stream
+// order, takes its offset from a decoupled look-back over the tiles
+// before it (rans_common.cuh; tiles ordered by an atomic ticket), and
+// writes them as one contiguous run of u16.  The same pass adds the
+// tile's words to counts[t] with one atomicAdd per row segment of the
+// tile (a tile crosses rows when S is not a multiple of 4096, as at the
+// tests' small shapes), and the last tile writes n_words.  The TPU's
+// butterfly compaction per chunk and its stitch scan are gone, and so is
+// XLA's row sum for the counts.  CUDA and not Triton: the look-back is a
+// spin on another program's published state, which Triton's block model
+// does not express.
 //
 // K2 has a row mode, `rans_compact_rows`: K1 followed by it is
 // `rans_encode_rows`, which replaces the compacting encodes
@@ -70,9 +77,10 @@ namespace vcf {
 
 constexpr int ENC_THREADS = 128;
 constexpr int CMP_THREADS = 256;
-constexpr int CMP_ROUNDS = 16;
-constexpr int CMP_TILE = CMP_THREADS * CMP_ROUNDS;  // grid entries per block
-constexpr int SCAN_THREADS = 1024;
+constexpr int CMP_VEC = 4;                           // entries per load
+constexpr int CMP_ROUNDS = 4;                        // loads per thread
+constexpr int CMP_ROUND = CMP_THREADS * CMP_VEC;     // 1024 entries
+constexpr int CMP_TILE = CMP_ROUND * CMP_ROUNDS;     // 4096 entries a tile
 constexpr int ROW_THREADS = 1024;
 constexpr int STATIC_SMEM_LIMIT = 48 * 1024;
 
@@ -130,56 +138,104 @@ rans_encode_kernel(const uint8_t* __restrict__ syms,     // (L, S)
   states[s] = x;
 }
 
-__global__ void __launch_bounds__(CMP_THREADS)
-compact_count_kernel(const int32_t* __restrict__ raw, long long n,
-                     int32_t* __restrict__ tile_counts) {
-  __shared__ int scratch[33];
-  const long long base = (long long)blockIdx.x * CMP_TILE;
-  int c = 0;
-  for (int r = 0; r < CMP_ROUNDS; ++r) {
-    const long long i = base + (long long)r * CMP_THREADS + threadIdx.x;
-    if (i < n) c += (raw[i] >> 16) != 0;
+// 8 blocks an SM (at most 32 registers a thread): more tiles in flight
+__global__ void __launch_bounds__(CMP_THREADS, 8)
+compact_kernel(const int32_t* __restrict__ raw, int n, int S,
+               uint16_t* __restrict__ words, int32_t* __restrict__ n_words,
+               unsigned long long* __restrict__ desc,  // (tiles,)
+               int* __restrict__ ticket,
+               int32_t* __restrict__ counts) {  // (L,), zeroed
+  __shared__ uint16_t s_words[CMP_TILE];
+  __shared__ int s_rows[CMP_TILE + 1];  // per-row counts of a tile
+  __shared__ unsigned long long s_warp[CMP_THREADS / 32];
+  __shared__ long long s_prefix;
+  __shared__ int s_tile;
+  const int tile = lb_ticket(ticket, &s_tile);
+  const long long base = (long long)tile * CMP_TILE;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // entry base + k * CMP_ROUND + CMP_VEC * threadIdx.x + j is r[4k + j],
+  // flagged at bit 4k + j of `flags`
+  alignas(16) int32_t r[CMP_ROUNDS * CMP_VEC];
+  uint32_t flags = 0;
+  unsigned long long packed = 0;  // field k (16 bits): round k's flags
+#pragma unroll
+  for (int k = 0; k < CMP_ROUNDS; ++k) {
+    const long long e = base + k * CMP_ROUND + CMP_VEC * threadIdx.x;
+    if (e + CMP_VEC <= n) {
+      reinterpret_cast<int4*>(r)[k] = __ldcs((const int4*)(raw + e));
+    } else {
+#pragma unroll
+      for (int j = 0; j < CMP_VEC; ++j)
+        r[CMP_VEC * k + j] = e + j < n ? raw[e + j] : 0;
+    }
+    uint32_t f = 0;
+#pragma unroll
+    for (int j = 0; j < CMP_VEC; ++j)
+      f |= (((uint32_t)r[CMP_VEC * k + j] >> 16) != 0u) << j;
+    flags |= f << (CMP_VEC * k);
+    packed |= (unsigned long long)__popc(f) << (16 * k);
   }
-  int total;
-  block_exclusive_scan(c, &total, scratch);
-  if (threadIdx.x == 0) tile_counts[blockIdx.x] = total;
-}
-
-__global__ void __launch_bounds__(SCAN_THREADS)
-compact_scan_kernel(const int32_t* __restrict__ tile_counts, int n_tiles,
-                    int32_t* __restrict__ tile_offsets,
-                    int32_t* __restrict__ n_words) {
-  __shared__ int scratch[33];
-  const int per = (n_tiles + blockDim.x - 1) / blockDim.x;
-  const int lo = min((int)threadIdx.x * per, n_tiles);
-  const int hi = min(lo + per, n_tiles);
-  int sum = 0;
-  for (int i = lo; i < hi; ++i) sum += tile_counts[i];
-  int total;
-  int run = block_exclusive_scan(sum, &total, scratch);
-  for (int i = lo; i < hi; ++i) {
-    tile_offsets[i] = run;
-    run += tile_counts[i];
+  // rank: an inclusive warp scan of the packed counts (no field carries:
+  // a round has 1024 entries), then the warps before this one
+  unsigned long long incl = packed;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned long long y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
   }
-  if (threadIdx.x == 0) *n_words = total;
-}
-
-__global__ void __launch_bounds__(CMP_THREADS)
-compact_scatter_kernel(const int32_t* __restrict__ raw, long long n,
-                       const int32_t* __restrict__ tile_offsets,
-                       uint16_t* __restrict__ words) {
-  __shared__ int scratch[33];
-  const long long base = (long long)blockIdx.x * CMP_TILE;
-  int run = tile_offsets[blockIdx.x];
-  for (int r = 0; r < CMP_ROUNDS; ++r) {
-    const long long i = base + (long long)r * CMP_THREADS + threadIdx.x;
-    const int32_t v = i < n ? raw[i] : 0;
-    const int flag = (v >> 16) != 0;
-    int total;
-    const int rank = block_exclusive_scan(flag, &total, scratch);
-    if (flag) words[run + rank] = (uint16_t)(v & 0xFFFF);
-    run += total;
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  unsigned long long before = incl - packed, sum = 0;
+#pragma unroll
+  for (int w = 0; w < CMP_THREADS / 32; ++w) {
+    const unsigned long long c = s_warp[w];
+    if (w < warp) before += c;
+    sum += c;
   }
+  int total = 0;
+#pragma unroll
+  for (int k = 0; k < CMP_ROUNDS; ++k) {
+    // round k's words follow those of the rounds before it
+    int at = total + (int)((before >> (16 * k)) & 0xFFFFu);
+    total += (int)((sum >> (16 * k)) & 0xFFFFu);
+#pragma unroll
+    for (int j = 0; j < CMP_VEC; ++j)
+      if ((flags >> (CMP_VEC * k + j)) & 1u)
+        s_words[at++] = (uint16_t)(r[CMP_VEC * k + j] & 0xFFFF);
+  }
+  if (warp == 0) {
+    const long long excl = lb_scan(desc, tile, (uint32_t)total, nullptr);
+    if (lane == 0) s_prefix = excl;
+  }
+  __syncthreads();
+  const long long prefix = s_prefix;
+  for (int i = threadIdx.x; i < total; i += CMP_THREADS)
+    words[prefix + i] = s_words[i];
+  if (tile == (int)gridDim.x - 1 && threadIdx.x == 0)
+    *n_words = (int32_t)(prefix + total);
+  // the per-step counts: one atomicAdd per row the tile touches
+  const int r0 = (int)(base / S);
+  const int r1 = (int)((min(base + CMP_TILE, (long long)n) - 1) / S);
+  if (r0 == r1) {
+    if (threadIdx.x == 0 && total) atomicAdd(&counts[r0], total);
+    return;
+  }
+  for (int i = threadIdx.x; i <= r1 - r0; i += CMP_THREADS) s_rows[i] = 0;
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < CMP_ROUNDS; ++k) {
+#pragma unroll
+    for (int j = 0; j < CMP_VEC; ++j) {
+      if ((flags >> (CMP_VEC * k + j)) & 1u) {
+        const long long e = base + k * CMP_ROUND + CMP_VEC * threadIdx.x + j;
+        atomicAdd(&s_rows[(int)(e / S) - r0], 1);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i <= r1 - r0; i += CMP_THREADS)
+    if (s_rows[i]) atomicAdd(&counts[r0 + i], s_rows[i]);
 }
 
 // One block per row t of the (L, S) raw grid.
@@ -254,25 +310,26 @@ int vcf_rans_compact_rows(const void* raw, int S, int L, void* rows,
   return (int)cudaGetLastError();
 }
 
-// raw (n,) i32 grid in decode order; tile_counts/tile_offsets scratch of
-// ceil(n / tile) i32; words (n,) u16 out (valid prefix), n_words (1,) i32.
-int vcf_rans_compact(const void* raw, long long n, void* tile_counts,
-                     void* tile_offsets, void* words, void* n_words,
-                     void* stream) {
+// raw (L, S) i32 grid (n = L * S entries, n < 2^31) in decode order ->
+// words (n,) u16 (the stream as a prefix), n_words (1,) i32 and counts
+// (L,) i32.  scratch: ceil(n / tile) u64 descriptors, the ticket i32,
+// then the counts (L,) i32, all zeroed here by one memset on the stream.
+// Returns the first CUDA error of the memset or launch.
+int vcf_rans_compact(const void* raw, long long n, int S, int L, void* words,
+                     void* n_words, void* scratch, void* stream) {
+  if (n < 1 || n >= (1LL << 31) || S < 1 || (long long)S * L != n)
+    return (int)cudaErrorInvalidValue;
   const int n_tiles = (int)((n + vcf::CMP_TILE - 1) / vcf::CMP_TILE);
   cudaStream_t st = (cudaStream_t)stream;
-  vcf::compact_count_kernel<<<n_tiles, vcf::CMP_THREADS, 0, st>>>(
-      (const int32_t*)raw, n, (int32_t*)tile_counts);
-  int err = (int)cudaGetLastError();
+  unsigned long long* desc = (unsigned long long*)scratch;
+  int* ticket = (int*)(desc + n_tiles);
+  int err = (int)cudaMemsetAsync(
+      scratch, 0, n_tiles * sizeof(unsigned long long) + (1 + L) * sizeof(int),
+      st);
   if (err) return err;
-  vcf::compact_scan_kernel<<<1, vcf::SCAN_THREADS, 0, st>>>(
-      (const int32_t*)tile_counts, n_tiles, (int32_t*)tile_offsets,
-      (int32_t*)n_words);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  vcf::compact_scatter_kernel<<<n_tiles, vcf::CMP_THREADS, 0, st>>>(
-      (const int32_t*)raw, n, (const int32_t*)tile_offsets,
-      (uint16_t*)words);
+  vcf::compact_kernel<<<n_tiles, vcf::CMP_THREADS, 0, st>>>(
+      (const int32_t*)raw, (int)n, S, (uint16_t*)words, (int32_t*)n_words,
+      desc, ticket, ticket + 1);
   return (int)cudaGetLastError();
 }
 

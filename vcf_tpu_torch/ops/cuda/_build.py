@@ -40,15 +40,18 @@ _DCT = [_P, _P, _P, _P, _FP, _I, _I, _I, _I, _I, _F, _I, _I, _P]
 _SIGNATURES = {
     "vcf_rans_encode_grouped": [_P, _P, _P, _P, _I, _I, _I, _P],
     "vcf_rans_compact_tile": [],
-    "vcf_rans_compact": [_P, _LL, _P, _P, _P, _P, _P],
+    "vcf_rans_compact": [_P, _LL, _I, _I, _P, _P, _P, _P],
     "vcf_rans_compact_rows": [_P, _I, _I, _P, _P, _P],
     "vcf_rans_decode_threads": [],
-    "vcf_rans_decode_grouped": [_P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                _P],
+    "vcf_rans_decode_grouped": [_P, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vcf_rans_encode_ctx": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vcf_rans_decode_ctx_smem": [_I, _I],
-    "vcf_rans_decode_ctx": [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                            _I, _I, _P],
+    "vcf_rans_decode_ctx": [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _P],
+    "vcf_rans_decode_lookback_lanes": [],
+    "vcf_rans_decode_lookback_smem": [_I, _I, _I],
+    "vcf_rans_decode_lookback": [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 _I, _I, _P],
     "vcf_rans_decode_grid": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vcf_rans_decode_ctx_grid": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vcf_dct_forward": _DCT,

@@ -9,7 +9,8 @@ K2 `rans_compact` unchanged.  It is the context mode of K1's kernel.
 `rans_decode_ctx` replaces `pallas_decode_ctx` and its pre-pass
 `build_windows`: the wire words -> (S, L) u8, K3's contract and error
 codes, the class taken from the symbol the lane decoded one step before.
-It is the context mode of K3's kernel.  `rans_decode_ctx_grid` replaces
+It is the context mode of K3's two kernels (look-back with counts, one
+block without).  `rans_decode_ctx_grid` replaces
 `pallas_decode_ctx_grid`: the routing-free decode straight from the
 encoder's raw (L, S) grid (as `rans_decode_grouped_grid`), the class
 carried per lane.  Design notes and bounds are in csrc/rans_encode.cu,
@@ -34,10 +35,11 @@ import torch
 
 from vcf_tpu_torch.ops.cuda import _build
 from vcf_tpu_torch.ops.cuda.rans_decode import (
-    _ERRORS, check_grid, decode_steps_ref, grid_steps_ref, launch_grid)
+    check_grid, decode_steps_ref, grid_steps_ref, launch_decode,
+    launch_grid, raise_decode_error)
 from vcf_tpu_torch.ops.cuda.rans_encode import (
     K_PROB, _require, _require_cuda, encode_steps_ref, i32_as_u32,
-    pack_tables, u32_as_i32)
+    pack_tables)
 
 N_CTX = 4
 
@@ -192,11 +194,16 @@ def cum_rows(f: torch.Tensor, c: torch.Tensor, device) -> torch.Tensor:
     return rows.to(torch.int32).to(torch.uint16).to(device).contiguous()
 
 
-def decode_table_mode(g: int, n_ctx: int) -> str:
-    """Where the decode kernel keeps (G, n_ctx) context tables: "shared"
-    memory or "global" memory (read through L1/L2)."""
-    return "shared" if _build.load().vcf_rans_decode_ctx_smem(g, n_ctx) \
-        else "global"
+def decode_table_mode(s_streams: int, g: int, n_ctx: int,
+                      counts: bool = True) -> str:
+    """Where the context decode keeps (G, n_ctx) tables for S lanes:
+    "shared" memory or "global" memory (read through L1/L2).  With counts
+    (the look-back kernel) a block holds the rows of the groups its lanes
+    span; without (the one-block kernel) all G groups' rows."""
+    lib = _build.load()
+    fits = (lib.vcf_rans_decode_lookback_smem(s_streams, g, n_ctx) if counts
+            else lib.vcf_rans_decode_ctx_smem(g, n_ctx))
+    return "shared" if fits else "global"
 
 
 def rans_decode_ctx(words: torch.Tensor, states: torch.Tensor,
@@ -222,30 +229,11 @@ def rans_decode_ctx(words: torch.Tensor, states: torch.Tensor,
     _require(s_streams % g == 0, f"{s_streams} lanes do not split into {g} "
              "groups")
     dev = words.device
-    lib = _build.load()
-    rows = cum_rows(f, c, dev)
     lut = torch.from_numpy(class_lut(n_ctx)).to(dev)
-    words = words.contiguous()
-    st32 = u32_as_i32(states.to(torch.int64)).contiguous()
-    threads = lib.vcf_rans_decode_threads()
-    n_scratch = -(-s_streams // threads) * threads
-    xs = torch.empty(n_scratch, dtype=torch.int32, device=dev)
-    prev = torch.empty(n_scratch, dtype=torch.uint8, device=dev)
-    cnt = (counts.to(dev, torch.int32).contiguous()
-           if counts is not None else None)
-    out = torch.empty((l, s_streams), dtype=torch.uint8, device=dev)
-    err = torch.zeros(2, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.vcf_rans_decode_ctx(
-            words.data_ptr(), words.numel(), st32.data_ptr(), xs.data_ptr(),
-            prev.data_ptr(), rows.data_ptr(), lut.data_ptr(),
-            cnt.data_ptr() if cnt is not None else None, out.data_ptr(),
-            err.data_ptr(), s_streams, l, g, n_ctx, _build.stream_of(words))
-    _build.check(rc, "rans_decode_ctx")
+    out, err = launch_decode(words, states, cum_rows(f, c, dev), lut, counts,
+                             l, g, n_ctx)
     rans_decode_ctx.launches += 1
-    code, step = err.tolist()
-    if code:
-        raise ValueError(f"rans decode: {_ERRORS[code]} (step {step})")
+    raise_decode_error(err)
     return out.t()
 
 

@@ -1,14 +1,16 @@
 """Grouped rANS decode kernel K3 (port of vcf_tpu/ops/pallas/rans_decode.py).
 
 K3 `rans_decode_grouped` replaces `pallas_decode_grouped` together with
-its XLA pre-pass `build_windows`: it reads the wire words directly and
-carries the stream pointer itself, so it needs no windows and no counts.
-When the per-step counts of a v2 sidecar are given they are checked at
-every step.  A stream that does not decode cleanly (count mismatch, read
-past the end, words left over) raises ValueError, never returns garbage.
-It returns a transposed view of the kernel's (L, S) output, so the
-caller's `.t()` is vcf_tpu's `lmajor` output at no cost.  Design notes
-and bounds are in csrc/rans_decode.cu.
+its XLA pre-pass `build_windows`: it reads the wire words directly, so it
+needs no windows.  Given the per-step counts of a v2 sidecar (every
+grans/cgrans stream) it launches the look-back kernel, many blocks, each
+step's pointer from the counts; without counts (the dense v0 stream) the
+one-block kernel, which carries the stream pointer itself.  A stream that
+does not decode cleanly (count mismatch, read past the end, words left
+over) raises ValueError naming the first bad step, never returns
+garbage.  It returns a transposed view of the kernel's (L, S) output, so
+the caller's `.t()` is vcf_tpu's `lmajor` output at no cost.  Design
+notes and bounds are in csrc/rans_decode.cu.
 
 `rans_decode_grouped_grid` replaces `pallas_decode_grouped_grid`: the
 routing-free decode straight from K1's raw (L, S) grid, whose emit flags
@@ -22,7 +24,7 @@ its CUDA kernel for a CUDA tensor; `launches` counts kernel launches.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -90,13 +92,31 @@ def decode_steps_ref(words: torch.Tensor, states: torch.Tensor, l: int,
         totals[t] = renorm.sum()
         ptr = ptr + totals[t]
         out[t] = v.to(torch.uint8)
-    if counts is not None and not torch.equal(
-            totals, counts.to(dev, torch.int64)):
-        raise ValueError(f"rans decode: {_ERRORS[1]}")
-    used = int(ptr)
-    if used != n_words:
-        raise ValueError(f"rans decode: {_ERRORS[2 if used > n_words else 3]}")
+    code, step = first_error(totals.cpu(), counts, n_words)
+    if code:
+        raise ValueError(f"rans decode: {_ERRORS[code]} (step {step})")
     return out.t()
+
+
+def first_error(totals: torch.Tensor, counts: Optional[torch.Tensor],
+                n_words: int) -> Tuple[int, int]:
+    """(code, step) of the first error of a decode whose steps took
+    `totals` words (0 when it decoded cleanly), as the kernels report it:
+    at the first step whose total differs from counts[t] (code 1) or whose
+    words end past n_words (code 2; code 1 first on the same step), else
+    code 3 at step L when words are left over.  The steps after the first
+    error do not matter: the kernels stop there."""
+    ends = torch.cumsum(totals, 0)
+    bad = ends > n_words
+    mismatch = torch.zeros_like(bad)
+    if counts is not None:
+        mismatch = totals != counts.cpu().to(torch.int64)
+    hit = (bad | mismatch).nonzero()
+    if hit.numel():
+        step = int(hit[0])
+        return (1 if bool(mismatch[step]) else 2), step
+    used = int(ends[-1]) if totals.numel() else 0
+    return (3 if used != n_words else 0), totals.numel()
 
 
 def rans_decode_grouped(words: torch.Tensor, states: torch.Tensor,
@@ -121,30 +141,73 @@ def rans_decode_grouped(words: torch.Tensor, states: torch.Tensor,
         return rans_decode_grouped_ref(words, states, freqs_g, cums_g, l,
                                        counts)
     _require_cuda(words)
+    out, err = launch_decode(words, states, pack_tables(freqs_g, cums_g,
+                                                        words.device),
+                             None, counts, l, g, 0)
+    rans_decode_grouped.launches += 1
+    raise_decode_error(err)
+    return out.t()
+
+
+def launch_decode(words: torch.Tensor, states: torch.Tensor,
+                  tab: torch.Tensor, lut: Optional[torch.Tensor],
+                  counts: Optional[torch.Tensor], l: int, g: int, n_ctx: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K3 in either mode on the card (n_ctx = 0 and lut None: order
+    0 with (G, 256) packed tables; else the context mode with its cumulative
+    rows and class LUT): the look-back kernel when counts are given, the
+    one-block kernel when not.  Returns (out (L, S)
+    u8, err (2,) int32 code and step)."""
     dev = words.device
     lib = _build.load()
-    tab = pack_tables(freqs_g, cums_g, dev)
     words = words.contiguous()
     st32 = u32_as_i32(states.to(torch.int64)).contiguous()
-    threads = lib.vcf_rans_decode_threads()
-    xs = torch.empty(-(-s_streams // threads) * threads, dtype=torch.int32,
-                     device=dev)
-    cnt = (counts.to(dev, torch.int32).contiguous()
-           if counts is not None else None)
+    s_streams = st32.numel()
     out = torch.empty((l, s_streams), dtype=torch.uint8, device=dev)
     err = torch.zeros(2, dtype=torch.int32, device=dev)
+    lut_p = lut.data_ptr() if lut is not None else None
+    stream = _build.stream_of(words)
     with torch.cuda.device(dev):
-        rc = lib.vcf_rans_decode_grouped(
-            words.data_ptr(), words.numel(), st32.data_ptr(), xs.data_ptr(),
-            tab.data_ptr(), cnt.data_ptr() if cnt is not None else None,
-            out.data_ptr(), err.data_ptr(), s_streams, l, g,
-            _build.stream_of(words))
-    _build.check(rc, "rans_decode_grouped")
-    rans_decode_grouped.launches += 1
+        if counts is not None:
+            # (L, blocks) u64 descriptors, the ticket and the abort flag:
+            # the launch zeroes them with one memset
+            lanes = lib.vcf_rans_decode_lookback_lanes()
+            blocks = max(1, -(-s_streams // lanes))
+            scratch = torch.empty(2 * l * blocks + 2, dtype=torch.int32,
+                                  device=dev)
+            cnt = counts.to(dev, torch.int32).contiguous()
+            rc = lib.vcf_rans_decode_lookback(
+                words.data_ptr(), words.numel(), st32.data_ptr(),
+                tab.data_ptr(), lut_p, cnt.data_ptr(), out.data_ptr(),
+                err.data_ptr(), scratch.data_ptr(), s_streams, l, g, n_ctx,
+                stream)
+        else:
+            # the one-block kernel keeps each thread's lanes' states (and
+            # previous symbols) in a scratch of whole rounds of threads
+            threads = lib.vcf_rans_decode_threads()
+            n_scratch = -(-s_streams // threads) * threads
+            xs = torch.empty(n_scratch, dtype=torch.int32, device=dev)
+            if lut is None:
+                rc = lib.vcf_rans_decode_grouped(
+                    words.data_ptr(), words.numel(), st32.data_ptr(),
+                    xs.data_ptr(), tab.data_ptr(), out.data_ptr(),
+                    err.data_ptr(), s_streams, l, g, stream)
+            else:
+                prev = torch.empty(n_scratch, dtype=torch.uint8, device=dev)
+                rc = lib.vcf_rans_decode_ctx(
+                    words.data_ptr(), words.numel(), st32.data_ptr(),
+                    xs.data_ptr(), prev.data_ptr(), tab.data_ptr(), lut_p,
+                    out.data_ptr(), err.data_ptr(), s_streams, l, g, n_ctx,
+                    stream)
+    _build.check(rc, "rans_decode")
+    return out, err
+
+
+def raise_decode_error(err: torch.Tensor) -> None:
+    """Raise the ValueError of a K3 launch's (code, step), if any."""
     code, step = err.tolist()
     if code:
         raise ValueError(f"rans decode: {_ERRORS[code]} (step {step})")
-    return out.t()
 
 
 rans_decode_grouped.launches = 0

@@ -172,26 +172,24 @@ def rans_compact(raw: torch.Tensor
         return rans_compact_ref(raw)
     _require_cuda(raw)
     raw = raw.contiguous()
+    l, s_streams = raw.shape
     n = raw.numel()
     _require(0 < n < 1 << 31, f"grid of {n} entries out of range")
     lib = _build.load()
-    tile = lib.vcf_rans_compact_tile()
-    n_tiles = -(-n // tile)
+    n_tiles = -(-n // lib.vcf_rans_compact_tile())
     dev = raw.device
-    tile_counts = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-    tile_offsets = torch.empty(n_tiles, dtype=torch.int32, device=dev)
     words = torch.empty(n, dtype=torch.uint16, device=dev)
     n_words = torch.empty(1, dtype=torch.int32, device=dev)
+    # the tiles' u64 descriptors, the ticket, then the counts: the launch
+    # zeroes all of it with one memset
+    scratch = torch.empty(2 * n_tiles + 1 + l, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.vcf_rans_compact(
-            raw.data_ptr(), n, tile_counts.data_ptr(), tile_offsets.data_ptr(),
-            words.data_ptr(), n_words.data_ptr(), _build.stream_of(raw))
+            raw.data_ptr(), n, s_streams, l, words.data_ptr(),
+            n_words.data_ptr(), scratch.data_ptr(), _build.stream_of(raw))
     _build.check(rc, "rans_compact")
     rans_compact.launches += 1
-    # the per-step row sum stays a torch reduction, as it was XLA's on
-    # the TPU (rans_encode.py finish_stream_pallas)
-    counts = (raw >> 16).sum(dim=1, dtype=torch.int32)
-    return words, n_words[0], counts
+    return words, n_words[0], scratch[2 * n_tiles + 1:]
 
 
 rans_compact.launches = 0
