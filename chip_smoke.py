@@ -53,7 +53,8 @@ kernels from vcf_tpu_torch/csrc on first use.  Phases:
 3e. the lane-grid modes at full size: B1-B4 in the subband-grid layout
    (B1/B2 perceptual too) under the +-1 rule against their plain
    versions and bit-exact against the block-mode kernels' output
-   permuted; K1 on the (L, S) lanes' transposed view, the row mode of
+   permuted (B3/B4's also timed on 2 frames, phase 4g's launch shape,
+   `ms_2_frames`); K1 on the (L, S) lanes' transposed view, the row mode of
    K2 and assemble_stream, the grid decode and K3 (each output's .t() is
    the (L, S) layout) on the grid lanes of the 8 frames, and the context grid decode
    on 3d's grids, each bit-exact against its plain version;
@@ -1215,14 +1216,26 @@ def phase_grid_kernels(dev, frames: np.ndarray, ctx_grids: dict) -> list:
     ]
     modes = ["grid_layout"] * 4 + ["rows", "grid"]
     also = {"rans_compact_rows": "vcf_tpu/ops/pallas/rans_encode.py:613"}
+    # B3/B4's grid modes also run on 2 frames a launch: the planar IPP
+    # loop's GOP batch (phase 4g)
+    px2, k32 = px[:2], k3[:2]
+    two_frames = {
+        "fused_cdct_quantize": lambda: dk.fused_cdct_quantize(
+            px2, mf, grid_layout=True),
+        "fused_dequantize_cdct": lambda: dk.fused_dequantize_cdct(
+            k32, mi, grid_layout=True)}
     results = []
     for mode, (name, src, rep, (err, share), kern, plain, reps_k, reps_p,
                bnd) in zip(modes, rows_spec):
         ms, plain_ms = cuda_ms(kern, reps_k), cuda_ms(plain, reps_p)
+        extra = {"also_replaces": also[name]} if name in also else {}
+        if mode == "grid_layout" and name in two_frames:
+            extra["ms_2_frames"] = cuda_ms(two_frames[name], 20)
         print(f"time {name} [{mode}]: kernel {ms:.4f} ms, plain torch "
               f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
-              f"({bnd['bound_by']})")
-        extra = {"also_replaces": also[name]} if name in also else {}
+              f"({bnd['bound_by']})"
+              + (f"; 2 frames {extra['ms_2_frames']:.4f} ms"
+                 if "ms_2_frames" in extra else ""))
         # a mode of a wrapper that has an entry of its own is named apart
         shared = mode == "grid_layout"
         results.append(kernel_row(f"{name}[{mode}]" if shared else name, src,

@@ -246,9 +246,12 @@ def _pixel_rule(got, want):
 
 
 # (N, H, W, b, qss): odd shapes, a ragged last column strip (W not a
-# multiple of the kernels' 1024 / b columns), both block sizes and steps
+# multiple of the kernels' 1024 / b columns), rows that are not 16-byte
+# aligned (W = 40, 20, 136, 18, 1030), both steps, and every block size:
+# the inverse kernel has an instance for each b
 DCT_CASES = [(2, 24, 40, 8, 32), (1, 8, 20, 4, 24), (3, 16, 136, 8, 24),
-             (1, 32, 288, 4, 32)]
+             (1, 32, 288, 4, 32), (1, 8, 18, 2, 24), (2, 32, 96, 16, 32),
+             (1, 64, 160, 32, 24), (1, 4, 1030, 1, 32)]
 
 
 @pytest.mark.parametrize("n,h,w,b,qss", DCT_CASES)
@@ -511,8 +514,12 @@ def test_deadzone_quantize_on_cuda_is_ieee(dev, qss):
 # the routing-free grid decodes, IPPCodec's planar grid loop
 # ---------------------------------------------------------------------------
 
+# cw = 256, 512 (W = 2048), 128, 96, 256, 192 (three b = 16 strips a
+# chunk), 256 and 128: every block size of the inverse kernel's grid mode
 GRID_DCT_CASES = [(2, 64, 256, 8, 32), (1, 32, 2048, 8, 32),
-                  (2, 64, 128, 4, 24), (1, 32, 96, 8, 24)]
+                  (2, 64, 128, 4, 24), (1, 32, 96, 8, 24),
+                  (1, 32, 256, 2, 32), (2, 64, 192, 16, 24),
+                  (1, 64, 256, 32, 32), (1, 32, 128, 1, 32)]
 
 
 @pytest.mark.parametrize("n,h,w,b,qss", GRID_DCT_CASES)

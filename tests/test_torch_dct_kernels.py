@@ -87,6 +87,42 @@ def test_b3_b4_match_pallas(h, w, b, qss, color):
     _pixel_rule(p_t, p_j)
 
 
+# the other block sizes of B2/B4 (CASES has b = 4 and 8): the inverse
+# kernel has an instance for each b
+INV_BLOCK_SIZES = [2, 16, 32]
+INV_KINDS = ["B2", "B2-perceptual", "B4"]
+
+
+def _inverse_pair(kind: str, b: int, grid_layout: bool):
+    """(vcf_tpu's interpret-mode output, the port's) of B2 or B4 at
+    3x64x256, qss 32, on the indexes the port's B1/B3 give for seeded
+    planes or pixels."""
+    kw = dict(b=b, qss=32, grid_layout=grid_layout)
+    if kind == "B4":
+        px = torch.from_numpy(_pixels((3, 64, 256), seed=b))
+        k = tk.fused_cdct_quantize(px, tk.static_mat(jcolor.YCOCG_FWD), **kw)
+        inv = jk.static_mat(jcolor.YCOCG_INV)
+        want = jk.fused_dequantize_cdct(jnp.asarray(k.numpy()), inv,
+                                        interpret=True, **kw)
+        return np.asarray(want), tk.fused_dequantize_cdct(k, inv, **kw)
+    kw["perceptual"] = kind == "B2-perceptual"
+    k = tk.fused_dct_quantize(torch.from_numpy(_planes((3, 64, 256), seed=b)),
+                              **kw)
+    want = jk.fused_dequantize_idct(jnp.asarray(k.numpy()), interpret=True,
+                                    **kw)
+    return np.asarray(want), tk.fused_dequantize_idct(k, **kw)
+
+
+@pytest.mark.parametrize("kind", INV_KINDS)
+@pytest.mark.parametrize("b", INV_BLOCK_SIZES)
+def test_b2_b4_block_sizes_match_pallas(b, kind):
+    want, got = _inverse_pair(kind, b, grid_layout=False)
+    if kind == "B4":
+        _pixel_rule(got.numpy(), want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-3)
+
+
 def test_frame_axis_is_per_frame():
     """(N, C, H, W) gives each frame's (C, H, W) result: the frame axis
     stands for vcf_tpu's jax.vmap."""

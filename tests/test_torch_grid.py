@@ -164,6 +164,37 @@ def test_b3_b4_grid_match_pallas(h, w, b, qss):
         tk.from_grid(torch.from_numpy(k_j), b), mi, b=b, qss=qss))
 
 
+@pytest.mark.parametrize("kind", ["B2", "B2-perceptual", "B4"])
+@pytest.mark.parametrize("b", [2, 16, 32])
+def test_b2_b4_grid_block_sizes_match_pallas(b, kind):
+    """B2/B4's grid mode at the block sizes DCT_CASES lacks (the inverse
+    kernel has an instance for each b), 3x64x256, qss 32, against
+    vcf_tpu's interpret-mode kernels and the port's block mode."""
+    rng = np.random.default_rng(b)
+    kw = dict(b=b, qss=32, grid_layout=True)
+    if kind == "B4":
+        px = torch.from_numpy(rng.integers(0, 256, (3, 64, 256), np.uint8))
+        k = tk.fused_cdct_quantize(px, tk.static_mat(jcolor.YCOCG_FWD), **kw)
+        mi = jk.static_mat(jcolor.YCOCG_INV)
+        want = np.asarray(jk.fused_dequantize_cdct(
+            jnp.asarray(k.numpy()), mi, interpret=True, **kw))
+        got = tk.fused_dequantize_cdct(k, mi, **kw)
+        d = np.abs(got.numpy().astype(np.int64) - want)
+        assert d.max() <= 1 and (d != 0).mean() < 1e-3
+        block = tk.fused_dequantize_cdct(tk.from_grid(k, b), mi, b=b, qss=32)
+    else:
+        kw["perceptual"] = kind == "B2-perceptual"
+        planes = rng.normal(0, 80, (3, 64, 256)).astype(np.float32)
+        k = tk.fused_dct_quantize(torch.from_numpy(planes), **kw)
+        want = np.asarray(jk.fused_dequantize_idct(
+            jnp.asarray(k.numpy()), interpret=True, **kw))
+        got = tk.fused_dequantize_idct(k, **kw)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-3)
+        block = tk.fused_dequantize_idct(tk.from_grid(k, b), b=b, qss=32,
+                                         perceptual=kw["perceptual"])
+    assert torch.equal(got, block)
+
+
 def test_grid_layout_shape_checks():
     px = torch.zeros((3, 48, 128), dtype=torch.uint8)
     m = tk.static_mat(jcolor.YCOCG_FWD)

@@ -34,7 +34,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F, _FP = ctypes.c_float, ctypes.POINTER(ctypes.c_float)
+# vcf_dct_forward takes the DCT matrix on the device, vcf_dct_inverse on
+# the host (it passes the matrix to its kernel by value)
 _DCT = [_P, _P, _P, _P, _FP, _I, _I, _I, _I, _I, _F, _I, _I, _P]
+_IDCT = [_P, _P, _FP, _P, _FP, _I, _I, _I, _I, _I, _F, _I, _I, _P]
 # C entry -> argtypes; every pointer and the stream are c_void_p so
 # ctypes never narrows them to a 32-bit int
 _SIGNATURES = {
@@ -55,7 +58,7 @@ _SIGNATURES = {
     "vcf_rans_decode_grid": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vcf_rans_decode_ctx_grid": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vcf_dct_forward": _DCT,
-    "vcf_dct_inverse": _DCT,
+    "vcf_dct_inverse": _IDCT,
     "vcf_sad_search": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vcf_mc_apply": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }

@@ -43,6 +43,7 @@ launches, `grid_launches` those in the grid layout.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -230,6 +231,22 @@ def fused_dequantize_cdct_ref(planes_u8: torch.Tensor, m, b: int = 8,
 # Kernel launches
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _device_consts(b: int, device: torch.device) -> tuple:
+    """(the b x b DCT matrix, the (2, b, b) luma and chroma perceptual
+    tables) on `device`, uploaded once per (b, device)."""
+    return (torch.from_numpy(dct_ops.dct_matrix(b)).to(device),
+            torch.from_numpy(np.stack(dct_ops.perceptual_tables(b))).to(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _host_dct(b: int):
+    """The b x b DCT matrix as a C float array: the inverse kernel takes it
+    by value (it reaches the kernel as a launch parameter, with no copy of
+    its own)."""
+    return (ctypes.c_float * (b * b))(*dct_ops.dct_matrix(b).ravel().tolist())
+
+
 def _launch(entry: str, x: torch.Tensor, out: torch.Tensor, b: int,
             step: float, offset: int, perceptual: bool, m, cw: int) -> None:
     """Call one C entry of csrc/dct.cu; x and the fresh `out` are
@@ -239,17 +256,15 @@ def _launch(entry: str, x: torch.Tensor, out: torch.Tensor, b: int,
     x = x.contiguous()
     n = x.shape[0] if x.dim() == 4 else 1
     c, h, w = x.shape[-3:]
-    dev = x.device
-    dmat = torch.from_numpy(dct_ops.dct_matrix(b)).to(dev)
-    scale = (torch.from_numpy(np.stack(dct_ops.perceptual_tables(b))).to(dev)
-             if perceptual else None)
+    dmat, tables = _device_consts(b, x.device)
+    dmat = _host_dct(b) if entry == "vcf_dct_inverse" else dmat.data_ptr()
     mat = None
     if m is not None:
         mat = (ctypes.c_float * 9)(*[v for row in m for v in row])
-    with torch.cuda.device(dev):
+    with torch.cuda.device(x.device):
         rc = getattr(lib, entry)(
-            x.data_ptr(), out.data_ptr(), dmat.data_ptr(),
-            None if scale is None else scale.data_ptr(), mat,
+            x.data_ptr(), out.data_ptr(), dmat,
+            tables.data_ptr() if perceptual else None, mat,
             n, c, h, w, b, step, offset, cw, _build.stream_of(x))
     _build.check(rc, entry)
 
