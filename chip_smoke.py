@@ -12,8 +12,13 @@ kernels from vcf_tpu_torch/csrc on first use.  Phases:
    L=765 steps, 64 subband tables), bit-exact, with CUDA-event times of
    both; K2 (one pass) also against its three-kernel form's outputs
    (masked_select's words, torch's row sum) and timed beside
-   masked_select; K3's look-back kernel (counts given) also timed as a
-   launch alone, and its one-block kernel (no counts) checked and timed;
+   masked_select; K1 and K3's look-back kernel (counts given) also timed
+   as launches alone (tables packed before), and K3's one-block kernel
+   (no counts) checked and timed;
+3f. K1 in both modes (order 0, 4 and 15 classes) bit-exact against its
+   plain version around its staged tile of T steps (L = 1, T - 1, T,
+   T + 1, 2T + 1; S = 1100) and with 128-lane blocks spanning 65 groups
+   of sg = 2, whose tables it reads from global memory;
 3b. DCT kernels B1-B4 on the same 8 frames: the color-fused pair (ycocg)
    on the pixels, B1/B2 in plain and perceptual mode on the
    ycocg-transformed planes; each against its plain version under the
@@ -46,8 +51,10 @@ kernels from vcf_tpu_torch/csrc on first use.  Phases:
    streams when none differs), with warm encode/decode times and the
    split of each into its device loop and its entropy stage;
 3d. the context modes of K1/K3 at S=65536, L=765, G=64 with 4 and 15
-   classes, bit-exact (K3 with counts and without); 4d: the 8-frame
-   cgrans clip; 4e: the 1088x1920 DWT frame (cgrans and grans) against the port's CPU run, and its
+   classes, bit-exact (K3 with counts and without), each also timed as a
+   launch alone; 4d: the 8-frame cgrans clip; 4e: the 1088x1920 DWT frame
+   (cgrans and grans) against the port's CPU run, K1 (context mode,
+   order 0) bit-exact and timed on its (17*512, 3060) lane grid, and its
    device-resident context route (context encode -> rans_decode_ctx_grid
    -> synthesis), whose lanes equal the wire decode's;
 3e. the lane-grid modes at full size: B1-B4 in the subband-grid layout
@@ -63,7 +70,8 @@ kernels from vcf_tpu_torch/csrc on first use.  Phases:
    lanes.t() -> grid decode .t() -> grid_unlanes_lmajor -> B4 grid, and
    the wire route (K1 + row mode -> assemble_stream -> K3 .t()); both
    give the IIICodec clip's frames bit for bit; wire bpp, rmse and
-   encode/decode times of both; then a 2-frame perceptual lane-grid clip
+   encode/decode times of both, the wire encode split into K1, the row
+   mode and assemble_stream; then a 2-frame perceptual lane-grid clip
    through the B1/B2 grid modes, equal to the perceptual IIICodec clip;
 4g. IPPCodec's planar grid loop on the 4c clip (benchmarks/bench_ipp.py's
    composition): _gop_encode_grid_batch -> grid lanes -> K1 ->
@@ -135,6 +143,19 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median host-clock ms of `reps` synchronized calls after a warm-up."""
+    fn()
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return sorted(ts)[reps // 2]
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -307,6 +328,17 @@ def phase_kernels(dev, planes: torch.Tensor) -> list:
     library_k2 = cuda_ms(lambda: torch.masked_select(low, flags), 20)
     tab = g * 256 * 4                      # the packed (G, 256) u32 table
     packed = re_.pack_tables(fg, cg, dev)
+    # K1's launch alone: tables packed and the (L, S) copy made before
+    sym_l = lanes.t().contiguous()
+    k1_lanes, k1_tables = re_.encode_plan(s_streams, g)
+    k1_extra = {
+        "also_replaces": "vcf_tpu/ops/pallas/rans_encode.py:773",
+        "launch_ms": cuda_ms(lambda: re_.launch_encode(
+            sym_l, packed, None, g, 0), 20),
+        "lanes_per_block": k1_lanes, "table_mode": k1_tables}
+    print(f"time rans_encode_grouped: launch alone "
+          f"{k1_extra['launch_ms']:.4f} ms ({k1_lanes}-lane blocks, tables "
+          f"in {k1_tables} memory)")
     k3_extra = {
         # the look-back launch alone: tables packed before, no error read
         "launch_ms": cuda_ms(lambda: rd.launch_decode(
@@ -334,9 +366,8 @@ def phase_kernels(dev, planes: torch.Tensor) -> list:
     ]
     # K1 given the transposed view of (L, S) lanes is
     # pallas_encode_grouped_raw_u8 too (timed on those lanes in phase 3e)
-    extras = {"rans_encode_grouped": {
-        "also_replaces": "vcf_tpu/ops/pallas/rans_encode.py:773"},
-        "rans_decode_grouped": k3_extra}
+    extras = {"rans_encode_grouped": k1_extra,
+              "rans_decode_grouped": k3_extra}
     results = []
     for name, src, rep, err, kern, plain, reps_k, reps_p, bnd, lib in rows:
         ms = cuda_ms(kern, reps_k)
@@ -347,6 +378,53 @@ def phase_kernels(dev, planes: torch.Tensor) -> list:
         results.append(kernel_row(name, src, rep, err, ms, plain_ms, bnd, lib,
                                   diff_share=0.0, **extras.get(name, {})))
     return results
+
+
+def phase_k1_ragged(dev) -> None:
+    """3f: K1 in both modes (order 0, 4 and 15 classes) bit-exact against
+    its plain version around its staged tile of T steps (L = 1, T - 1, T,
+    T + 1, 2T + 1) at S = 1100 (not a multiple of a block's lanes, nor of
+    16), and at sg = 2 with 128-lane blocks (S = 16896), whose blocks span
+    65 groups and read their tables from global memory."""
+    from vcf_tpu_torch.entropy import rans
+    from vcf_tpu_torch.ops.cuda import rans_ctx as rc
+    from vcf_tpu_torch.ops.cuda import rans_encode as re_
+
+    t = re_.ENCODE_TILE
+    shapes = [(1, 1100, n) for n in (1, t - 1, t, t + 1, 2 * t + 1)]
+    shapes.append((8448, 2, t + 1))
+    rng = np.random.default_rng(5)
+    for g, sg, l in shapes:
+        syms = torch.from_numpy(rng.integers(0, 256, size=(g * sg, l),
+                                             dtype=np.uint8)).to(dev)
+        # tables of at most 4 groups, repeated (min_all: every symbol
+        # has a frequency)
+        k = min(g, 4)
+        counts = torch.stack([torch.bincount(syms[i * sg:(i + 1) * sg].reshape(
+            -1).long(), minlength=256) for i in range(k)]).cpu().numpy()
+        for n_ctx in (0, 4, 15):
+            if n_ctx:
+                c = rans.ctx_group_histograms(syms[:k * sg], k, n_ctx)
+                fg, cg = rans.ctx_freqs_from_counts(c.cpu().numpy())
+                enc, ref = rc.rans_encode_ctx, rc.rans_encode_ctx_ref
+            else:
+                fg, cg = rans.freqs_from_counts(counts)
+                enc, ref = re_.rans_encode_grouped, re_.rans_encode_grouped_ref
+            fgt = torch.from_numpy(np.resize(fg, (g, *fg.shape[1:])).astype(
+                np.int64)).to(dev)
+            cgt = torch.from_numpy(np.resize(cg, (g, *cg.shape[1:])).astype(
+                np.int64)).to(dev)
+            raw, st = enc(syms, fgt, cgt)
+            raw_p, st_p = ref(syms, fgt, cgt)
+            require(torch.equal(raw, raw_p) and torch.equal(st, st_p),
+                    f"K1 ({n_ctx} classes) at S={g * sg} L={l} G={g} differs "
+                    "from its plain version")
+    plan = [re_.encode_plan(16896, 8448, c) for c in (0, 4, 15)]
+    require(all(p == (128, "global") for p in plan),
+            f"K1 at sg=2, S=16896 did not take global tables: {plan}")
+    print(f"k1 ragged: both modes bit-exact at {len(shapes)} shapes x 3 "
+          f"(S, L, G: {[(g * sg, l, g) for g, sg, l in shapes]}); T={t}; "
+          f"sg=2 plans {plan}")
 
 
 def phase_dct_kernels(dev, frames: np.ndarray) -> list:
@@ -832,7 +910,12 @@ def phase_ctx_kernels(dev, planes: torch.Tensor) -> tuple:
         require(torch.equal(rc.rans_decode_ctx(words, st_k, fg, cg, l), lanes),
                 f"rans_decode_ctx ({n_ctx} classes) without counts (one "
                 "block) differs from the lanes")
+        # the encode's launch alone: tables packed, (L, S) copy made before
+        packed = re_.pack_tables(fg.reshape(-1, 256), cg.reshape(-1, 256), dev)
+        sym_l = lanes.t().contiguous()
         times = {
+            "launch_ms": cuda_ms(lambda: re_.launch_encode(
+                sym_l, packed, lut, g, n_ctx), 20),
             "ms": cuda_ms(lambda: rc.rans_encode_ctx(lanes, fg, cg), 20),
             "plain_ms": cuda_ms(lambda: rc.rans_encode_ctx_ref(lanes, fg, cg),
                                 3),
@@ -853,7 +936,9 @@ def phase_ctx_kernels(dev, planes: torch.Tensor) -> tuple:
               f"bit-exact; {n} words, {n * 16 / lanes.numel():.4f} bits/symbol; "
               f"tables {t_tables:.2f} s (host); decode tables in {mode} memory")
         print(f"time rans_encode_ctx ({n_ctx} classes): kernel "
-              f"{times['ms']:.4f} ms, plain torch {times['plain_ms']:.4f} ms")
+              f"{times['ms']:.4f} ms, plain torch {times['plain_ms']:.4f} ms; "
+              f"launch alone {times['launch_ms']:.4f} ms (plan "
+              f"{re_.encode_plan(s_streams, g, n_ctx)})")
         print(f"time rans_decode_ctx ({n_ctx} classes, {mode} tables): kernel "
               f"{times['dec_ms']:.4f} ms, plain torch "
               f"{times['dec_plain_ms']:.4f} ms; look-back launch alone "
@@ -868,12 +953,12 @@ def phase_ctx_kernels(dev, planes: torch.Tensor) -> tuple:
         extra = {"ms_15_classes": t15[key + "ms"],
                  "plain_ms_15_classes": t15[key + "plain_ms"],
                  "bound_ms_15_classes": t15[key + "bound"]["bound_ms"]}
+        extra["launch_ms"] = t4[key + "launch_ms"]
+        extra["launch_ms_15_classes"] = t15[key + "launch_ms"]
         if also:
             extra["also_replaces"] = f"vcf_tpu/ops/pallas/{also}"
         else:
             extra["table_mode"] = {"4": out[4][2], "15": out[15][2]}
-            extra["launch_ms"] = t4["dec_launch_ms"]
-            extra["launch_ms_15_classes"] = t15["dec_launch_ms"]
         rows.append(kernel_row(
             name, src, rep, max(out[c][err_i] for c in (4, 15)),
             t4[key + "ms"], t4[key + "plain_ms"], t4[key + "bound"],
@@ -936,7 +1021,7 @@ def phase_dwt(dev, frame: np.ndarray) -> dict:
     expect = {"cgrans": ("rans_encode_ctx", "rans_compact", "rans_decode_ctx"),
               "grans": ("rans_encode_grouped", "rans_compact",
                         "rans_decode_grouped")}
-    out = {}
+    out, k1_grid = {}, {}
     for ent in ("cgrans", "grans"):
         cfg = CodecConfig(spatial="dwt", qss=DWT_QSS, entropy=ent)
         codec = Codec(cfg, device=dev)
@@ -978,6 +1063,7 @@ def phase_dwt(dev, frame: np.ndarray) -> dict:
         rmse, rmse_cpu = metrics.rmse(frame, rec), metrics.rmse(frame, rec_cpu)
         require(abs(rmse - rmse_cpu) < 1e-3, f"DWT {ent} rmse {rmse} vs CPU "
                 f"{rmse_cpu}")
+        k1_grid[expect[ent][0]] = dwt_k1_grid(dev, grid, cs["gdwt_model"])
         if ent == "cgrans":
             ctx_launches = dwt_ctx_grid_route(dev, codec, frame, cs, grid, rec)
         torch.cuda.synchronize()
@@ -1002,7 +1088,42 @@ def phase_dwt(dev, frame: np.ndarray) -> dict:
     print(f"dwt: cgrans {out['cgrans']['bpp']:.6f} bpp against grans "
           f"{out['grans']['bpp']:.6f} "
           f"({100 * (out['cgrans']['bpp'] / out['grans']['bpp'] - 1):+.2f}%)")
-    return ctx_launches
+    return ctx_launches, k1_grid
+
+
+def dwt_k1_grid(dev, grid: torch.Tensor, model) -> dict:
+    """4e: K1 (order 0 for grans, the context mode for cgrans) on the DWT
+    frame's (S, L) = (17 * 512, 3060) lane grid with the stream's tables,
+    bit-exact against its plain version; wrapper, launch alone and plain
+    times and the bound, as `*_dwt_grid` keys of the kernel's entry."""
+    from vcf_tpu_torch.entropy import dwt_device as dd
+    from vcf_tpu_torch.ops.cuda import rans_ctx as rc
+    from vcf_tpu_torch.ops.cuda import rans_encode as re_
+
+    g, _, l, *_, fg, cg, n_ctx = dd.unpack_model(model)
+    fgt = torch.from_numpy(fg.astype(np.int64)).to(dev)
+    cgt = torch.from_numpy(cg.astype(np.int64)).to(dev)
+    enc, ref = ((rc.rans_encode_ctx, rc.rans_encode_ctx_ref) if n_ctx
+                else (re_.rans_encode_grouped, re_.rans_encode_grouped_ref))
+    raw, st = enc(grid, fgt, cgt)
+    raw_p, st_p = ref(grid, fgt, cgt)
+    err = max(max_abs_err(raw, raw_p), max_abs_err(st, st_p))
+    require(err == 0, f"K1 ({n_ctx} classes) on the DWT grid differs from "
+            f"its plain version by {err}")
+    packed = re_.pack_tables(fgt.reshape(-1, 256), cgt.reshape(-1, 256), dev)
+    lut = torch.from_numpy(rc.class_lut(n_ctx)).to(dev) if n_ctx else None
+    sym_l = grid.t().contiguous()
+    s_streams = grid.shape[0]
+    out = {"ms_dwt_grid": cuda_ms(lambda: enc(grid, fgt, cgt), 20),
+           "launch_ms_dwt_grid": cuda_ms(lambda: re_.launch_encode(
+               sym_l, packed, lut, g, n_ctx), 20),
+           "plain_ms_dwt_grid": cuda_ms(lambda: ref(grid, fgt, cgt), 2),
+           "bound_ms_dwt_grid": bound(nbytes(grid, raw) + 4 * s_streams
+                                      + packed.numel() * 4)["bound_ms"],
+           "plan_dwt_grid": list(re_.encode_plan(s_streams, g, n_ctx))}
+    print(f"time K1 ({n_ctx} classes) on the DWT grid (S={s_streams} L={l} "
+          f"G={g}; bit-exact): {json.dumps(out)}")
+    return out
 
 
 def dwt_ctx_grid_route(dev, codec, frame: np.ndarray, cs, grid: torch.Tensor,
@@ -1120,7 +1241,8 @@ def phase_grid_kernels(dev, frames: np.ndarray, ctx_grids: dict) -> list:
     lanes, s_streams, cw = grid_lanes_of(k3)
     l = lanes.shape[0]
     fg, cg, _ = grid_tables(dev, lanes)
-    # the (L, S) lanes reach K1 as their transposed view, with no copy
+    # the (L, S) lanes reach K1 as their transposed view (strided: K1's
+    # wrapper makes it contiguous) and as a contiguous (S, L) copy
     raw, st = re_.rans_encode_grouped(lanes.t(), fg, cg)
     raw_t, st_t = re_.rans_encode_grouped(lanes.t().contiguous(), fg, cg)
     raw_p, st_p = re_.rans_encode_grouped_ref(lanes.t(), fg, cg)
@@ -1374,6 +1496,30 @@ def phase_grid_clip(dev, frames: np.ndarray, grans_clip, perceptual_rec
         # the split: B3 grid + laning, and unlaning + B4 grid
         "b3_and_lanes_ms": cuda_ms(lambda: lanes_of(x), 5),
         "unlanes_and_b4_ms": cuda_ms(lambda: frames_of(lanes0), 5)}
+    # the wire encode split: B3 grid + laning (above), K1 (wrapper and
+    # launch alone), the row mode, assemble_stream (CUDA events; it reads
+    # the counts back with .cpu(), a host sync, so its time holds that
+    # round trip), and the whole and assemble_stream by the host clock.
+    # The (L, S) lanes are a strided view of an (S, L) copy, so K1's
+    # wrapper makes them contiguous: `lanes_copy` times that copy.
+    lanes_x = lanes_of(x)
+    lanes_c = lanes_x.contiguous()
+    raw_x, _ = re_.rans_encode_grouped(lanes_x.t(), fg, cg)
+    rows_x, counts_x = re_.rans_compact_rows(raw_x)
+    packed = re_.pack_tables(fg, cg, dev)
+    times["lanes_contiguous"] = lanes_x.is_contiguous()
+    times["wire_encode_split_ms"] = {
+        "k1": cuda_ms(lambda: re_.rans_encode_grouped(lanes_x.t(), fg, cg),
+                      5),
+        "lanes_copy": cuda_ms(lambda: lanes_x.contiguous(), 5),
+        "k1_launch": cuda_ms(lambda: re_.launch_encode(
+            lanes_c, packed, None, fg.shape[0], 0), 5),
+        "rows": cuda_ms(lambda: re_.rans_compact_rows(raw_x), 5),
+        "assemble_stream": cuda_ms(
+            lambda: re_.assemble_stream(rows_x[:, :cap], counts_x), 5),
+        "assemble_stream_host": host_ms(
+            lambda: re_.assemble_stream(rows_x[:, :cap], counts_x), 5),
+        "wire_encode_host": host_ms(lambda: encode_wire(x, cap), 5)}
     report = {"rmse": metrics.rmse(frames, rec_np),
               "wire_bpp": (2 * nw + side) * 8 / (n * h * w),
               "iii_clip_bpp": grans_clip[2], "n_words": nw, "cap": cap,
@@ -1535,6 +1681,7 @@ def main() -> None:
     planes = index_planes(Codec(CodecConfig(entropy="grans"), device=dev),
                           frames)
     results = phase_kernels(dev, planes)
+    phase_k1_ragged(dev)
     results += phase_dct_kernels(dev, frames)
     from vcf_tpu_torch.io import test_video
 
@@ -1556,11 +1703,12 @@ def main() -> None:
     launches.update(phase_ipp(dev, clip))
     launches.update(phase_cgrans_clip(dev, frames, planes, ctx_words,
                                       grans_clip))
-    ctx_grid_launches = phase_dwt(dev, base)
+    ctx_grid_launches, k1_grid = phase_dwt(dev, base)
     grid_launches["rans_decode_ctx_grid"] = \
         ctx_grid_launches["rans_decode_ctx_grid"]
     for row in results:
         row["launches"] = launches[row["name"]]
+        row.update(k1_grid.get(row["name"], {}))
     for row in grid_rows:
         row["launches"] = grid_launches[row["name"].split("[")[0]]
     print(json.dumps({"kernels": results + grid_rows}))

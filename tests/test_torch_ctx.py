@@ -124,9 +124,22 @@ def test_encode_matches_numpy_oracle_and_xla(g, sg, l, n_ctx):
     np.testing.assert_array_equal(counts.numpy(), np.asarray(cx))
 
 
-@pytest.mark.parametrize("g,sg,l,n_ctx,lmajor", [
-    (4, 8, 12, 4, False), (8, 4, 12, 4, True), (2, 32, 8, 15, True)])
-def test_encode_raw_grid_matches_pallas(g, sg, l, n_ctx, lmajor):
+# (G, sg, L, n_ctx, lmajor, unroll): step counts around K1's staged
+# symbol tile of T steps (L = 1, T - 1, T, T + 1, 2T + 1; a tile's lowest
+# step takes its previous symbol from the staged row below it), S not a
+# multiple of any block's lanes or of 16 (1100, 600) or a partial block
+# (144), and sg = 2 (a block spans many groups; on the card their 4-class
+# tables pass 48 KiB and are read from global memory)
+T = tre.ENCODE_TILE
+ENCODE_CASES = [(4, 8, 12, 4, False, 4), (8, 4, 12, 4, True, 4),
+                (2, 32, 8, 15, True, 4), (1, 1100, 1, 4, True, 1),
+                (3, 48, T - 1, 15, False, 1), (2, 300, T, 4, True, 4),
+                (1, 1100, T + 1, 15, True, 1), (16, 2, 2 * T + 1, 4, True, 1)]
+
+
+@pytest.mark.parametrize("g,sg,l,n_ctx,lmajor,u", ENCODE_CASES,
+                         ids=["-".join(map(str, c[:5])) for c in ENCODE_CASES])
+def test_encode_raw_grid_matches_pallas(g, sg, l, n_ctx, lmajor, u):
     """Both TPU context encode kernels (interpret mode) give the plain
     version's raw grid and states; finish_stream_pallas gives K2's
     words."""
@@ -134,20 +147,25 @@ def test_encode_raw_grid_matches_pallas(g, sg, l, n_ctx, lmajor):
     raw, states, words, _ = _encode(syms, fgc, cgc)
     fj, cj = jnp.asarray(fgc), jnp.asarray(cgc)
     s_in = jnp.asarray(syms.T.copy() if lmajor else syms)
-    le, st = jrc.pallas_encode_ctx_raw_u8(s_in, fj, cj, unroll=4, sg=sg,
+    le, st = jrc.pallas_encode_ctx_raw_u8(s_in, fj, cj, unroll=u, sg=sg,
                                           interpret=True, lmajor=lmajor)
     np.testing.assert_array_equal(raw.numpy(), np.asarray(le))
     np.testing.assert_array_equal(states.numpy(),
                                   np.asarray(st).astype(np.int64))
     if n_ctx == 4:      # the packed-class kernel has 4 classes only
         le2, st2 = jrc.pallas_encode_ctx_raw(jnp.asarray(syms), fj, cj,
-                                             unroll=4, sg=sg, interpret=True)
+                                             unroll=u, sg=sg, interpret=True)
         np.testing.assert_array_equal(raw.numpy(), np.asarray(le2))
         np.testing.assert_array_equal(np.asarray(st2), np.asarray(st))
-    wp, nwp, _ = jre.finish_stream_pallas(le, chunk=g * sg * l // 2,
-                                          sg2=64 if sg * g >= 128 else 32,
-                                          radix=2, interpret=True)
-    np.testing.assert_array_equal(words.numpy(), np.asarray(wp)[:int(nwp)])
+    # finish_stream_pallas cuts the grid into two chunks of whole rows of
+    # sg2 entries; the ragged grids do not split so
+    sg2 = 64 if sg * g >= 128 else 32
+    if (g * sg * l) % (2 * sg2) == 0:
+        wp, nwp, _ = jre.finish_stream_pallas(le, chunk=g * sg * l // 2,
+                                              sg2=sg2, radix=2,
+                                              interpret=True)
+        np.testing.assert_array_equal(words.numpy(),
+                                      np.asarray(wp)[:int(nwp)])
 
 
 @pytest.mark.parametrize("g,sg,l,n_ctx", CASES, ids=IDS)

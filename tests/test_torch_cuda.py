@@ -137,6 +137,74 @@ def test_lookback_decode_and_one_pass_compact(dev, g, sg, l):
     assert err1.tolist() == [0, 0] and torch.equal(out1, out)
 
 
+# (G, sg, L) for K1's staged tiles of T steps: L = 1, T - 1, T, T + 1,
+# 2T + 1; S = 1100 (not a multiple of any block's lanes, nor of 16: plain
+# byte loads), a partial block (144), S = 600; sg = 2 far below a block
+# (one block spans many groups: S = 32 and, with 128-lane blocks, 16896,
+# whose tables pass 48 KiB in both modes and are read from global
+# memory); the DWT grid's groups (sg = 512)
+T = re_.ENCODE_TILE
+K1_CASES = [(1, 1100, 1), (1, 1100, T - 1), (1, 1100, T), (1, 1100, T + 1),
+            (1, 1100, 2 * T + 1), (3, 48, T - 1), (2, 300, T),
+            (16, 2, 2 * T + 1), (8448, 2, T + 1), (17, 512, 2 * T + 1)]
+
+
+def _k1_case(g, sg, l, n_ctx, seed):
+    """Symbols and (G, 256) or (G, n_ctx, 256) tables, tiled from those
+    of at most 4 groups (every symbol has a frequency: min_all)."""
+    rng = np.random.default_rng(seed)
+    syms = rng.integers(0, 256, size=(g * sg, l)).astype(np.uint8)
+    k = min(g, 4)
+    if n_ctx:
+        counts = rans.ctx_group_histograms(
+            torch.from_numpy(syms[:k * sg]), k, n_ctx).numpy()
+        fg, cg = rans.ctx_freqs_from_counts(counts)
+    else:
+        fg, cg = rans.freqs_from_counts(np.stack([np.bincount(
+            syms[i * sg:(i + 1) * sg].reshape(-1), minlength=256)
+            for i in range(k)]))
+    return syms, np.resize(fg, (g, *fg.shape[1:])), np.resize(
+        cg, (g, *cg.shape[1:]))
+
+
+@pytest.mark.parametrize("n_ctx", [0, 4, 15])
+@pytest.mark.parametrize("g,sg,l", K1_CASES)
+def test_encode_kernel_ragged_shapes(dev, g, sg, l, n_ctx):
+    """K1 in both modes against its plain version around its tile size,
+    through the wrapper and through launch_encode on a misaligned (L, S)
+    view (plain byte loads); the launch plan is the documented one."""
+    from vcf_tpu_torch.ops.cuda import _build
+
+    assert _build.load().vcf_rans_encode_tile() == T
+    syms, fg, cg = _k1_case(g, sg, l, n_ctx, seed=g + sg + l + n_ctx)
+    s = torch.from_numpy(syms).to(dev)
+    ft, ct = _tables(dev, fg, cg)
+    enc, ref = ((rc.rans_encode_ctx, rc.rans_encode_ctx_ref) if n_ctx
+                else (re_.rans_encode_grouped, re_.rans_encode_grouped_ref))
+    before = enc.launches
+    raw, st = enc(s, ft, ct)
+    raw_p, st_p = ref(s, ft, ct)
+    assert enc.launches == before + 1
+    assert torch.equal(raw, raw_p) and torch.equal(st, st_p)
+    buf = torch.empty(g * sg * l + 3, dtype=torch.uint8, device=dev)
+    sym_l = buf[3:].view(l, g * sg)
+    sym_l.copy_(s.t())
+    if n_ctx:
+        tab = re_.pack_tables(ft.reshape(-1, 256), ct.reshape(-1, 256), dev)
+        lut = torch.from_numpy(rc.class_lut(n_ctx)).to(dev)
+    else:
+        tab, lut = re_.pack_tables(ft, ct, dev), None
+    raw2, st2 = re_.launch_encode(sym_l, tab, lut, g, n_ctx)
+    assert torch.equal(raw2, raw_p) and torch.equal(re_.i32_as_u32(st2), st_p)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lanes = 128
+    while lanes > 32 and -(-g * sg // lanes) < sms:
+        lanes //= 2
+    span = min(g, -(-lanes // sg) + 1)
+    want = "global" if span * max(n_ctx, 1) * 1024 > 48 * 1024 else "shared"
+    assert re_.encode_plan(g * sg, g, n_ctx) == (lanes, want)
+
+
 def test_compact_and_decode_steps_without_words(dev):
     """Lanes that mostly repeat one symbol renormalize rarely: steps with
     no word, and a grid with no flag at all (n_words = 0)."""

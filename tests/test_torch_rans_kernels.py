@@ -27,6 +27,14 @@ from vcf_tpu_torch.ops.cuda import rans_encode as tre
 CASES = [(4, 128, 12, 4), (64, 8, 8, 1), (1, 32, 64, 1), (1, 512, 16, 2),
          (2, 1024, 12, 3)]
 IDS = [f"G{g}-sg{sg}-L{l}-u{u}" for g, sg, l, u in CASES]
+# step counts around K1's staged symbol tile of T steps (L = 1, T - 1, T,
+# T + 1, 2T + 1), S not a multiple of any block's lanes or of 16 (1100,
+# 600) or a partial block (144), and sg = 2, far below a block's lanes,
+# so one block spans many groups
+T = tre.ENCODE_TILE
+RAGGED = [(1, 1100, 1, 1), (3, 48, T - 1, 1), (2, 300, T, 4),
+          (1, 1100, T + 1, 1), (16, 2, 2 * T + 1, 1)]
+RAGGED_IDS = [f"G{g}-sg{sg}-L{l}-u{u}" for g, sg, l, u in RAGGED]
 
 
 def _case(g, sg, l, seed=0):
@@ -56,7 +64,7 @@ def _torch_tables(freqs_g, cums_g):
             torch.from_numpy(cums_g.astype(np.int64)))
 
 
-@pytest.mark.parametrize("g,sg,l,u", CASES, ids=IDS)
+@pytest.mark.parametrize("g,sg,l,u", CASES + RAGGED, ids=IDS + RAGGED_IDS)
 def test_encode_raw_grid_matches_pallas(g, sg, l, u):
     syms, fg, cg = _case(g, sg, l, seed=g + l)
     le_j, st_j = _pallas_raw(g, sg, l, u)
@@ -192,6 +200,16 @@ def test_wrappers_check_inputs():
     with pytest.raises(ValueError, match="uint16"):
         trd.rans_decode_grouped(torch.zeros(3, dtype=torch.int32),
                                 torch.zeros(16, dtype=torch.int64), ft, ct, 4)
+
+
+def test_launch_encode_takes_contiguous_lanes():
+    """K1's launcher reads (L, S) rows: a strided view (the transposed
+    (S, L) lanes) or another dtype raises before anything is built."""
+    syms = torch.zeros((16, 8), dtype=torch.uint8)
+    tab = torch.zeros((1, 256), dtype=torch.int32)
+    for bad in (syms.t(), syms.to(torch.int32)):
+        with pytest.raises(ValueError, match="contiguous"):
+            tre.launch_encode(bad, tab, None, 1, 0)
 
 
 def test_plain_path_does_not_count_launches():

@@ -10,6 +10,7 @@
 #pragma once
 
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 namespace vcf {
@@ -52,6 +53,36 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* total,
   *total = scratch[32];
   __syncthreads();
   return out;
+}
+
+// Asynchronous copies global -> shared (K1's symbol tiles).  A thread's
+// cp_async16 calls between two cp_async_commit calls form one group;
+// cp_async_wait<N> returns once all but the N newest groups of the thread
+// have landed, and a __syncthreads after it makes them visible to the
+// block.  dst and src are 16-byte aligned.  The copy bypasses L1 (.cg):
+// every symbol is read once.  The host branch (the g++ mock) copies at
+// once, so commit and wait have nothing to do there.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"(d), "l"(src) : "memory");
+#else
+  memcpy(dst, src, 16);
+#endif
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;" ::: "memory");
+#endif
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+#endif
 }
 
 // Decoupled look-back (K2 over tiles, K3 over the blocks of one step).

@@ -2,17 +2,39 @@
 // rANS encoder as two passes, the same split as the TPU library path.
 //
 // K1 replaces vcf_tpu/ops/pallas/rans_encode.py:pallas_encode_grouped_raw
-// and, given the transposed view of (L, S) lanes (its (L, S) copy is
-// then no copy), pallas_encode_grouped_raw_u8.
+// and, given the transposed view of (L, S) lanes,
+// pallas_encode_grouped_raw_u8 (it reads (L, S) symbols).
 // One thread per lane walks its L symbols newest first and writes the raw
 // grid word (emit << 16) | (x & 0xFFFF) of decode step t, plus the final
-// state.  What bounds it: the per-lane dependency chain through the state
-// (a 32-bit division per symbol) and 5 bytes of memory traffic per
-// symbol.  The design keeps the state in a register, reads symbols from
-// an (L, S) copy so a warp's per-step loads and stores are contiguous,
-// and keeps the block's tables in shared memory.  The TPU kernel's bf16
-// byte-split table fetch and f32 reciprocal with correction rounds are
-// gone: Hopper has exact integer division and per-thread table loads.
+// state.  What bounds it: 5 bytes of memory traffic per symbol (1 in, 4
+// out) at S = 65536, and at ~2 warps an SM (S = 8704, the DWT grid) the
+// per-lane chain through the state: the emit test, the quotient by the
+// symbol's frequency and a multiply-add per symbol.  The table entry of
+// a step depends on the symbols only, never on the state, so everything
+// but that chain can run ahead of it.  The design:
+// - symbol tiles staged ahead of the chain: a block copies ENC_TILE steps
+//   of its lanes' (L, S) symbols into shared memory with 16-byte
+//   cp.async copies, two stages, so the next tile (lower t) is in flight
+//   while the lanes walk the current one from high t to low t, and no
+//   step waits on a global-memory round trip;
+// - table entries ENC_UNROLL steps ahead: the lane reads the tile's bytes
+//   and their table entries for 8 steps into registers, then runs the 8
+//   chain steps, so the shared-memory loads and the division's
+//   divisor-only part leave the chain; the state stays in a register,
+//   and the quotient is taken once (r = x - q * f);
+// - lanes per block picked at launch (128, 64 or 32): the most that still
+//   gives every SM a block, so S = 8704 runs 136 blocks of 64 lanes
+//   instead of 68 of 128;
+// - the block's tables in shared memory (a template parameter), with the
+//   tiles after them; over 48 KiB in all the launch opts in to more, and
+//   a refused opt-in is an error.  Small sg, whose blocks span many
+//   groups (tables over 48 KiB), reads the tables from global memory.
+// Stores stay one coalesced 4-byte word a lane a step (a warp writes 128
+// contiguous bytes).  The TPU kernel's bf16 byte-split table fetch and f32
+// reciprocal with correction rounds are gone: Hopper has exact integer
+// division and per-thread table loads.  An exact integer reciprocal with
+// one correction, floor((2^32 - 1) / f) taken each step, was slower
+// (encode_ab.py's rcp variant).
 //
 // K1 has two modes, a template parameter: order 0 (above) and the order-1
 // context mode `rans_encode_ctx`, which replaces
@@ -21,15 +43,14 @@
 // context mode each group has n_ctx tables of 256 entries, and the table
 // of symbol t is picked by the class of the lane's previous symbol,
 // cls_lut[syms[t - 1]] (a 256-entry lookup table covers 4 and 15
-// classes alike); symbol 0 takes the class of 128, which is class 0.  The
-// walk from t = L - 1 down loads each symbol once: the symbol read as the
-// previous one at step t is the symbol of step t - 1.  The TPU's
-// byte-split bf16 (class x hi-nibble) matmul fetch and its 2-bit packed
-// class plane are gone: the class is one shared-memory byte lookup.  A
-// block's groups keep their n_ctx tables in shared memory (8 KiB at 4
-// classes, 30 KiB at 15, for the two groups a 128-lane block can touch);
-// small sg, whose blocks span many groups, reads the tables from global
-// memory (use_smem = 0), as order 0 does.
+// classes alike); symbol 0 takes the class of 128, which is class 0.  A
+// context tile stages one row more, the step below its lowest (t0 - 1),
+// so the previous symbol of every step comes from the same tile; below
+// step 0 that row holds 128.  The TPU's byte-split bf16 (class x
+// hi-nibble) matmul fetch and its 2-bit packed class plane are gone: the
+// class is one shared-memory byte lookup.  A block's groups keep their
+// n_ctx tables in shared memory (8 KiB at 4 classes, 30 KiB at 15, for
+// the two groups a 128-lane block can touch).
 //
 // K2 replaces vcf_tpu/ops/pallas/rans_encode.py:finish_stream_pallas.
 // It is a stream compaction of the (L, S) raw grid, row-major over the
@@ -75,7 +96,10 @@
 
 namespace vcf {
 
-constexpr int ENC_THREADS = 128;
+constexpr int ENC_LANES = 128;   // most lanes (threads) of a K1 block
+constexpr int ENC_TILE = 64;     // steps of a staged symbol tile
+constexpr int ENC_UNROLL = 8;    // steps whose table entries load ahead
+static_assert(ENC_TILE % ENC_UNROLL == 0, "a full tile is whole unrolls");
 constexpr int CMP_THREADS = 256;
 constexpr int CMP_VEC = 4;                           // entries per load
 constexpr int CMP_ROUNDS = 4;                        // loads per thread
@@ -84,58 +108,160 @@ constexpr int CMP_TILE = CMP_ROUND * CMP_ROUNDS;     // 4096 entries a tile
 constexpr int ROW_THREADS = 1024;
 constexpr int STATIC_SMEM_LIMIT = 48 * 1024;
 
+// Stage the symbols of steps [t0 - CTX, t0 + rows) of the block's lanes
+// [s0, s0 + blockDim.x) into buf: row k holds step t0 - CTX + k, one byte
+// a lane.  vec: 16-byte cp.async copies, which needs S % 16 == 0 and
+// 16-byte aligned symbols (a 16-lane chunk then lies wholly inside or
+// outside [0, S); chunks past S are left unwritten, their lanes never
+// read); else plain byte loads (ragged S).  The context mode's row of
+// step -1 holds 128, whose class is 0.
+template <bool CTX>
+__device__ __forceinline__ void stage_tile(uint8_t* buf,
+                                           const uint8_t* __restrict__ syms,
+                                           int S, int s0, int t0, int rows,
+                                           int vec) {
+  const int lanes = blockDim.x;
+  const int first = t0 - (CTX ? 1 : 0);
+  const int n = rows + (CTX ? 1 : 0);
+  if (vec) {
+    // a row is lanes / 16 chunks, so one pass of the block covers 16 rows
+    const int per_row = lanes / 16;
+    const int q = threadIdx.x % per_row;
+    const int s = s0 + 16 * q;
+    for (int k = threadIdx.x / per_row; k < n; k += 16) {
+      uint8_t* dst = buf + k * lanes + 16 * q;
+      const int t = first + k;
+      if (t < 0)
+        *reinterpret_cast<uint4*>(dst) = make_uint4(
+            0x80808080u, 0x80808080u, 0x80808080u, 0x80808080u);
+      else if (s < S)
+        cp_async16(dst, syms + (size_t)t * S + s);
+    }
+  } else {
+    const int s = s0 + threadIdx.x;
+    for (int k = 0; k < n; ++k) {
+      const int t = first + k;
+      buf[k * lanes + threadIdx.x] =
+          t < 0 ? 128 : (s < S ? syms[(size_t)t * S + s] : 0);
+    }
+  }
+}
+
+// One step of the state chain (the law of encode_steps_ref); returns the
+// raw word of the step.  The quotient is taken once: one division
+// sequence a step, whose divisor-only part runs ahead of the chain.
+__device__ __forceinline__ uint32_t encode_step(uint32_t& x, uint32_t e) {
+  const uint32_t f = e & 0xFFFFu;
+  const uint32_t emit = (x >> SHIFT_EMIT) >= f ? 1u : 0u;
+  const uint32_t low = x & 0xFFFFu;
+  if (emit) x >>= 16;
+  const uint32_t q = x / f;
+  x = (q << K_PROB) + (x - q * f) + (e >> 16);
+  return low | (emit << 16);
+}
+
+// Steps t0 + rows - 1 down to t0 of one lane.  col: the lane's byte of
+// staged row 0 (rows `lanes` bytes apart); out: raw[t0][s]; t_grp: the
+// lane's group's table(s).  The table entries of ENC_UNROLL steps are
+// read before their chain steps run.
+template <bool CTX>
+__device__ __forceinline__ void encode_tile(const uint8_t* col, int lanes,
+                                            const uint32_t* t_grp,
+                                            const uint8_t* s_lut,
+                                            int32_t* out, int S, int rows,
+                                            uint32_t& x) {
+  constexpr int C = CTX ? 1 : 0;  // staged row of step t0
+  int r = rows - 1;
+  for (; r >= ENC_UNROLL - 1; r -= ENC_UNROLL) {
+    uint32_t e[ENC_UNROLL];
+    if constexpr (CTX) {
+      // sym[u]: step r - u's symbol; sym[u + 1]: its previous one
+      uint32_t sym[ENC_UNROLL + 1];
+#pragma unroll
+      for (int u = 0; u <= ENC_UNROLL; ++u) sym[u] = col[(r + C - u) * lanes];
+#pragma unroll
+      for (int u = 0; u < ENC_UNROLL; ++u)
+        e[u] = t_grp[s_lut[sym[u + 1]] * 256u + sym[u]];
+    } else {
+#pragma unroll
+      for (int u = 0; u < ENC_UNROLL; ++u) e[u] = t_grp[col[(r - u) * lanes]];
+    }
+#pragma unroll
+    for (int u = 0; u < ENC_UNROLL; ++u)
+      out[(size_t)(r - u) * S] = (int32_t)encode_step(x, e[u]);
+  }
+  for (; r >= 0; --r) {
+    const uint32_t e =
+        CTX ? t_grp[s_lut[col[r * lanes]] * 256u + col[(r + 1) * lanes]]
+            : t_grp[col[r * lanes]];
+    out[(size_t)r * S] = (int32_t)encode_step(x, e);
+  }
+}
+
 // CTX = false: order 0, tab (G, 256).  CTX = true: the context mode, tab
 // (G, n_ctx, 256) and cls_lut (256,) the class of each previous symbol.
-template <bool CTX>
-__global__ void __launch_bounds__(ENC_THREADS)
+// SMEM: the tables of the groups the block spans in shared memory, after
+// the two tile stages; else read from global memory.
+template <bool CTX, bool SMEM>
+__global__ void __launch_bounds__(ENC_LANES)
 rans_encode_kernel(const uint8_t* __restrict__ syms,     // (L, S)
-                   const uint32_t* __restrict__ tab,     // (G, rows)
+                   const uint32_t* __restrict__ tab,     // (G, rows_g)
                    const uint8_t* __restrict__ cls_lut,  // (256,), CTX only
                    int32_t* __restrict__ raw,            // (L, S)
                    uint32_t* __restrict__ states,        // (S,)
-                   int S, int L, int sg, int n_ctx, int use_smem) {
-  extern __shared__ uint32_t s_tab[];
+                   int S, int L, int sg, int n_ctx, int vec) {
+  constexpr int ROWS = ENC_TILE + (CTX ? 1 : 0);  // staged rows a stage
+  extern __shared__ __align__(16) uint8_t s_dyn[];
   __shared__ uint8_t s_lut[CTX ? 256 : 1];
-  const int rows = CTX ? n_ctx * 256 : 256;  // table entries per group
-  const int s0 = blockIdx.x * blockDim.x;
+  const int lanes = blockDim.x;
+  const int stage = ROWS * lanes;
+  uint32_t* s_tab = reinterpret_cast<uint32_t*>(s_dyn + 2 * stage);
+  const int rows_g = CTX ? n_ctx * 256 : 256;  // table entries per group
+  const int s0 = blockIdx.x * lanes;
   const int s = s0 + threadIdx.x;
   const int g_lo = s0 / sg;
   if constexpr (CTX) {
-    for (int i = threadIdx.x; i < 256; i += blockDim.x) s_lut[i] = cls_lut[i];
+    for (int i = threadIdx.x; i < 256; i += lanes) s_lut[i] = cls_lut[i];
   }
-  if (use_smem) {
+  if constexpr (SMEM) {
     // the groups this block's lanes span, contiguous in the table
-    const int g_hi = (min(s0 + (int)blockDim.x, S) - 1) / sg;
-    const int n = (g_hi - g_lo + 1) * rows;
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      s_tab[i] = tab[(size_t)g_lo * rows + i];
+    const int g_hi = (min(s0 + lanes, S) - 1) / sg;
+    const int n = (g_hi - g_lo + 1) * rows_g;
+    for (int i = threadIdx.x; i < n; i += lanes)
+      s_tab[i] = tab[(size_t)g_lo * rows_g + i];
   }
-  __syncthreads();
-  if (s >= S) return;
-  const uint32_t* t_grp =
-      use_smem ? s_tab + (s / sg - g_lo) * rows : tab + (size_t)(s / sg) * rows;
+  const int n_tiles = (L + ENC_TILE - 1) / ENC_TILE;  // tile j: steps j * T..
+  if (n_tiles > 0) {
+    const int t0 = (n_tiles - 1) * ENC_TILE;
+    stage_tile<CTX>(s_dyn + ((n_tiles - 1) & 1) * stage, syms, S, s0, t0,
+                    L - t0, vec);
+    cp_async_commit();
+  }
+  const bool live = s < S;
+  const int g = min(s, S - 1) / sg;
+  const uint32_t* t_grp = SMEM ? s_tab + (g - g_lo) * rows_g
+                               : tab + (size_t)g * rows_g;
   uint32_t x = RANS_L;
-  // CTX: the symbol of step t, loaded at step t + 1 as its previous one
-  uint32_t cur = (CTX && L > 0) ? syms[(size_t)(L - 1) * S + s] : 0u;
-  for (int t = L - 1; t >= 0; --t) {
-    const size_t at = (size_t)t * S + s;
-    uint32_t e;
-    if constexpr (CTX) {
-      const uint32_t prev = t > 0 ? syms[at - S] : 128u;
-      e = t_grp[s_lut[prev] * 256u + cur];
-      cur = prev;
+  for (int j = n_tiles - 1; j >= 0; --j) {
+    // the next tile down goes in flight, then this one must have landed
+    if (j > 0) {
+      stage_tile<CTX>(s_dyn + ((j - 1) & 1) * stage, syms, S, s0,
+                      (j - 1) * ENC_TILE, ENC_TILE, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
     } else {
-      e = t_grp[syms[at]];
+      cp_async_wait<0>();
     }
-    const uint32_t f = e & 0xFFFFu;
-    const uint32_t cum = e >> 16;
-    const uint32_t emit = (x >> SHIFT_EMIT) >= f ? 1u : 0u;
-    const uint32_t low = x & 0xFFFFu;
-    if (emit) x >>= 16;
-    x = ((x / f) << K_PROB) + (x % f) + cum;
-    raw[at] = (int32_t)(low | (emit << 16));
+    __syncthreads();  // the tile (and, first time, tables and LUT) visible
+    if (live) {
+      const int t0 = j * ENC_TILE;
+      encode_tile<CTX>(s_dyn + (j & 1) * stage + threadIdx.x, lanes, t_grp,
+                       s_lut, raw + (size_t)t0 * S + s, S,
+                       min(ENC_TILE, L - t0), x);
+    }
+    __syncthreads();  // every lane is done with the stage the next refills
   }
-  states[s] = x;
+  if (live) states[s] = x;
 }
 
 // 8 blocks an SM (at most 32 registers a thread): more tiles in flight
@@ -258,22 +384,69 @@ compact_rows_kernel(const int32_t* __restrict__ raw, int S,
   if (threadIdx.x == 0) counts[blockIdx.x] = run;
 }
 
+template <bool CTX, bool SMEM>
+int launch_encode_smem(const void* syms, const void* tab, const void* cls_lut,
+                       void* raw, void* states, int S, int L, int sg,
+                       int n_ctx, int lanes, size_t smem, void* stream) {
+  const auto kernel = rans_encode_kernel<CTX, SMEM>;
+  if (smem > (size_t)STATIC_SMEM_LIMIT) {
+    const int err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err) return err;
+  }
+  const int vec = S % 16 == 0 && (uintptr_t)syms % 16 == 0;
+  kernel<<<(S + lanes - 1) / lanes, lanes, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)syms, (const uint32_t*)tab, (const uint8_t*)cls_lut,
+      (int32_t*)raw, (uint32_t*)states, S, L, sg, n_ctx, vec);
+  return (int)cudaGetLastError();
+}
+
+// K1's launch shape for S lanes in G groups (n_ctx 0: order 0).
+struct EncodePlan {
+  int lanes;          // a block's lanes: the most of 128, 64, 32 that still
+                      // gives every SM a block (S = 65536: 128; S = 8704,
+                      // the DWT grid: 64; S = 8192: 32)
+  bool smem_tables;   // the spanned groups' tables fit 48 KiB
+  size_t smem;        // dynamic shared memory: tiles (+ tables)
+};
+
+int encode_plan(int S, int G, int n_ctx, EncodePlan* p) {
+  if (S < 1 || G < 1 || S % G) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (!err)
+    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
+  if (err) return err;
+  p->lanes = ENC_LANES;
+  while (p->lanes > 32 && (S + p->lanes - 1) / p->lanes < sms) p->lanes >>= 1;
+  const int sg = S / G;
+  // most groups one block can span: its lanes cover `lanes` consecutive
+  // lanes, which touch at most this many groups of sg lanes
+  const int span = std::min(G, (p->lanes + sg - 1) / sg + 1);
+  const size_t tables =
+      (size_t)span * (n_ctx ? n_ctx : 1) * 256 * sizeof(uint32_t);
+  p->smem_tables = tables <= (size_t)STATIC_SMEM_LIMIT;
+  p->smem = 2 * (size_t)(ENC_TILE + (n_ctx ? 1 : 0)) * p->lanes +
+            (p->smem_tables ? tables : 0);
+  return 0;
+}
+
 template <bool CTX>
 int launch_encode(const void* syms, const void* tab, const void* cls_lut,
                   void* raw, void* states, int S, int L, int G, int n_ctx,
                   void* stream) {
+  EncodePlan p;
+  if (L < 0 || (CTX && n_ctx < 1)) return (int)cudaErrorInvalidValue;
+  const int err = encode_plan(S, G, CTX ? n_ctx : 0, &p);
+  if (err) return err;
   const int sg = S / G;
-  const int blocks = (S + ENC_THREADS - 1) / ENC_THREADS;
-  // most groups one block can span: its lanes cover ENC_THREADS
-  // consecutive lanes, which touch at most this many groups of sg lanes
-  const int span = std::min(G, (ENC_THREADS + sg - 1) / sg + 1);
-  const size_t smem = (size_t)span * (CTX ? n_ctx : 1) * 256 * sizeof(uint32_t);
-  const int use_smem = smem <= (size_t)STATIC_SMEM_LIMIT;
-  rans_encode_kernel<CTX><<<blocks, ENC_THREADS, use_smem ? smem : 0,
-                            (cudaStream_t)stream>>>(
-      (const uint8_t*)syms, (const uint32_t*)tab, (const uint8_t*)cls_lut,
-      (int32_t*)raw, (uint32_t*)states, S, L, sg, n_ctx, use_smem);
-  return (int)cudaGetLastError();
+  if (p.smem_tables)
+    return launch_encode_smem<CTX, true>(syms, tab, cls_lut, raw, states, S,
+                                         L, sg, n_ctx, p.lanes, p.smem,
+                                         stream);
+  return launch_encode_smem<CTX, false>(syms, tab, cls_lut, raw, states, S, L,
+                                        sg, n_ctx, p.lanes, p.smem, stream);
 }
 
 }  // namespace vcf
@@ -296,6 +469,16 @@ int vcf_rans_encode_ctx(const void* syms, const void* tab,
                         int L, int G, int n_ctx, void* stream) {
   return vcf::launch_encode<true>(syms, tab, cls_lut, raw, states, S, L, G,
                                   n_ctx, stream);
+}
+
+int vcf_rans_encode_tile(void) { return vcf::ENC_TILE; }
+
+// K1's plan for S lanes in G groups (n_ctx 0: order 0): the block's lanes
+// times 2, plus 1 if its tables are in shared memory; minus a CUDA error.
+int vcf_rans_encode_plan(int S, int G, int n_ctx) {
+  vcf::EncodePlan p;
+  const int err = vcf::encode_plan(S, G, n_ctx, &p);
+  return err ? -err : 2 * p.lanes + (p.smem_tables ? 1 : 0);
 }
 
 int vcf_rans_compact_tile(void) { return vcf::CMP_TILE; }

@@ -221,8 +221,9 @@ def grid_lanes(planes_grid: torch.Tensor, b: int, s_streams: int,
 
 def grid_lanes_lmajor(planes_grid: torch.Tensor, b: int, s_streams: int,
                       rows: int = 32, cw: int = 128) -> torch.Tensor:
-    """`grid_lanes` in the (L, S) layout that K1 reads (pass it `.t()`,
-    a view): one permute, no transpose of the (S, L) matrix."""
+    """`grid_lanes` as (L, S), the layout K1 reads (pass it `.t()`):
+    a strided view of the (S, L) matrix that `grid_lanes` copies out, so
+    K1's wrapper makes it contiguous (a transposing copy)."""
     xt, g, sg, l = _grid_split(planes_grid, b, s_streams, rows, cw)
     return xt.reshape(g, sg, l).permute(2, 0, 1).reshape(l, g * sg)
 

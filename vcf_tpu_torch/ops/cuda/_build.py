@@ -42,6 +42,8 @@ _IDCT = [_P, _P, _FP, _P, _FP, _I, _I, _I, _I, _I, _F, _I, _I, _P]
 # ctypes never narrows them to a 32-bit int
 _SIGNATURES = {
     "vcf_rans_encode_grouped": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "vcf_rans_encode_tile": [],
+    "vcf_rans_encode_plan": [_I, _I, _I],
     "vcf_rans_compact_tile": [],
     "vcf_rans_compact": [_P, _LL, _I, _I, _P, _P, _P, _P],
     "vcf_rans_compact_rows": [_P, _I, _I, _P, _P, _P],

@@ -39,7 +39,7 @@ from vcf_tpu_torch.ops.cuda.rans_decode import (
     launch_grid, raise_decode_error)
 from vcf_tpu_torch.ops.cuda.rans_encode import (
     K_PROB, _require, _require_cuda, encode_steps_ref, i32_as_u32,
-    pack_tables)
+    launch_encode, pack_tables)
 
 N_CTX = 4
 
@@ -120,22 +120,15 @@ def rans_encode_ctx(syms: torch.Tensor, freqs_gc, cums_gc
     _require_cuda(syms)
     f, c = _check_tables(freqs_gc, cums_gc)
     g, n_ctx = f.shape[:2]
-    s_streams, l = syms.shape
+    s_streams = syms.shape[0]
     _require(s_streams % g == 0, f"{s_streams} lanes do not split into {g} "
              "groups")
     dev = syms.device
-    lib = _build.load()
     tab = pack_tables(f.reshape(g * n_ctx, 256), c.reshape(g * n_ctx, 256),
                       dev)
     lut = torch.from_numpy(class_lut(n_ctx)).to(dev)
-    sym_l = syms.t().contiguous()          # (L, S): coalesced per-step reads
-    raw = torch.empty((l, s_streams), dtype=torch.int32, device=dev)
-    states = torch.empty(s_streams, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.vcf_rans_encode_ctx(
-            sym_l.data_ptr(), tab.data_ptr(), lut.data_ptr(), raw.data_ptr(),
-            states.data_ptr(), s_streams, l, g, n_ctx, _build.stream_of(syms))
-    _build.check(rc, "rans_encode_ctx")
+    # (L, S): the kernel stages tiles of steps x lanes
+    raw, states = launch_encode(syms.t().contiguous(), tab, lut, g, n_ctx)
     rans_encode_ctx.launches += 1
     return raw, i32_as_u32(states)
 

@@ -4,9 +4,11 @@ vcf_tpu/ops/pallas/rans_encode.py).
 K1 `rans_encode_grouped` replaces `pallas_encode_grouped_raw`: syms (S, L)
 u8 with lane s using table s // (S // G) -> the raw grid (L, S) int32 of
 (emit << 16) | low16 in decode-step order, and the final states.  The
-kernel reads (L, S), so the transposed view `lanes.t()` of the (L, S)
-lanes of `entropy.rans.grid_lanes_lmajor` reaches it with no copy: that
-is `pallas_encode_grouped_raw_u8` (either layout).
+kernel reads (L, S): given the transposed view `lanes.t()` of (L, S)
+lanes it is `pallas_encode_grouped_raw_u8` (either layout); a contiguous
+(L, S) tensor reaches it with no copy, any other layout through one
+`contiguous()` copy (the lanes of `entropy.rans.grid_lanes_lmajor` are
+a strided view, so they take that copy).
 K2 `rans_compact` replaces `finish_stream_pallas`: the raw grid -> the
 wire words in (t asc, s asc) order, their count and the per-step counts.
 K2's row mode `rans_compact_rows` packs each row of the raw grid on its
@@ -24,12 +26,15 @@ the kernels.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from vcf_tpu_torch.ops.cuda import _build
 
+#: steps of K1's staged symbol tiles (ENC_TILE in csrc/rans_encode.cu);
+#: the tests' ragged step counts sit around it
+ENCODE_TILE = 64
 K_PROB = 15
 RANS_L = 1 << 16
 MASK = (1 << K_PROB) - 1
@@ -109,33 +114,66 @@ def encode_steps_ref(f_all: torch.Tensor, c_all: torch.Tensor
     return raw, x
 
 
+def encode_plan(s_streams: int, g: int, n_ctx: int = 0) -> Tuple[int, str]:
+    """K1's launch shape on the current card for S lanes in G groups
+    (n_ctx 0: order 0): (lanes a block, "shared" or "global": where its
+    blocks read their groups' tables)."""
+    code = _build.load().vcf_rans_encode_plan(s_streams, g, n_ctx)
+    _build.check(-min(code, 0), "rans_encode_plan")
+    return code // 2, "shared" if code % 2 else "global"
+
+
+def launch_encode(sym_l: torch.Tensor, tab: torch.Tensor,
+                  lut: Optional[torch.Tensor], g: int, n_ctx: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K1 in either mode on the card: sym_l (L, S) uint8
+    contiguous, tab the packed tables ((G, 256) for order 0 with lut None
+    and n_ctx 0; (G * n_ctx, 256) with the (256,) class LUT for the
+    context mode).  Returns (raw (L, S) int32, states (S,) int32 holding
+    the uint32 bits).  The wrappers check the tables and count the
+    launch."""
+    _require(sym_l.dim() == 2 and sym_l.dtype == torch.uint8
+             and sym_l.is_contiguous(),
+             "launch_encode takes contiguous (L, S) uint8 symbols")
+    dev = sym_l.device
+    lib = _build.load()
+    l, s_streams = sym_l.shape
+    raw = torch.empty((l, s_streams), dtype=torch.int32, device=dev)
+    states = torch.empty(s_streams, dtype=torch.int32, device=dev)
+    stream = _build.stream_of(sym_l)
+    with torch.cuda.device(dev):
+        if lut is None:
+            rc = lib.vcf_rans_encode_grouped(
+                sym_l.data_ptr(), tab.data_ptr(), raw.data_ptr(),
+                states.data_ptr(), s_streams, l, g, stream)
+        else:
+            rc = lib.vcf_rans_encode_ctx(
+                sym_l.data_ptr(), tab.data_ptr(), lut.data_ptr(),
+                raw.data_ptr(), states.data_ptr(), s_streams, l, g, n_ctx,
+                stream)
+    _build.check(rc, "rans_encode")
+    return raw, states
+
+
 def rans_encode_grouped(syms: torch.Tensor, freqs_g, cums_g
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """syms (S, L) uint8 (the transposed view of (L, S) lanes is read
-    with no copy), lane s on table s // (S // G); freqs_g/cums_g
+    """syms (S, L) uint8 (the transposed view of contiguous (L, S) lanes
+    is read with no copy), lane s on table s // (S // G); freqs_g/cums_g
     (G, 256).  Returns (raw (L, S) int32 with (emit << 16) | low16 per
     decode step, final states (S,) int64 in [0, 2^32))."""
     _require(syms.dim() == 2 and syms.dtype == torch.uint8,
              f"syms must be (S, L) uint8, got {syms.dtype} "
              f"{tuple(syms.shape)}")
     g = torch.as_tensor(freqs_g).shape[0]
-    s_streams, l = syms.shape
+    s_streams = syms.shape[0]
     _require(g >= 1 and s_streams % g == 0,
              f"{s_streams} lanes do not split into {g} groups")
     if syms.device.type == "cpu":
         return rans_encode_grouped_ref(syms, freqs_g, cums_g)
     _require_cuda(syms)
-    lib = _build.load()
     tab = pack_tables(freqs_g, cums_g, syms.device)
-    # (L, S): coalesced per-step reads
-    sym_l = syms.t().contiguous()
-    raw = torch.empty((l, s_streams), dtype=torch.int32, device=syms.device)
-    states = torch.empty(s_streams, dtype=torch.int32, device=syms.device)
-    with torch.cuda.device(syms.device):
-        rc = lib.vcf_rans_encode_grouped(
-            sym_l.data_ptr(), tab.data_ptr(), raw.data_ptr(),
-            states.data_ptr(), s_streams, l, g, _build.stream_of(syms))
-    _build.check(rc, "rans_encode_grouped")
+    # (L, S): the kernel stages tiles of steps x lanes
+    raw, states = launch_encode(syms.t().contiguous(), tab, None, g, 0)
     rans_encode_grouped.launches += 1
     return raw, i32_as_u32(states)
 
