@@ -36,8 +36,10 @@ kernels from vcf_tpu_torch/csrc on first use.  Phases:
    of the port's CPU BatchCodec), then a perceptual clip of 2 frames,
    through which B1/B2 must launch;
 3c. motion kernels on the lumas of test_video(8, 1088, 1920, seed=7):
-   sad_search with ref = frames 0..6 and cur = frames 1..7 (m=16, s=8)
-   against its plain version (0 differing mvs, SAD max_abs_err 0), and
+   sad_search with ref = frames 0..6 and cur = frames 1..7 (m=16, s=8),
+   and on 2 of those pairs (the IPP loops' launch shape, also timed),
+   against its plain version (0 differing mvs, SAD max_abs_err 0), with
+   the count of displacements its float32 screen sums again, and
    mc_apply_planar / mc_apply (channel-last) on the (7, 3, 1088, 1920)
    float32 frames with seeded mvs in [-8, 8], the frame-edge blocks
    pointing out of the frame, bit-exact; CUDA-event times of each;
@@ -48,7 +50,8 @@ kernels from vcf_tpu_torch/csrc on first use.  Phases:
    encoded ones; the decoded frames equal the encoder's closed-loop
    reconstruction; rmse within 1e-2 of the port's CPU run of the whole
    clip, with the share of mv blocks and indexes that differ, and equal
-   streams when none differs), with warm encode/decode times and the
+   streams when none differs; SAD's launches all take its m=16
+   instance, none its generic mode), with warm encode/decode times and the
    split of each into its device loop and its entropy stage;
 3d. the context modes of K1/K3 at S=65536, L=765, G=64 with 4 and 15
    classes, bit-exact (K3 with counts and without), each also timed as a
@@ -76,8 +79,10 @@ kernels from vcf_tpu_torch/csrc on first use.  Phases:
 4g. IPPCodec's planar grid loop on the 4c clip (benchmarks/bench_ipp.py's
    composition): _gop_encode_grid_batch -> grid lanes -> K1 ->
    grid decode -> _gop_decode_grid_batch; decoder == encoder; mvs and
-   indexes against the port's CPU run of the same loop; rmse, bpp,
-   encode/decode times.
+   indexes against the port's CPU run of the same loop (SAD's m=16
+   instance launched); rmse, bpp, encode/decode times, the GOP-loop
+   encode split by CUDA events into luma, SAD, MC, B3/B4 and the rest,
+   and the SAD screen's second sums on the loop's references.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Any failed check raises (non-zero exit, no result).  The last
@@ -199,11 +204,15 @@ def dct_ops_per_elem(b: int, perceptual: bool = False,
     return 4 * b + 2 + int(perceptual) + 5 * int(color)
 
 
+COUNTS = ("launches", "grid_launches", "generic_launches")
+
+
 def zero_counts(kernels: dict) -> None:
-    """Set every launch count of the wrappers in `kernels` to 0: `launches`
-    and the grid-mode count `grid_launches`."""
+    """Set every launch count of the wrappers in `kernels` to 0: `launches`,
+    the grid-mode count `grid_launches` and the SAD kernel's
+    `generic_launches`."""
     for fn in kernels.values():
-        for attr in ("launches", "grid_launches"):
+        for attr in COUNTS:
             if hasattr(fn, attr):
                 setattr(fn, attr, 0)
 
@@ -691,15 +700,25 @@ def phase_motion_kernels(dev, clip: np.ndarray) -> list:
     x = torch.from_numpy(clip).to(dev)
     luma = motion.to_luma(x)
     ref_l, cur_l = luma[:-1].contiguous(), luma[1:].contiguous()
-    mv_k, sad_k = sk.sad_search(ref_l, cur_l, ME_BLOCK, SEARCH)
-    mv_p, sad_p = sk.sad_search_ref(ref_l, cur_l, ME_BLOCK, SEARCH)
-    torch.cuda.synchronize()
-    n_mv = int((mv_k != mv_p).any(-1).sum())
-    sad_err = float((sad_k - sad_p).abs().max())
-    require(n_mv == 0 and sad_err == 0,
-            f"sad_search differs from its plain version: {n_mv} mvs, "
-            f"SAD max {sad_err}")
+    # the 7 frame pairs, and 2 of them: the IPP loops' launch shape (a
+    # GOP batch of 2)
+    ref2, cur2 = ref_l[:2].contiguous(), cur_l[:2].contiguous()
+    refined = {}
+    for what, r, c in (("7 frames", ref_l, cur_l), ("2 frames", ref2, cur2)):
+        mv_k, sad_k, refined[what] = sk.count_refined(r, c, ME_BLOCK, SEARCH)
+        mv_p, sad_p = sk.sad_search_ref(r, c, ME_BLOCK, SEARCH)
+        torch.cuda.synchronize()
+        n_mv = int((mv_k != mv_p).any(-1).sum())
+        sad_err = float((sad_k - sad_p).abs().max())
+        require(n_mv == 0 and sad_err == 0,
+                f"sad_search differs from its plain version at {what}: "
+                f"{n_mv} mvs, SAD max {sad_err}")
     moving = float((mv_k != 0).any(-1).double().mean())
+    n_disp = (2 * SEARCH + 1) ** 2
+    per_frame = n_disp * (H // ME_BLOCK) * (W // ME_BLOCK)
+    print(f"sad_search screen: {json.dumps(refined)} displacements summed "
+          f"again in float64, of {ref_l.shape[0] * per_frame} / "
+          f"{2 * per_frame}")
 
     g, h, w = cur_l.shape
     frames = x[:-1].permute(0, 3, 1, 2).to(torch.float32).contiguous()
@@ -727,13 +746,16 @@ def phase_motion_kernels(dev, clip: np.ndarray) -> list:
           "channel-last bit-exact")
 
     # SAD: |cur - ref| and the sum, 3 operations per term, float32 in the
-    # function replaced (the kernel's float64 sums are its own choice, C6)
-    sad_ops = 3 * mv_k[..., 0].numel() * (2 * SEARCH + 1) ** 2 * ME_BLOCK ** 2
+    # function replaced (the kernel's float32 screen and float64 second
+    # sums are its own choice, C6): a floor that CUDA-core adds, which
+    # the 67 TFLOP/s rate counts as half an FMA, cannot reach
+    n_blocks = ref_l.shape[0] * (h // ME_BLOCK) * (w // ME_BLOCK)
+    sad_ops = 3 * n_blocks * n_disp * ME_BLOCK ** 2
     rows = [
         ("sad_search", "sad_kernel.py:58", "sad_kernel.py:141", sad_err,
          lambda: sk.sad_search(ref_l, cur_l, ME_BLOCK, SEARCH),
          lambda: sk.sad_search_ref(ref_l, cur_l, ME_BLOCK, SEARCH),
-         bound(nbytes(ref_l, cur_l, mv_k, sad_k), sad_ops)),
+         bound(nbytes(ref_l, cur_l) + n_blocks * 12, sad_ops)),
         ("mc_apply_planar", "mc_kernel.py:115", "mc_kernel.py:103", mc_err,
          lambda: mk.mc_apply_planar(frames, mv_t, ME_BLOCK),
          lambda: mk.mc_apply_planar_ref(frames, mv_t, ME_BLOCK),
@@ -747,12 +769,39 @@ def phase_motion_kernels(dev, clip: np.ndarray) -> list:
         results.append(kernel_row(name, "motion.cu", rep, err, ms, plain_ms,
                                   bnd, also_replaces=f"vcf_tpu/ops/pallas/{also}",
                                   diff_share=0.0))
+    sad_row = results[0]
+    sad_row["ms_2_frames"] = cuda_ms(
+        lambda: sk.sad_search(ref2, cur2, ME_BLOCK, SEARCH), 20)
+    sad_row["mode"] = sad_mode(ME_BLOCK)
+    sad_row["refined"] = refined
+    print(f"time sad_search at 2 frames: {sad_row['ms_2_frames']:.4f} ms "
+          f"({sad_row['mode']})")
     print(f"time mc_apply (channel-last): kernel "
           f"{cuda_ms(lambda: mk.mc_apply(frames_cl, mv_t, ME_BLOCK), 20):.4f}"
           f" ms, plain torch "
           f"{cuda_ms(lambda: mk.mc_apply_ref(frames_cl, mv_t, ME_BLOCK), 3):.4f}"
           " ms")
     return results
+
+
+def sad_mode(m: int) -> str:
+    """The SAD kernel's mode for block size m."""
+    from vcf_tpu_torch.ops.cuda import sad_kernel as sk
+
+    if m in sk.INSTANCES:
+        return f"sad_search_kernel<{m}>, float32 screen + float64 refinement"
+    return "sad_search_generic_kernel"
+
+
+def require_sad_instance(what: str) -> None:
+    """The IPP paths' SAD launches took the block-size instance."""
+    from vcf_tpu_torch.ops.cuda import sad_kernel as sk
+
+    require(sk.sad_search.launches > 0 and
+            sk.sad_search.generic_launches == 0,
+            f"{what}: the SAD kernel's generic mode launched "
+            f"({sk.sad_search.generic_launches} of "
+            f"{sk.sad_search.launches})")
 
 
 def ipp_split(ipp, clip: np.ndarray) -> dict:
@@ -806,8 +855,7 @@ def phase_ipp(dev, clip: np.ndarray) -> dict:
                        me_block=ME_BLOCK, search_range=SEARCH)
     ccfg = CodecConfig(entropy="grans", subbands=False)
     ipp = video.get(vcfg, ccfg, dev)
-    for fn in kernels.values():
-        fn.launches = 0
+    zero_counts(kernels)
     t0 = time.perf_counter()
     cs = ipp.encode(clip)
     blob = cs.to_bytes()
@@ -819,6 +867,7 @@ def phase_ipp(dev, clip: np.ndarray) -> dict:
     print(f"ipp path: launches {launches}")
     for name, count in launches.items():
         require(count > 0, f"kernel {name} was not launched on the IPP path")
+    require_sad_instance("IPP path")
 
     side = {name[len("clip."):]: cs2[name] for name in cs2
             if name.startswith("clip.") and name != "clip.payload"}
@@ -1571,6 +1620,64 @@ def phase_grid_clip(dev, frames: np.ndarray, grans_clip, perceptual_rec
     return launches, p_launches
 
 
+def gop_encode_split(enc, gops: torch.Tensor) -> tuple:
+    """CUDA-event split of one planar grid GOP-loop encode `enc(gops)` into
+    its luma, SAD, MC and B3/B4 calls (events recorded around each call,
+    through timing wrappers swapped in for the module functions the loop
+    calls, for this run only) and the rest (clip, round, stacks); and the
+    (ref, cur) lumas of its SAD calls."""
+    from vcf_tpu_torch.ops import motion
+    from vcf_tpu_torch.ops.cuda import dct_kernel as dk
+    from vcf_tpu_torch.ops.cuda import mc_kernel as mk
+    from vcf_tpu_torch.ops.cuda import sad_kernel as sk
+
+    targets = {"luma": (motion, "to_luma"), "SAD": (sk, "sad_search"),
+               "MC": (mk, "mc_apply_planar"),
+               "B3 grid": (dk, "fused_cdct_quantize"),
+               "B4 grid": (dk, "fused_dequantize_cdct")}
+    events = {key: [] for key in targets}
+    lumas = []
+
+    def timed(key, fn):
+        def call(*args, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*args, **kw)
+            ev[1].record()
+            events[key].append(ev)
+            if key == "SAD":
+                lumas.append(args[:2])
+            return out
+        # the wrappers count their launches on their module's name
+        for attr in COUNTS:
+            if hasattr(fn, attr):
+                setattr(call, attr, 0)
+        return call
+
+    saved = {key: getattr(mod, name) for key, (mod, name) in targets.items()}
+    for key, (mod, name) in targets.items():
+        setattr(mod, name, timed(key, saved[key]))
+    try:
+        enc(gops)        # warm: the wrappers' first calls
+        for ev in events.values():
+            ev.clear()
+        lumas.clear()
+        torch.cuda.synchronize()
+        whole = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        whole[0].record()
+        enc(gops)
+        whole[1].record()
+        torch.cuda.synchronize()
+    finally:
+        for key, (mod, name) in targets.items():
+            setattr(mod, name, saved[key])
+    split = {key: sum(a.elapsed_time(b) for a, b in ev)
+             for key, ev in events.items()}
+    split["other"] = whole[0].elapsed_time(whole[1]) - sum(split.values())
+    split["whole"] = whole[0].elapsed_time(whole[1])
+    return split, lumas
+
+
 def phase_ipp_grid(dev, clip: np.ndarray) -> dict:
     """4g: IPPCodec's planar grid loop (benchmarks/bench_ipp.py:57-172)."""
     import zlib
@@ -1630,6 +1737,7 @@ def phase_ipp_grid(dev, clip: np.ndarray) -> dict:
     for name, count in launches.items():
         require(count > 0, f"kernel {name} was not launched on the IPP grid "
                 "path")
+    require_sad_instance("IPP grid path")
     require(torch.equal(recs, ipp.last_grid_recon),
             "the grid decoder differs from the encoder's reconstruction")
     rec = torch.clamp(torch.round(recs), 0, 255).to(torch.uint8).permute(
@@ -1660,6 +1768,13 @@ def phase_ipp_grid(dev, clip: np.ndarray) -> dict:
     dec_ms = cuda_ms(lambda: decode_full(raw, st, mvs), 3)
     loop_ms = {"encode: GOP loop": cuda_ms(lambda: enc(gops), 3),
                "decode: GOP loop": cuda_ms(lambda: dec(planes, mvs), 3)}
+    split, lumas = gop_encode_split(enc, gops)
+    refined = sum(sk.count_refined(r, c, ME_BLOCK, SEARCH)[2]
+                  for r, c in lumas)
+    print(f"ipp grid GOP-loop encode split (ms, CUDA events around each "
+          f"call): {json.dumps(split)}; SAD screen on the loop's "
+          f"references: {refined} of {len(lumas) * mvs[:, 0, ..., 0].numel() * (2 * SEARCH + 1) ** 2}"
+          " displacements summed again in float64")
     report = {"rmse": rmse, "rmse_cpu": rmse_cpu,
               "bpp": (2 * int(nw) + side + mv_bytes) * 8 / (n * h * w),
               "cpu_run": f"GOP loop, {cpu_s:.1f} s",

@@ -18,8 +18,10 @@ indexes and the codecs' indexes follow the +-1 rule (a float32 sum taken
 in another order moves an index by at most 1, on at most 0.01% of
 entries); B2 planes within 1e-3 absolute; decoded pixels from identical
 planes d.max() <= 1 on < 0.1% of entries; rmse agrees to 3 decimals.
-The SAD kernel sums in float64, exactly, so its mvs and SADs equal the
-plain version's; motion compensation is a copy, bit-exact.
+The SAD kernel's float32 screen keeps every minimiser and its float64
+sums are exact, so its mvs and SADs equal the plain version's in both
+modes (block-size instances and the generic kernel); motion compensation
+is a copy, bit-exact.
 """
 
 import numpy as np
@@ -35,6 +37,7 @@ from vcf_tpu_torch.io import test_video as make_test_video
 from vcf_tpu_torch.ops import color as color_ops
 from vcf_tpu_torch.ops import dct as dct_ops
 from vcf_tpu_torch.ops import motion
+from vcf_tpu_torch.ops.cuda import _build
 from vcf_tpu_torch.ops.cuda import dct_kernel as dk
 from vcf_tpu_torch.ops.cuda import mc_kernel as mk
 from vcf_tpu_torch.ops import dwt as dwt_ops
@@ -388,9 +391,29 @@ def test_iii_on_cuda_matches_cpu(dev, entropy_name):
                - metrics.rmse(frames, cpu.decode(cs_c))) < 1e-3
 
 
-# (G, H, W, m, s): both block sizes and ranges, G > 1, non-square frames
+# (G, H, W, m, s): every block-size instance (4, 8, 16, 32) and the
+# generic mode (m = 6, 5: no instance), ranges 0..8, G > 1 and G = 1,
+# non-square frames, odd block counts (7 x 3 blocks at m = 16; a row that
+# leaves the last CTA ragged)
 SAD_CASES = [(3, 48, 80, 8, 4), (2, 64, 96, 16, 8), (1, 32, 160, 16, 4),
-             (4, 56, 48, 8, 8)]
+             (4, 56, 48, 8, 8), (2, 48, 112, 16, 8), (1, 48, 112, 16, 8),
+             (2, 24, 44, 4, 3), (2, 64, 96, 32, 8), (1, 96, 160, 32, 2),
+             (2, 48, 72, 6, 3), (1, 45, 60, 5, 2), (2, 32, 48, 16, 0),
+             (1, 32, 80, 16, 1)]
+
+
+def _sad_equal(ref, cur, m, s):
+    """The kernel's mvs and SADs equal the plain version's; one launch,
+    counted as generic exactly when m has no instance."""
+    before = sk.sad_search.launches
+    generic = sk.sad_search.generic_launches
+    mv, sad = sk.sad_search(ref, cur, m, s)
+    mv_p, sad_p = sk.sad_search_ref(ref, cur, m, s)
+    assert torch.equal(mv, mv_p) and torch.equal(sad, sad_p)
+    assert sk.sad_search.launches == before + 1
+    assert sk.sad_search.generic_launches == generic + int(
+        m not in sk.INSTANCES)
+    return mv, sad
 
 
 @pytest.mark.parametrize("g,h,w,m,s", SAD_CASES)
@@ -398,22 +421,71 @@ def test_sad_kernel_matches_plain_version(dev, g, h, w, m, s):
     frames = make_test_video(g + 1, h, w, seed=g + h)
     luma = motion.to_luma(torch.from_numpy(frames).to(dev))
     ref, cur = luma[:-1].contiguous(), luma[1:].contiguous()
-    before = sk.sad_search.launches
-    mv, sad = sk.sad_search(ref, cur, m, s)
-    mv_p, sad_p = sk.sad_search_ref(ref, cur, m, s)
-    assert torch.equal(mv, mv_p) and torch.equal(sad, sad_p)
-    assert sk.sad_search.launches == before + 1
+    _sad_equal(ref, cur, m, s)
     # ties (a flat frame pair): the first minimum in row-major order wins
     rng = np.random.default_rng(h)
     flat = torch.from_numpy(rng.integers(0, 3, (2, g, h, w)).astype(
         np.float32)).to(dev)
-    mv, sad = sk.sad_search(flat[0], flat[1], m, s)
-    mv_p, sad_p = sk.sad_search_ref(flat[0], flat[1], m, s)
-    assert torch.equal(mv, mv_p) and torch.equal(sad, sad_p)
+    _sad_equal(flat[0], flat[1], m, s)
     # one frame without the GOP axis
-    mv1, _ = sk.sad_search(ref[0], cur[0], m, s)
+    mv1, _ = _sad_equal(ref[0], cur[0], m, s)
     assert torch.equal(mv1, sk.sad_search(ref, cur, m, s)[0][0])
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("g,h,w,m,s", SAD_CASES)
+def test_sad_kernel_ties_and_near_ties(dev, g, h, w, m, s):
+    """Every displacement tying at a nonzero SAD (a constant frame under a
+    brightness change: every screened sum is a candidate), and crafted
+    near ties (rows constant along x plus 2^-14 steps, the current frame
+    the next row + 50: every dx of dy = 1 within the screen's bound of
+    each other, the exact sums apart by multiples of 2^-14)."""
+    flat = torch.full((g, h, w), 37.114, dtype=torch.float32, device=dev)
+    mv, sad = _sad_equal(flat, flat + 3.25, m, s)
+    assert bool((mv == -s).all()) and bool((sad == 3.25 * m * m).all())
+    rng = np.random.default_rng(w + s)
+    rows = rng.integers(0, 200, (g, h + 1, 1)).astype(np.float32)
+    steps = rng.integers(0, 2, (g, h + 1, w)).astype(np.float32) * 2.0 ** -14
+    ref = torch.from_numpy(rows[:, :h] + steps[:, :h]).to(dev)
+    cur = torch.from_numpy(np.broadcast_to(rows[:, 1:] + 50.0, (g, h, w))
+                           .copy()).to(dev)
+    _sad_equal(ref, cur, m, s)
+    torch.cuda.synchronize()
+
+
+def test_sad_kernel_takes_every_range_accepted_before(dev):
+    """Shared memory: the C entry's gate equals `smem_bytes` under the
+    wrapper's limits, and every (m, s) the first design took (its window
+    and block in 48 KiB of float64) still runs, bit-exact, up to the
+    largest range of each instance."""
+    lib = _build.load()
+    for m in (1, 3, 4, 5, 8, 12, 16, 32):
+        for s in range(0, 61):
+            limit = sk.MAX_SMEM if m in sk.INSTANCES else sk.MAX_SMEM_GENERIC
+            want = sk.smem_bytes(m, s)
+            assert lib.vcf_sad_smem(m, s) == (want if want <= limit else -1)
+            if ((m + 2 * s) ** 2 + m * m) * 8 <= 48 * 1024:
+                assert want <= limit
+    rng = np.random.default_rng(3)
+    for m, s in ((4, 37), (8, 34), (16, 30), (32, 19), (32, 44), (6, 20)):
+        lumas = torch.from_numpy(rng.integers(0, 256, (2, 1, 2 * m, 3 * m))
+                                 .astype(np.float32)).to(dev)
+        _sad_equal(lumas[0], lumas[1], m, s)
+    torch.cuda.synchronize()
+
+
+def test_sad_count_refined(dev):
+    """count_refined: the kernel's outputs, and the screen's second sums
+    (none where every minimum is 0 or alone; all 2s + 1 dx of dy = 1 on
+    the near ties above, per block)."""
+    g, h, w, m, s = 2, 48, 112, 16, 8
+    x = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (g, h, w)).astype(np.float32)).to(dev)
+    mv, sad, n = sk.count_refined(x, x, m, s)
+    assert n == 0 and bool((mv == 0).all()) and bool((sad == 0).all())
+    flat = torch.full((g, h, w), 9.0, dtype=torch.float32, device=dev)
+    _, _, n = sk.count_refined(flat, flat + 1.0, m, s)
+    assert n == g * (h // m) * (w // m) * (2 * s + 1) ** 2
 
 
 @pytest.mark.parametrize("g,h,w,m,s", SAD_CASES)

@@ -211,6 +211,67 @@ def test_sad_is_independent_of_summation_order():
     assert len(f32_sums) > 1
 
 
+def _screen_blocks(kind, m, n_blocks, rng):
+    """(a, b) float32 (n_blocks, m * m) block pairs, both multiples of
+    2^-27 below 256 (lumas), so the float64 sums of |a - b| are exact."""
+    if kind == "integer":
+        a, b = (rng.integers(0, 256, (2, n_blocks, m * m)).astype(np.float32))
+        return a, b
+    px = rng.integers(0, 256, (2, n_blocks * m * m, 3)).astype(np.uint8)
+    a, b = tm.to_luma(torch.from_numpy(px)).numpy().reshape(2, n_blocks,
+                                                           m * m)
+    if kind == "cancellation":
+        # b within a few ulp of a (terms of a few 2^-16) among 5% large
+        # terms, beside which the float32 sum loses the small ones' bits
+        a = np.maximum(a, np.float32(128.0))
+        steps = rng.integers(-3, 4, a.shape) * np.float32(2.0 ** -16)
+        b = a + steps.astype(np.float32)
+        big = rng.random(a.shape) < 0.05
+        b[big] = np.float32(0.114)
+    return a, b
+
+
+@pytest.mark.parametrize("kind", ["luma", "integer", "cancellation"])
+@pytest.mark.parametrize("m", [4, 8, 16, 32])
+def test_sad_screen_bound(m, kind):
+    """The float32 screen's bound: the recursive float32 sum F of
+    fl(|a - b|) (the kernel's term order, row-major) is within
+    screen_bound(m) * S of the exact sum S, and screen_bound(m) is
+    (m^2 + 1) u / (1 - (m^2 + 1) u), u = 2^-24, rounded up."""
+    from fractions import Fraction
+
+    nu = Fraction(m * m + 1, 2 ** 24)
+    g = nu / (1 - nu)
+    bound = sk.screen_bound(m)
+    assert Fraction(bound) >= g and Fraction(bound) - g < g * 2 ** -50
+    a, b = _screen_blocks(kind, m, 4096 // m, np.random.default_rng(m))
+    terms = np.abs(a - b)                                     # float32
+    f = np.cumsum(terms, axis=1, dtype=np.float32)[:, -1].astype(np.float64)
+    exact = np.abs(a.astype(np.float64) - b.astype(np.float64)).sum(axis=1)
+    assert np.all(np.abs(f - exact) <= bound * exact)
+    if kind != "integer":          # the float32 sums do round here
+        assert np.any(f != exact)
+
+
+@pytest.mark.parametrize("m", [4, 8, 16, 32, 6])
+def test_sad_gate_keeps_every_shape_accepted_before(m):
+    """Every (m, s) the first kernel design took (its float64 window and
+    block in 48 KiB) still passes the wrapper's gate; past the gate of the
+    mode m takes (an instance's 227 KiB, the generic mode's 48 KiB) it
+    raises."""
+    x = torch.zeros((m, m))
+    s = 0
+    while ((m + 2 * s) ** 2 + m * m) * 8 <= 48 * 1024:
+        sk._check(x, x, m, s)
+        s += 1
+    limit = sk.MAX_SMEM if m in sk.INSTANCES else sk.MAX_SMEM_GENERIC
+    while sk.smem_bytes(m, s) <= limit:
+        sk._check(x, x, m, s)
+        s += 1
+    with pytest.raises(ValueError, match="shared memory"):
+        sk._check(x, x, m, s)
+
+
 MC_CASES = [(64, 128, 16, 4), (96, 160, 16, 8), (64, 256, 8, 4)]
 
 
@@ -264,4 +325,6 @@ def test_kernel_wrappers_reject_other_devices():
         mk.mc_apply_planar(torch.empty((3, 32, 32), device="meta"),
                            torch.zeros((2, 2, 2), dtype=torch.int32), 16)
     with pytest.raises(ValueError, match="shared memory"):
-        sk.sad_search(torch.zeros(64, 64), torch.zeros(64, 64), 32, 24)
+        sk.sad_search(torch.zeros(64, 64), torch.zeros(64, 64), 32, 70)
+    with pytest.raises(ValueError, match="only on CUDA"):
+        sk.count_refined(torch.zeros(64, 64), torch.zeros(64, 64), 32, 4)

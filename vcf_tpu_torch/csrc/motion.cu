@@ -9,23 +9,58 @@
 // (the coordinate clamp is the edge pad of ops/motion.py) and writes the
 // (dy, dx) of the FIRST minimum and its SAD.  The TPU kernel wrote a
 // (D, nby, nbx) SAD volume to HBM and reduced it in XLA; here the argmin
-// stays in the CTA and nothing but the winner leaves it.  The tiling and
-// VMEM gates of the TPU variants have no counterpart.
+// stays in the CTA and nothing but the winner leaves it.
 //
-// What bounds it: arithmetic, not memory.  At 1088x1920, m=16, s=8 a
-// frame is 8160 blocks x 289 displacements x 256 terms (~0.6 G terms),
-// against 8 MB of luma read.  Design: one CTA per block; the current block
-// and the clamped (m + 2s)^2 reference window (32 x 32 at m=16, s=8) are
-// staged once in shared memory; one thread per displacement (looping when
-// there are more displacements than threads) sums its m x m terms out of
-// shared memory, the current block's value a broadcast.  The CTA argmin
-// compares (sad, d) pairs lexicographically, so the first minimum wins
-// whatever the order of the reduction.
+// What bounds it: arithmetic.  At 1088x1920, m=16, s=8 a frame is 8160
+// blocks x 289 displacements x 256 terms (~0.6 G terms) against 8 MB of
+// luma read, and a term is a subtract and an add of its absolute value.
+// The first design (one thread a displacement, float64 sums out of shared
+// memory) loaded 2 shared values a term: shared-memory bandwidth set its
+// pace.
 //
-// Precision: the terms are summed in float64, where a block's sum of
-// |a - b| over float32 lumas in [0, 255] is exact in any order (every
-// nonzero luma is a multiple of 2^-27, a block's SAD < 2^18), so kernel and
-// plain version agree bit for bit.  The SAD is cast to float32 on output.
+// Design (m = 4, 8, 16, 32: sad_search_kernel<M, R, SCREEN>).  A CTA takes
+// bx_cta horizontally adjacent blocks of one block row (sad_plan picks the
+// count that leaves the fewest lanes idle: 15 at m=16, s=8, 255 items in
+// 256 threads) and stages their current blocks and the union of their
+// clamped reference windows, (M + 2s) rows, once in shared memory, each
+// warp a row with 8 loads in flight a thread.  A work item is (block, dy,
+// a run of R consecutive dx; R = 17 or 9, whichever covers 2s + 1 with
+// fewer slots); a thread takes items in turn and keeps the run's R sums in
+// registers.  Per window row it loads chunks of 8 current and 8 + R - 1
+// reference values into registers and adds R x 8 terms (32 shared loads
+// for 136 terms at R = 17), so the adds, not the loads, set the pace.
+// Lanes of a warp are consecutive dy of one run: rows an odd pitch apart,
+// so the reference loads meet no bank conflict; the current values are a
+// broadcast.
+//
+// Exactness: every nonzero luma is >= 0.114, so a multiple of 2^-27, and
+// a block's SAD is < 2^18, so a float64 sum of |a - b| is exact in any
+// order (at most 45 bits).  The argmin compares (sad, d) pairs
+// lexicographically, first along a run, then across a block's items (one
+// warp a block), so the first minimum wins whatever the order; kernel and
+// plain version agree bit for bit on mvs and SADs.  The SAD is cast to
+// float32 on output.
+//
+// SCREEN (shipped; SAD_SCREEN false gives the float64 pass alone): the
+// sums are taken in float32 (FADD, then FADD of the absolute value; no
+// multiply, so nothing contracts), at twice the float64 add rate, from a
+// float32 copy of the window, which also halves the shared memory a CTA
+// needs.  For m^2 terms with unit roundoff u = 2^-24 the float32 sum F
+// obeys |F - S| <= g S against the exact sum S, g = (m^2 + 1) u / (1 -
+// (m^2 + 1) u).  Every d with F_d <= F_min (1 + g) / (1 - g) (the factor
+// rounded up) is a candidate: every minimiser of S is one, and every other
+// d has S_d > S_min.  F_d = 0 is exact (every fl(a - b) was then 0) and
+// needs no second sum; the items with other candidates go on a list, and
+// a warp takes each listed item's float64 sums (a lane a row, converting
+// the staged values), so the (S, d) minimum over the candidates is the
+// answer.  On natural video few displacements are candidates (1383 of
+// 16.5 M on the 7-frame test clip); when all of them tie at a nonzero SAD
+// (a flat patch under a brightness change) the second sums cost ~3x the
+// float64 pass.
+//
+// Other block sizes take sad_search_generic_kernel, the first design: one
+// CTA per block, one thread per displacement, float64 sums out of shared
+// memory.
 //
 // mc_kernel replaces mc_apply_planar (vcf_tpu/ops/pallas/mc_kernel.py:115)
 // and, as its CHANNEL_LAST mode, mc_apply (:103):
@@ -37,28 +72,346 @@
 // channel-last mode).  A copy, so it is bit-exact; memory-bound.
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
 namespace vcf {
 
+// generic mode: its window in the 48 KB a launch gets without opt-in
 constexpr int SAD_MAX_SMEM = 48 * 1024;
 constexpr int SAD_MAX_THREADS = 1024;
+// the block-size instances
+constexpr bool SAD_SCREEN = true;       // float32 screen, float64 refinement
+constexpr int SAD_RUN_SHORT = 9;        // dx values a work item sums: 9 or
+constexpr int SAD_RUN_LONG = 17;        // 17, whichever wastes fewer
+constexpr int SAD_CHUNK = 8;            // current values a register chunk
+constexpr int SAD_STAGE = 8;            // loads in flight a staging thread
+constexpr int SAD_CTA_THREADS = 320;
+constexpr int SAD_MAX_BLOCKS = 32;      // blocks a CTA may take
+constexpr int SAD_SMEM_TARGET = 100 * 1024;   // two CTAs an SM
+constexpr int SAD_OPTIN_SMEM = 227 * 1024;    // one block's CTA at most
 constexpr int MC_THREADS = 256;
+
+// The run length for n = 2s + 1 displacements a row: the one whose runs
+// cover n with fewer slots (17 for s = 8, 9 for s = 4).
+__host__ __device__ inline int sad_run_for(int n) {
+  const int r_long = (n + SAD_RUN_LONG - 1) / SAD_RUN_LONG * SAD_RUN_LONG;
+  const int r_short = (n + SAD_RUN_SHORT - 1) / SAD_RUN_SHORT * SAD_RUN_SHORT;
+  return r_long <= r_short ? SAD_RUN_LONG : SAD_RUN_SHORT;
+}
+
+// Row pitch of the staged window, in elements: the columns bx blocks need
+// (the last run may reach past dx = 2s), made odd.
+__host__ __device__ inline int sad_pitch(int m, int s, int bx, int run) {
+  const int runs = (2 * s + run) / run;
+  return ((bx - 1) * m + runs * run - 1 + m) | 1;
+}
+
+// Dynamic shared memory of a CTA of bx blocks: each item's best sum and
+// displacement, the window and the current blocks (each padded by one
+// element) in float32 with SCREEN (then also each item's float32 sums, a
+// block's minimum and the list of items to refine), else in float64.
+inline long long sad_smem(int m, int s, int bx) {
+  const int n = 2 * s + 1, run = sad_run_for(n);
+  const long long items = (long long)bx * n * ((n + run - 1) / run);
+  const long long stage = (long long)(m + 2 * s) * sad_pitch(m, s, bx, run) +
+                          (long long)bx * (m * m + 1);
+  if (SAD_SCREEN) return 4 * stage + (16 + 4LL * run) * items + 4 * bx;
+  return 8 * stage + 12 * items;
+}
 
 __device__ __forceinline__ bool sad_better(double a, int da, double b,
                                            int db) {
   return a < b || (a == b && da < db);
 }
 
-// ref, cur (G, H, W) f32; mv (G, nby, nbx, 2) i32; sad (G, nby, nbx) f32.
-// Grid (nbx, nby, G); blockDim a multiple of 32; dynamic shared memory
-// ((m + 2s)^2 + m^2) doubles.
-__global__ void sad_search_kernel(const float* __restrict__ ref,
-                                  const float* __restrict__ cur,
-                                  int* __restrict__ mv,
-                                  float* __restrict__ sad, int H, int W,
-                                  int m, int s) {
+__device__ __forceinline__ double abs_diff(double a, double b) {
+  return fabs(a - b);
+}
+__device__ __forceinline__ float abs_diff(float a, float b) {
+  return fabsf(a - b);
+}
+
+// acc[k] += sum over xx < M of |cb[xx] - rb[xx + k]|, k < R, in type A,
+// in chunks of C current values and C + R - 1 reference values held in
+// registers.
+template <int M, int C, int R, typename A, typename S>
+__device__ __forceinline__ void sad_row(const S* cb, const S* rb,
+                                        A (&acc)[R]) {
+#pragma unroll
+  for (int x0 = 0; x0 < M; x0 += C) {
+    A cv[C], rv[C + R - 1];
+#pragma unroll
+    for (int j = 0; j < C; ++j) cv[j] = A(cb[x0 + j]);
+#pragma unroll
+    for (int j = 0; j < C + R - 1; ++j) rv[j] = A(rb[x0 + j]);
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+#pragma unroll
+      for (int j = 0; j < C; ++j) acc[k] += abs_diff(cv[j], rv[j + k]);
+  }
+}
+
+// Stage n_rows rows of `cols` values: store(i, c, load(i, c)) for row i
+// and column c, one warp a row, SAD_STAGE loads in flight a thread.
+template <typename Load, typename Store>
+__device__ __forceinline__ void sad_stage(int n_rows, int cols, Load load,
+                                          Store store) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = warp; i < n_rows; i += blockDim.x >> 5)
+    for (int c0 = 0; c0 < cols; c0 += 32 * SAD_STAGE) {
+      float v[SAD_STAGE];
+#pragma unroll
+      for (int u = 0; u < SAD_STAGE; ++u) {
+        const int c = c0 + 32 * u + lane;
+        v[u] = c < cols ? load(i, c) : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < SAD_STAGE; ++u) {
+        const int c = c0 + 32 * u + lane;
+        if (c < cols) store(i, c, v[u]);
+      }
+    }
+}
+
+// The screen's candidates among an item's R float32 sums f[k] (+inf past
+// dx = 2s): `zero` those whose sum is 0 (exact: every fl(a - b) was 0),
+// `refine` the others within the rounding bound of the block's minimum
+// fmin.  With g = (M^2 + 1) u / (1 - (M^2 + 1) u), u = 2^-24, bounding
+// |F - S| / S, every minimiser d of S has F_d (1 - g) <= F_min (1 + g);
+// the test F_d <= F_min K takes K = (1 + g) / (1 - g) rounded up past the
+// float32 product's rounding, so it keeps every minimiser (and perhaps a
+// few more candidates, each summed exactly).
+template <int M, int R>
+__device__ __forceinline__ void sad_candidates(const float* f, float fmin,
+                                               unsigned& zero,
+                                               unsigned& refine) {
+  constexpr double g = (M * M + 1) * 0x1p-24 / (1.0 - (M * M + 1) * 0x1p-24);
+  constexpr float K = (float)((1.0 + g) / (1.0 - g) * (1.0 + 0x1p-20));
+  const float lim = fmin * K;
+  zero = refine = 0;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    if (f[k] == 0.0f)
+      zero |= 1u << k;
+    else if (f[k] <= lim)
+      refine |= 1u << k;
+  }
+}
+
+// Fold an item's candidates into (best, best_d), k ascending: 0 for
+// `zero`, the float64 sum for `refine`.  The warp takes the sums: a lane a
+// row, 32 / M groups of M lanes each summing RR of the R displacements
+// (M = 32: one group, passes of 9), each sum added over its group's
+// lanes.  A group's last displacements may lie past R: their sums read
+// columns past the run and are never used.
+template <int M, int R>
+__device__ __forceinline__ void sad_refine(const float* cb, const float* rb,
+                                           int pitch, unsigned zero,
+                                           unsigned refine, int d0,
+                                           double& best, int& best_d) {
+  constexpr int G = M < 32 ? 32 / M : 1;
+  constexpr int RR = G > 1 ? (R + G - 1) / G : SAD_RUN_SHORT;
+  constexpr int PASSES = (R + G * RR - 1) / (G * RR);
+  const int lane = threadIdx.x & 31, row = lane % M, grp = lane / M;
+#pragma unroll
+  for (int p = 0; p < PASSES; ++p) {
+    if (((zero | refine) >> (p * G * RR)) == 0) break;
+    double acc[RR];
+#pragma unroll
+    for (int k = 0; k < RR; ++k) acc[k] = 0.0;
+    sad_row<M, 4>(cb + row * M, rb + row * pitch + (p * G + grp) * RR, acc);
+#pragma unroll
+    for (int k = 0; k < RR; ++k)
+#pragma unroll
+      for (int off = M / 2; off > 0; off >>= 1)
+        acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
+#pragma unroll
+    for (int g2 = 0; g2 < G; ++g2)
+#pragma unroll
+      for (int kk = 0; kk < RR; ++kk) {
+        const int k = (p * G + g2) * RR + kk;
+        const double sum = __shfl_sync(0xffffffffu, acc[kk], g2 * M);
+        if (k >= R) continue;
+        const unsigned bit = 1u << k;
+        const double v = refine & bit ? sum : 0.0;
+        if ((zero | refine) & bit && v < best) {
+          best = v;
+          best_d = d0 + k;
+        }
+      }
+  }
+}
+
+// ref, cur (G, H, W) f32; mv (G, nby, nbx, 2) i32; sad (G, nby, nbx) f32;
+// n_refined (nullable) counts the screen's candidates summed again in
+// float64.  Grid (ceil(nbx / bx_cta), nby, G); blockDim a multiple of 32,
+// at most SAD_CTA_THREADS; R = sad_run_for(2s + 1); dynamic shared memory
+// sad_smem(M, s, bx_cta).
+template <int M, int R, bool SCREEN>
+__global__ void __launch_bounds__(SAD_CTA_THREADS, SCREEN ? 3 : 1)
+sad_search_kernel(const float* __restrict__ ref,
+                  const float* __restrict__ cur, int* __restrict__ mv,
+                  float* __restrict__ sad,
+                  unsigned long long* __restrict__ n_refined, int H, int W,
+                  int s, int bx_cta) {
+  // staged in float32 for the screen, float64 without it
+  using T = typename std::conditional<SCREEN, float, double>::type;
+  constexpr int BLK = M * M + 1;  // a staged block, padded off the banks
+  constexpr int C = M < SAD_CHUNK ? M : SAD_CHUNK;
+  extern __shared__ double s_mem[];
+  __shared__ int s_n_list;
+  const int n = 2 * s + 1, runs = (n + R - 1) / R, pb = n * runs;
+  const int items = bx_cta * pb;
+  const int rows = M + 2 * s, pitch = sad_pitch(M, s, bx_cta, R);
+  const int nbx = W / M, bx0 = blockIdx.x * bx_cta;
+  const int by = blockIdx.y, g = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_warps = blockDim.x >> 5;
+  double* s_best = s_mem;
+  T* s_ref = reinterpret_cast<T*>(s_best + items);
+  T* s_cur = s_ref + rows * pitch;
+  int* s_d = reinterpret_cast<int*>(s_cur + bx_cta * BLK);
+  // SCREEN only: the float32 sums, each block's minimum (as the bits of a
+  // non-negative float, which order as ints), the items to refine
+  float* s_f = reinterpret_cast<float*>(s_d + items);
+  int* s_fmin = reinterpret_cast<int*>(s_f + items * R);
+  int* s_list = s_fmin + bx_cta;
+
+  const size_t plane = (size_t)H * W;
+  const float* r = ref + g * plane;
+  const float* c = cur + g * plane;
+  const int y0 = by * M - s, x0 = bx0 * M - s;
+  sad_stage(
+      rows, pitch,
+      [&](int i, int x) {
+        return r[(size_t)min(max(y0 + i, 0), H - 1) * W +
+                 min(max(x0 + x, 0), W - 1)];
+      },
+      [&](int i, int x, float v) { s_ref[i * pitch + x] = T(v); });
+  // row yy of the CTA's blocks is one run of bx_cta * M values; a block
+  // past the row's end repeats the last column (its result is dropped)
+  sad_stage(
+      M, bx_cta * M,
+      [&](int yy, int x) {
+        return c[(size_t)(by * M + yy) * W + min(bx0 * M + x, W - 1)];
+      },
+      [&](int yy, int x, float v) {
+        s_cur[(x / M) * BLK + yy * M + x % M] = T(v);
+      });
+  if (threadIdx.x == 0) s_n_list = 0;
+  for (int b = threadIdx.x; b < bx_cta && SCREEN; b += blockDim.x)
+    s_fmin[b] = 0x7f800000;  // +inf
+  __syncthreads();
+
+  const double inf = __longlong_as_double(0x7ff0000000000000LL);
+  // item it = (b, run, dy), dy fastest: its R sums, row-major term order
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    const int dy = it % n, q = it / n, run = q % runs, b = q / runs;
+    const int dx0 = run * R;
+    const T* cb = s_cur + b * BLK;
+    const T* rb = s_ref + dy * pitch + b * M + dx0;
+    T acc[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) acc[k] = T(0);
+    for (int yy = 0; yy < M; ++yy, cb += M, rb += pitch)
+      sad_row<M, C>(cb, rb, acc);
+    if constexpr (SCREEN) {
+      float fmin = __int_as_float(0x7f800000);
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const float f = dx0 + k < n ? acc[k] : __int_as_float(0x7f800000);
+        s_f[it * R + k] = f;
+        fmin = fminf(fmin, f);
+      }
+      atomicMin(&s_fmin[b], __float_as_int(fmin));
+    } else {
+      double best = inf;
+      int best_d = n * n;
+#pragma unroll
+      for (int k = 0; k < R; ++k)
+        if (dx0 + k < n && acc[k] < best) {
+          best = acc[k];
+          best_d = dy * n + dx0 + k;
+        }
+      s_best[it] = best;
+      s_d[it] = best_d;
+    }
+  }
+
+  if constexpr (SCREEN) {
+    __syncthreads();
+    // items whose candidates are all zero sums are done; the others go on
+    // the list
+    for (int it = threadIdx.x; it < items; it += blockDim.x) {
+      const int dy = it % n, q = it / n, run = q % runs, b = q / runs;
+      unsigned zero, refine;
+      sad_candidates<M, R>(s_f + it * R, __int_as_float(s_fmin[b]), zero,
+                           refine);
+      if (refine != 0) {
+        s_list[atomicAdd(&s_n_list, 1)] = it;
+        if (n_refined != nullptr) atomicAdd(n_refined, __popc(refine));
+      } else {
+        // the first zero sum, if any (every minimiser is a candidate)
+        s_best[it] = zero != 0 ? 0.0 : inf;
+        s_d[it] = zero != 0 ? dy * n + run * R + __ffs(zero) - 1 : n * n;
+      }
+    }
+    __syncthreads();
+    // the listed items' candidates in float64, one warp an item
+    for (int e = warp; e < s_n_list; e += n_warps) {
+      const int it = s_list[e];
+      const int dy = it % n, q = it / n, run = q % runs, b = q / runs;
+      unsigned zero, refine;
+      sad_candidates<M, R>(s_f + it * R, __int_as_float(s_fmin[b]), zero,
+                           refine);
+      double best = inf;
+      int best_d = n * n;
+      sad_refine<M, R>(s_cur + b * BLK, s_ref + dy * pitch + b * M + run * R,
+                       pitch, zero, refine, dy * n + run * R, best, best_d);
+      if (lane == 0) {
+        s_best[it] = best;
+        s_d[it] = best_d;
+      }
+    }
+  }
+  __syncthreads();
+
+  // each block's (sad, d) minimum over its items, one warp a block
+  for (int b = warp; b < bx_cta; b += n_warps) {
+    double best = inf;
+    int best_d = n * n;
+    for (int i = lane; i < pb; i += 32)
+      if (sad_better(s_best[b * pb + i], s_d[b * pb + i], best, best_d)) {
+        best = s_best[b * pb + i];
+        best_d = s_d[b * pb + i];
+      }
+    for (int off = 16; off > 0; off >>= 1) {
+      const double o = __shfl_down_sync(0xffffffffu, best, off);
+      const int od = __shfl_down_sync(0xffffffffu, best_d, off);
+      if (sad_better(o, od, best, best_d)) {
+        best = o;
+        best_d = od;
+      }
+    }
+    if (lane == 0 && bx0 + b < nbx) {
+      const size_t blk = ((size_t)g * gridDim.y + by) * nbx + bx0 + b;
+      mv[2 * blk] = best_d / n - s;
+      mv[2 * blk + 1] = best_d % n - s;
+      sad[blk] = (float)best;
+    }
+  }
+}
+
+// The first design, for block sizes without an instance.  Grid (nbx, nby,
+// G); blockDim a multiple of 32; dynamic shared memory ((m + 2s)^2 + m^2)
+// doubles.
+__global__ void sad_search_generic_kernel(const float* __restrict__ ref,
+                                          const float* __restrict__ cur,
+                                          int* __restrict__ mv,
+                                          float* __restrict__ sad, int H,
+                                          int W, int m, int s) {
   extern __shared__ double s_mem[];
   __shared__ double w_sad[SAD_MAX_THREADS / 32];
   __shared__ int w_d[SAD_MAX_THREADS / 32];
@@ -165,25 +518,114 @@ mc_kernel(const float* __restrict__ ref, const int* __restrict__ mv,
 
 }  // namespace vcf
 
+namespace {
+
+// The CTA's block count for a row of nbx blocks: the one that leaves the
+// fewest lanes idle (items over launched thread slots, the row's ragged
+// end included), among counts whose shared memory leaves room for two
+// CTAs an SM (one block always qualifies).
+int sad_plan(int m, int s, int nbx, int* threads) {
+  const int n = 2 * s + 1, run = vcf::sad_run_for(n);
+  const int pb = n * ((n + run - 1) / run);
+  int best_bx = 1;
+  double best_eff = -1.0;
+  for (int bx = 1; bx <= nbx && bx <= vcf::SAD_MAX_BLOCKS; ++bx) {
+    if (bx > 1 && vcf::sad_smem(m, s, bx) > vcf::SAD_SMEM_TARGET) break;
+    const int items = bx * pb;
+    int t = (items + 31) / 32 * 32;
+    if (t > vcf::SAD_CTA_THREADS) t = vcf::SAD_CTA_THREADS;
+    const int passes = (items + t - 1) / t, ctas = (nbx + bx - 1) / bx;
+    const double eff = (double)nbx * pb / ((double)ctas * t * passes);
+    if (eff > best_eff + 1e-9) {
+      best_eff = eff;
+      best_bx = bx;
+      *threads = t;
+    }
+  }
+  return best_bx;
+}
+
+template <int M, int R>
+int launch_sad(const float* ref, const float* cur, int* mv, float* sad,
+               unsigned long long* n_refined, int G, int H, int W, int s,
+               cudaStream_t st) {
+  auto kernel = vcf::sad_search_kernel<M, R, vcf::SAD_SCREEN>;
+  int threads = 32;
+  const int bx = sad_plan(M, s, W / M, &threads);
+  const int smem = (int)vcf::sad_smem(M, s, bx);
+  if (smem > 48 * 1024) {  // past the default: opt in (refused: an error)
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid((W / M + bx - 1) / bx, H / M, G);
+  kernel<<<grid, threads, smem, st>>>(ref, cur, mv, sad, n_refined, H, W, s,
+                                      bx);
+  return (int)cudaGetLastError();
+}
+
+template <int M>
+int launch_sad(const float* ref, const float* cur, int* mv, float* sad,
+               unsigned long long* n_refined, int G, int H, int W, int s,
+               cudaStream_t st) {
+  if (vcf::sad_run_for(2 * s + 1) == vcf::SAD_RUN_LONG)
+    return launch_sad<M, vcf::SAD_RUN_LONG>(ref, cur, mv, sad, n_refined, G,
+                                            H, W, s, st);
+  return launch_sad<M, vcf::SAD_RUN_SHORT>(ref, cur, mv, sad, n_refined, G,
+                                           H, W, s, st);
+}
+
+bool sad_instance(int m) { return m == 4 || m == 8 || m == 16 || m == 32; }
+
+}  // namespace
+
 extern "C" {
 
+// Shared memory a CTA of one block needs for block m and range s, in the
+// mode sad_search takes for m (an instance or the generic kernel), or -1
+// for an m or s it refuses; either mode refuses past its limit.
+int vcf_sad_smem(int m, int s) {
+  if (m < 1 || s < 0 || m > 65535 || s > 65535) return -1;
+  if (sad_instance(m)) {
+    const long long b = vcf::sad_smem(m, s, 1);
+    return b <= vcf::SAD_OPTIN_SMEM ? (int)b : -1;
+  }
+  const long long win = m + 2LL * s;
+  const long long b = (win * win + (long long)m * m) * 8;
+  return b <= vcf::SAD_MAX_SMEM ? (int)b : -1;
+}
+
 // ref, cur (G, H, W) f32 and outputs mv (G, H/m, W/m, 2) i32, sad
-// (G, H/m, W/m) f32, all on the device.  Returns cudaGetLastError() after
-// the launch, or cudaErrorInvalidValue for a shape the kernel does not take.
+// (G, H/m, W/m) f32, all on the device; n_refined (nullable) a device
+// u64 to which the screen adds its float64 second sums.  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
+// shape the kernel does not take.
 int vcf_sad_search(const void* ref, const void* cur, void* mv, void* sad,
-                   int G, int H, int W, int m, int s, void* stream) {
-  const int win = m + 2 * s;
-  const int smem = (win * win + m * m) * (int)sizeof(double);
-  const int n_disp = (2 * s + 1) * (2 * s + 1);
+                   void* n_refined, int G, int H, int W, int m, int s,
+                   void* stream) {
   if (G < 1 || m < 1 || s < 0 || H % m || W % m || H < m || W < m ||
-      smem > vcf::SAD_MAX_SMEM || H / m > 65535 || G > 65535)
+      vcf_sad_smem(m, s) < 0 || H / m > 65535 || G > 65535)
     return (int)cudaErrorInvalidValue;
+  const float* r = (const float*)ref;
+  const float* c = (const float*)cur;
+  int* v = (int*)mv;
+  float* d = (float*)sad;
+  auto* nr = (unsigned long long*)n_refined;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (m) {
+    case 4: return launch_sad<4>(r, c, v, d, nr, G, H, W, s, st);
+    case 8: return launch_sad<8>(r, c, v, d, nr, G, H, W, s, st);
+    case 16: return launch_sad<16>(r, c, v, d, nr, G, H, W, s, st);
+    case 32: return launch_sad<32>(r, c, v, d, nr, G, H, W, s, st);
+    default: break;
+  }
+  const int n_disp = (2 * s + 1) * (2 * s + 1);
   int threads = (n_disp + 31) / 32 * 32;
   if (threads > vcf::SAD_MAX_THREADS) threads = vcf::SAD_MAX_THREADS;
   dim3 grid(W / m, H / m, G);
-  vcf::sad_search_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)ref, (const float*)cur, (int*)mv, (float*)sad, H, W, m,
-      s);
+  vcf::sad_search_generic_kernel<<<grid, threads,
+                                   vcf_sad_smem(m, s), st>>>(
+      r, c, v, d, H, W, m, s);
   return (int)cudaGetLastError();
 }
 

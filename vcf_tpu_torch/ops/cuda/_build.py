@@ -61,7 +61,8 @@ _SIGNATURES = {
     "vcf_rans_decode_ctx_grid": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vcf_dct_forward": _DCT,
     "vcf_dct_inverse": _IDCT,
-    "vcf_sad_search": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vcf_sad_smem": [_I, _I],
+    "vcf_sad_search": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vcf_mc_apply": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 

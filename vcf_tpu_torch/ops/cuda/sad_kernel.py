@@ -5,25 +5,79 @@ vcf_tpu/ops/pallas/sad_kernel.py).
 row-tiled `sad_search_tiled` (:141): (H, W) or (G, H, W) float32 lumas ->
 (mv (..., nby, nbx, 2) int32 (dy, dx) of the first minimum in row-major
 order, sad (..., nby, nbx) float32).  The TPU's tiles, `tile_h` and VMEM
-gates have no counterpart: one CTA stages each block's window in shared
-memory (csrc/motion.cu), and the argmin is fused into the kernel.
+gates have no counterpart; the argmin is fused into the kernel.
 
-A CPU tensor runs the plain version, `sad_search_ref` (which is
-`ops.motion.full_search`); a CUDA tensor launches the kernel.  Both sum
-in float64, where a block's SAD is exact in any order, so they agree bit
-for bit: mvs and SADs.  `sad_search.launches` counts kernel launches.
+Design (csrc/motion.cu).  For the block sizes in `INSTANCES` a CTA stages
+several adjacent blocks and the union of their reference windows in shared
+memory, in float32; a thread sums one dy and a run of 17 (or 9) dx values,
+the current and reference values of a row chunk in registers, so the adds
+set the pace and not the shared-memory loads.  The sums are a float32
+screen (twice the float64 add rate): every displacement whose float32 sum
+F_d lies within the rounding bound of the block's smallest
+(`screen_bound`) is summed again in float64, and the (sad, d) minimum of
+those is the answer (`count_refined` reports how many).  Other block sizes
+take the generic mode, the first design (one CTA per block, one thread per
+displacement, float64), chosen by the block size alone and counted in
+`sad_search.generic_launches`.
+
+Exactness: every nonzero luma is a multiple of 2^-27 and a block's SAD is
+< 2^18, so a float64 sum of |a - b| is exact in any order, and every
+minimiser passes the screen.  A CPU tensor runs the plain version,
+`sad_search_ref` (which is `ops.motion.full_search`); a CUDA tensor
+launches the kernel.  They agree bit for bit: mvs and SADs.
+`sad_search.launches` counts kernel launches of both modes.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from vcf_tpu_torch.ops import motion
 from vcf_tpu_torch.ops.cuda import _build
 
-#: shared memory the kernel stages per CTA: the (m + 2s)^2 window and the
-#: m x m block, in float64, within the 48 KB a launch gets without opt-in
-MAX_SMEM = 48 * 1024
+#: block sizes with a kernel instance; others take the generic mode
+INSTANCES = (4, 8, 16, 32)
+#: shared memory of a CTA of one block: an instance opts in up to the
+#: card's 227 KiB; the generic mode keeps the 48 KiB a launch gets without
+MAX_SMEM = 227 * 1024
+MAX_SMEM_GENERIC = 48 * 1024
+# the instances' layout (csrc/motion.cu): the dx values a work item sums
+_RUNS = (9, 17)
+
+
+def _run_for(n: int) -> int:
+    """`sad_run_for`: the run length whose runs cover n with fewer slots."""
+    short, long_ = _RUNS
+    return long_ if -(-n // long_) * long_ <= -(-n // short) * short \
+        else short
+
+
+def smem_bytes(m: int, s: int) -> int:
+    """Shared memory a CTA of one block needs for block m and range s
+    (`vcf_sad_smem` in csrc/motion.cu): an instance stages the window
+    (row pitch odd) and the block in float32, and keeps each work item's
+    float32 sums, (sad, d) best and list slot and the block's minimum; the
+    generic mode stages the (m + 2s)^2 window and the block in float64."""
+    if m not in INSTANCES:
+        return ((m + 2 * s) ** 2 + m * m) * 8
+    n = 2 * s + 1
+    run = _run_for(n)
+    runs = -(-n // run)
+    pitch = (runs * run - 1 + m) | 1
+    stage = (m + 2 * s) * pitch + m * m + 1
+    return 4 * stage + (16 + 4 * run) * n * runs + 4
+
+
+def screen_bound(m: int) -> float:
+    """Relative bound g on the float32 screen's error for an m x m block:
+    |F - S| <= g S for the recursive float32 sum F of the m^2 terms
+    fl(|a - b|) against their exact sum S, g = (m^2 + 1) u / (1 - (m^2 + 1)
+    u), u = 2^-24; rounded up.  The kernel keeps as candidates the d with
+    F_d <= F_min (1 + g) / (1 - g), the factor rounded up in float32."""
+    nu = (m * m + 1) * 2.0 ** -24
+    return math.nextafter(nu / (1.0 - nu), math.inf)
 
 
 def _check(ref_luma: torch.Tensor, cur_luma: torch.Tensor, m: int,
@@ -34,9 +88,10 @@ def _check(ref_luma: torch.Tensor, cur_luma: torch.Tensor, m: int,
         raise ValueError("sad_search: lumas on two devices")
     if m < 1 or s < 0:
         raise ValueError(f"sad_search: block {m}, range {s}")
-    if ((m + 2 * s) ** 2 + m * m) * 8 > MAX_SMEM:
+    limit = MAX_SMEM if m in INSTANCES else MAX_SMEM_GENERIC
+    if smem_bytes(m, s) > limit:
         raise ValueError(f"sad_search: block {m} with range {s} needs more "
-                         f"than {MAX_SMEM} bytes of shared memory")
+                         f"than {limit} bytes of shared memory")
 
 
 def sad_search_ref(ref_luma: torch.Tensor, cur_luma: torch.Tensor, m: int,
@@ -45,12 +100,7 @@ def sad_search_ref(ref_luma: torch.Tensor, cur_luma: torch.Tensor, m: int,
     return motion.full_search(ref_luma, cur_luma, m, s)
 
 
-def sad_search(ref_luma: torch.Tensor, cur_luma: torch.Tensor, m: int,
-               s: int):
-    """Full-search block ME, the contract of `ops.motion.full_search`."""
-    _check(ref_luma, cur_luma, m, s)
-    if _build.runs_plain(cur_luma):
-        return sad_search_ref(ref_luma, cur_luma, m, s)
+def _launch(ref_luma, cur_luma, m, s, n_refined=None):
     motion._check_lumas(ref_luma, cur_luma, m)
     ref = ref_luma.contiguous()
     cur = cur_luma.contiguous()
@@ -63,12 +113,37 @@ def sad_search(ref_luma: torch.Tensor, cur_luma: torch.Tensor, m: int,
                       device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
-        rc = lib.vcf_sad_search(ref.data_ptr(), cur.data_ptr(), mv.data_ptr(),
-                                sad.data_ptr(), g, h, w, m, s,
-                                _build.stream_of(cur))
+        rc = lib.vcf_sad_search(
+            ref.data_ptr(), cur.data_ptr(), mv.data_ptr(), sad.data_ptr(),
+            None if n_refined is None else n_refined.data_ptr(), g, h, w, m,
+            s, _build.stream_of(cur))
     _build.check(rc, "vcf_sad_search")
     sad_search.launches += 1
+    if m not in INSTANCES:
+        sad_search.generic_launches += 1
     return mv, sad
 
 
+def sad_search(ref_luma: torch.Tensor, cur_luma: torch.Tensor, m: int,
+               s: int):
+    """Full-search block ME, the contract of `ops.motion.full_search`."""
+    _check(ref_luma, cur_luma, m, s)
+    if _build.runs_plain(cur_luma):
+        return sad_search_ref(ref_luma, cur_luma, m, s)
+    return _launch(ref_luma, cur_luma, m, s)
+
+
 sad_search.launches = 0
+sad_search.generic_launches = 0
+
+
+def count_refined(ref_luma: torch.Tensor, cur_luma: torch.Tensor, m: int,
+                  s: int):
+    """`sad_search` on CUDA lumas, also returning how many displacements
+    the screen summed again in float64 (0 in the generic mode)."""
+    _check(ref_luma, cur_luma, m, s)
+    if _build.runs_plain(cur_luma):
+        raise ValueError("count_refined: the screen runs only on CUDA")
+    n = torch.zeros(1, dtype=torch.int64, device=cur_luma.device)
+    mv, sad = _launch(ref_luma, cur_luma, m, s, n)
+    return mv, sad, int(n.item())
