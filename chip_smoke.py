@@ -703,22 +703,48 @@ def phase_motion_kernels(dev, clip: np.ndarray) -> list:
     # the 7 frame pairs, and 2 of them: the IPP loops' launch shape (a
     # GOP batch of 2)
     ref2, cur2 = ref_l[:2].contiguous(), cur_l[:2].contiguous()
+    # the other side of the screen's choice: 2 frames whose top half is a
+    # flat sky brightening 2 levels a frame (every displacement ties there:
+    # long lists, summed a thread an item)
+    half = clip[:3].copy()
+    for i in range(3):
+        half[i, :H // 2] = (110 + 2 * i, 150 + 2 * i, 200 + 2 * i)
+    half_l = motion.to_luma(torch.from_numpy(half).to(dev))
+    zero_counts({"sad_search": sk.sad_search})
     refined = {}
-    for what, r, c in (("7 frames", ref_l, cur_l), ("2 frames", ref2, cur2)):
-        mv_k, sad_k, refined[what] = sk.count_refined(r, c, ME_BLOCK, SEARCH)
+    sad_err = 0.0
+    for what, r, c in (("7 frames", ref_l, cur_l), ("2 frames", ref2, cur2),
+                       ("2 frames half flat", half_l[:2].contiguous(),
+                        half_l[1:].contiguous())):
+        mv_k, sad_k, n_ref, n_thread = sk.count_refined(r, c, ME_BLOCK,
+                                                        SEARCH)
+        refined[what] = {"displacements": n_ref, "thread_ctas": n_thread}
         mv_p, sad_p = sk.sad_search_ref(r, c, ME_BLOCK, SEARCH)
         torch.cuda.synchronize()
         n_mv = int((mv_k != mv_p).any(-1).sum())
-        sad_err = float((sad_k - sad_p).abs().max())
-        require(n_mv == 0 and sad_err == 0,
+        err = float((sad_k - sad_p).abs().max())
+        require(n_mv == 0 and err == 0,
                 f"sad_search differs from its plain version at {what}: "
-                f"{n_mv} mvs, SAD max {sad_err}")
-    moving = float((mv_k != 0).any(-1).double().mean())
+                f"{n_mv} mvs, SAD max {err}")
+        if what == "7 frames":
+            moving = float((mv_k != 0).any(-1).double().mean())
+        sad_err = max(sad_err, err)
+    require(refined["7 frames"]["displacements"] > 0 and
+            refined["7 frames"]["thread_ctas"] == 0 and
+            refined["2 frames half flat"]["thread_ctas"] > 0,
+            f"sad_search: the refinement's two modes were not both taken "
+            f"({json.dumps(refined)})")
+    require(sk.sad_search.launches == 3 and
+            sk.sad_search.generic_launches == 0,
+            "sad_search: phase 3c's launches did not all take the "
+            "block-size instance")
+    mode = f"sad_search_kernel<{ME_BLOCK}, R> (block-size instance)"
     n_disp = (2 * SEARCH + 1) ** 2
     per_frame = n_disp * (H // ME_BLOCK) * (W // ME_BLOCK)
     print(f"sad_search screen: {json.dumps(refined)} displacements summed "
-          f"again in float64, of {ref_l.shape[0] * per_frame} / "
-          f"{2 * per_frame}")
+          f"again in float64 and CTAs that summed them a thread an item, "
+          f"of {ref_l.shape[0] * per_frame} / {2 * per_frame} / "
+          f"{2 * per_frame} displacements")
 
     g, h, w = cur_l.shape
     frames = x[:-1].permute(0, 3, 1, 2).to(torch.float32).contiguous()
@@ -772,7 +798,7 @@ def phase_motion_kernels(dev, clip: np.ndarray) -> list:
     sad_row = results[0]
     sad_row["ms_2_frames"] = cuda_ms(
         lambda: sk.sad_search(ref2, cur2, ME_BLOCK, SEARCH), 20)
-    sad_row["mode"] = sad_mode(ME_BLOCK)
+    sad_row["mode"] = mode
     sad_row["refined"] = refined
     print(f"time sad_search at 2 frames: {sad_row['ms_2_frames']:.4f} ms "
           f"({sad_row['mode']})")
@@ -782,15 +808,6 @@ def phase_motion_kernels(dev, clip: np.ndarray) -> list:
           f"{cuda_ms(lambda: mk.mc_apply_ref(frames_cl, mv_t, ME_BLOCK), 3):.4f}"
           " ms")
     return results
-
-
-def sad_mode(m: int) -> str:
-    """The SAD kernel's mode for block size m."""
-    from vcf_tpu_torch.ops.cuda import sad_kernel as sk
-
-    if m in sk.INSTANCES:
-        return f"sad_search_kernel<{m}>, float32 screen + float64 refinement"
-    return "sad_search_generic_kernel"
 
 
 def require_sad_instance(what: str) -> None:
@@ -1671,6 +1688,10 @@ def gop_encode_split(enc, gops: torch.Tensor) -> tuple:
     finally:
         for key, (mod, name) in targets.items():
             setattr(mod, name, saved[key])
+    missing = [key for key, ev in events.items() if not ev]
+    require(not missing and lumas,
+            f"GOP-loop split: no call of {missing} was timed (the loop "
+            "calls it by a name the split does not intercept)")
     split = {key: sum(a.elapsed_time(b) for a, b in ev)
              for key, ev in events.items()}
     split["other"] = whole[0].elapsed_time(whole[1]) - sum(split.values())
@@ -1769,12 +1790,14 @@ def phase_ipp_grid(dev, clip: np.ndarray) -> dict:
     loop_ms = {"encode: GOP loop": cuda_ms(lambda: enc(gops), 3),
                "decode: GOP loop": cuda_ms(lambda: dec(planes, mvs), 3)}
     split, lumas = gop_encode_split(enc, gops)
-    refined = sum(sk.count_refined(r, c, ME_BLOCK, SEARCH)[2]
-                  for r, c in lumas)
+    screened = [sk.count_refined(r, c, ME_BLOCK, SEARCH)[2:]
+                for r, c in lumas]
+    n_disp = len(lumas) * mvs[:, 0, ..., 0].numel() * (2 * SEARCH + 1) ** 2
     print(f"ipp grid GOP-loop encode split (ms, CUDA events around each "
           f"call): {json.dumps(split)}; SAD screen on the loop's "
-          f"references: {refined} of {len(lumas) * mvs[:, 0, ..., 0].numel() * (2 * SEARCH + 1) ** 2}"
-          " displacements summed again in float64")
+          f"references: {sum(c[0] for c in screened)} of {n_disp} "
+          f"displacements summed again in float64, "
+          f"{sum(c[1] for c in screened)} CTAs a thread an item")
     report = {"rmse": rmse, "rmse_cpu": rmse_cpu,
               "bpp": (2 * int(nw) + side + mv_bytes) * 8 / (n * h * w),
               "cpu_run": f"GOP loop, {cpu_s:.1f} s",

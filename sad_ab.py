@@ -3,26 +3,29 @@ its source, on one GPU.
 
     git archive <commit> vcf_tpu_torch/csrc | tar -x -C _ab/parent
     python3 sad_ab.py --parent _ab/parent/vcf_tpu_torch/csrc \
-        [--variants f64] [--out sad_ab.json]
+        [--variants r17 warp_only thread_only] [--out sad_ab.json]
 
 --parent names a directory holding another commit's motion.cu (`_ab/` is
 git-ignored, so the copy is never committed); that build's
 `vcf_sad_search` takes no refinement counter (the first design's entry).
 Each other build (that source, and each variant: the current source with
 one edit) is compiled by nvcc with the package's flags into a library of
-its own under _ab/.  On chip_smoke.py's phase 3c lumas (test_video(8,
-1088, 1920, seed=7): ref = frames 0..6, cur = frames 1..7; m=16, s=8) and
-on their first 2 frames (the IPP loops' launch shape), and on the screen's
-worst case (2 flat frames, the second 3.25 brighter: every displacement
-ties and is summed again in float64), every build's kernel runs on the
-same lumas: its mvs and SADs must equal the current
-build's bit for bit, and the launches are timed by CUDA events in turns
-(other, current, current, other; 20 launches each).  One JSON line per
-shape, the card's name and power limit first, with the current build's
-count of screened displacements summed again in float64.  Variants:
+its own under _ab/.  Lumas (m=16, s=8 unless stated): chip_smoke.py's
+phase 3c clip (test_video(8, 1088, 1920, seed=7): ref = frames 0..6, cur
+= frames 1..7) and its first 2 frames (the IPP loops' launch shape), the
+same at s=4, a fade and a half-flat clip made from it (`clips`), and the
+screen's worst case (2 flat frames, the second 3.25 brighter: every
+displacement ties and is summed again in float64).  On each, every
+build's kernel runs on the same lumas: its mvs and SADs must equal the
+current build's bit for bit, and the launches are timed by CUDA events in
+turns (other, current, current, other; 20 launches each).  One JSON line
+per shape, the card's name and power limit first, with the current
+build's count of screened displacements summed again in float64 and of
+CTAs that summed them a thread an item.  Variants (all exact):
 
-- f64 (exact): the float64 register-blocked sums alone, without the
-  float32 screen (SAD_SCREEN false);
+- r17: runs of 17 dx at every range (no instances with runs of 9);
+- warp_only / thread_only: every CTA sums its listed candidates a warp an
+  item / a thread an item, whatever the list's length;
 - screen_only (timing only; its output is wrong): the kernel ends after
   the float32 sums (staging and the screen's loop alone).
 """
@@ -36,19 +39,24 @@ import os
 import shutil
 import sys
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 MOTION = "motion.cu"
 VARIANTS = {
-    "f64": [("constexpr bool SAD_SCREEN = true;",
-             "constexpr bool SAD_SCREEN = false;")],
-    "screen_only": [("  if constexpr (SCREEN) {\n    __syncthreads();",
-                     "  if (s >= 0) {\n    __syncthreads();\n"
-                     "    if (s_f[(threadIdx.x * 7) % (items * R)] == -1.0f) "
-                     "sad[0] = 1.0f;\n    return;\n  }\n"
-                     "  if constexpr (SCREEN) {\n    __syncthreads();")],
+    "r17": [("  return r_long <= r_short ? SAD_RUN_LONG : SAD_RUN_SHORT;",
+             "  return SAD_RUN_LONG;")],
+    "warp_only": [("constexpr int SAD_THREAD_LIST = 64;",
+                   "constexpr int SAD_THREAD_LIST = 1 << 30;")],
+    "thread_only": [("constexpr int SAD_THREAD_LIST = 64;",
+                     "constexpr int SAD_THREAD_LIST = 1;")],
+    "screen_only": [("  __syncthreads();\n\n  const double inf",
+                     "  __syncthreads();\n"
+                     "  if (s_f[(threadIdx.x * 7) % (items * R)] == -1.0f) "
+                     "sad[0] = 1.0f;\n  if (s >= 0) return;\n\n"
+                     "  const double inf")],
 }
 # variants whose outputs are wrong by design (timing only)
 TIMING_ONLY = ("screen_only",)
@@ -104,6 +112,19 @@ def launcher(dll: ctypes.CDLL, parent: bool):
     return launch
 
 
+def clips(frames: np.ndarray) -> dict:
+    """uint8 clips built from `frames` (N, H, W, 3): the clip itself, a fade
+    (frame k scaled by 1 - 0.08 k) and a half-flat clip (the top half a
+    flat sky brightening by 2 levels a frame, as under a change of light)."""
+    k = np.arange(len(frames), dtype=np.float32)[:, None, None, None]
+    fade = np.round(frames * (1 - 0.08 * k)).astype(np.uint8)
+    half = frames.copy()
+    for i in range(len(half)):
+        half[i, : half.shape[1] // 2] = (110 + 2 * i, 150 + 2 * i,
+                                         200 + 2 * i)
+    return {"": frames, "fade ": fade, "half flat ": half}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True)
@@ -120,25 +141,28 @@ def main() -> None:
     src = os.path.join(ROOT, "vcf_tpu_torch", "csrc")
     for name in args.variants:
         others[name] = launcher(build(name, src, VARIANTS[name]), False)
-    clip = test_video(cs.FRAMES, cs.H, cs.W, seed=7)
-    luma = motion.to_luma(torch.from_numpy(clip).to(dev))
     m, s = cs.ME_BLOCK, cs.SEARCH
+    n, h, w = cs.FRAMES, cs.H, cs.W
+    shapes = []
+    for what, frames in clips(test_video(n, h, w, seed=7)).items():
+        luma = motion.to_luma(torch.from_numpy(frames).to(dev))
+        shapes += [(f"{what}{n - 1}x{h}x{w}", luma[:-1], luma[1:], s),
+                   (f"{what}2x{h}x{w}", luma[:2], luma[1:3], s)]
+        if not what:
+            shapes.append((f"{n - 1}x{h}x{w} s=4", luma[:-1], luma[1:], 4))
     # the screen's worst case: a flat frame under a brightness change,
     # where every displacement ties and is summed again
-    flat = torch.full((2, cs.H, cs.W), 37.114, dtype=torch.float32,
-                      device=dev)
-    shapes = [(f"{cs.FRAMES - 1}x{cs.H}x{cs.W}", luma[:-1], luma[1:]),
-              (f"2x{cs.H}x{cs.W}", luma[:2], luma[1:3]),
-              (f"2x{cs.H}x{cs.W} flat + 3.25", flat, flat + 3.25)]
+    flat = torch.full((2, h, w), 37.114, dtype=torch.float32, device=dev)
+    shapes.append((f"2x{h}x{w} flat + 3.25", flat, flat + 3.25, s))
     lines = []
-    for what, ref, cur in shapes:
+    for what, ref, cur, s in shapes:
         ref, cur = ref.contiguous(), cur.contiguous()
 
         def current():
             return sk.sad_search(ref, cur, m, s)
-        mv, sad, n_ref = sk.count_refined(ref, cur, m, s)
+        mv, sad, n_ref, n_thread = sk.count_refined(ref, cur, m, s)
         row = {"shape": what, "m": m, "s": s,
-               "refined": n_ref,
+               "refined": n_ref, "thread_ctas": n_thread,
                "displacements": mv[..., 0].numel() * (2 * s + 1) ** 2}
         for name, launch in others.items():
             def other():

@@ -394,12 +394,13 @@ def test_iii_on_cuda_matches_cpu(dev, entropy_name):
 # (G, H, W, m, s): every block-size instance (4, 8, 16, 32) and the
 # generic mode (m = 6, 5: no instance), ranges 0..8, G > 1 and G = 1,
 # non-square frames, odd block counts (7 x 3 blocks at m = 16; a row that
-# leaves the last CTA ragged)
+# leaves the last CTA ragged), rows wide enough for CTAs of many blocks
+# (15 at m = 16, s = 8: the ties below sum a thread an item)
 SAD_CASES = [(3, 48, 80, 8, 4), (2, 64, 96, 16, 8), (1, 32, 160, 16, 4),
              (4, 56, 48, 8, 8), (2, 48, 112, 16, 8), (1, 48, 112, 16, 8),
              (2, 24, 44, 4, 3), (2, 64, 96, 32, 8), (1, 96, 160, 32, 2),
              (2, 48, 72, 6, 3), (1, 45, 60, 5, 2), (2, 32, 48, 16, 0),
-             (1, 32, 80, 16, 1)]
+             (1, 32, 80, 16, 1), (1, 64, 240, 16, 8), (1, 48, 160, 8, 8)]
 
 
 def _sad_equal(ref, cur, m, s):
@@ -436,14 +437,18 @@ def test_sad_kernel_matches_plain_version(dev, g, h, w, m, s):
 @pytest.mark.parametrize("g,h,w,m,s", SAD_CASES)
 def test_sad_kernel_ties_and_near_ties(dev, g, h, w, m, s):
     """Every displacement tying at a nonzero SAD (a constant frame under a
-    brightness change: every screened sum is a candidate), and crafted
-    near ties (rows constant along x plus 2^-14 steps, the current frame
-    the next row + 50: every dx of dy = 1 within the screen's bound of
-    each other, the exact sums apart by multiples of 2^-14)."""
+    brightness change: every screened sum is a candidate), the same with
+    the reference's lumas raised by 0 or 2^-14 at random (every
+    displacement a candidate, the exact minimum anywhere in a run), and
+    crafted near ties (rows constant along x plus 2^-14 steps, the current
+    frame the next row + 50: every dx of dy = 1 within the screen's bound
+    of each other, the exact sums apart by multiples of 2^-14)."""
     flat = torch.full((g, h, w), 37.114, dtype=torch.float32, device=dev)
     mv, sad = _sad_equal(flat, flat + 3.25, m, s)
     assert bool((mv == -s).all()) and bool((sad == 3.25 * m * m).all())
     rng = np.random.default_rng(w + s)
+    noisy = 37.0 + rng.integers(0, 2, (g, h, w)).astype(np.float32) * 2.0 ** -14
+    _sad_equal(torch.from_numpy(noisy).to(dev), flat + 3.136, m, s)
     rows = rng.integers(0, 200, (g, h + 1, 1)).astype(np.float32)
     steps = rng.integers(0, 2, (g, h + 1, w)).astype(np.float32) * 2.0 ** -14
     ref = torch.from_numpy(rows[:, :h] + steps[:, :h]).to(dev)
@@ -454,20 +459,30 @@ def test_sad_kernel_ties_and_near_ties(dev, g, h, w, m, s):
 
 
 def test_sad_kernel_takes_every_range_accepted_before(dev):
-    """Shared memory: the C entry's gate equals `smem_bytes` under the
-    wrapper's limits, and every (m, s) the first design took (its window
-    and block in 48 KiB of float64) still runs, bit-exact, up to the
-    largest range of each instance."""
+    """Shared memory: the C entry's gate takes every (m, s) the first
+    design took (its window and block in 48 KiB of float64), exactly those
+    in the generic mode and larger ranges at the instances; the wrapper
+    raises past it; each instance's largest range runs bit-exact."""
     lib = _build.load()
+    x = torch.zeros((2, 32), device=dev)
+    largest = {}
     for m in (1, 3, 4, 5, 8, 12, 16, 32):
         for s in range(0, 61):
-            limit = sk.MAX_SMEM if m in sk.INSTANCES else sk.MAX_SMEM_GENERIC
-            want = sk.smem_bytes(m, s)
-            assert lib.vcf_sad_smem(m, s) == (want if want <= limit else -1)
-            if ((m + 2 * s) ** 2 + m * m) * 8 <= 48 * 1024:
-                assert want <= limit
+            first = ((m + 2 * s) ** 2 + m * m) * 8 <= sk.FIRST_DESIGN_SMEM
+            takes = lib.vcf_sad_smem(m, s) >= 0
+            assert takes >= first
+            if m not in sk.INSTANCES:
+                assert takes == first
+            if takes:
+                largest[m] = s
+            else:
+                with pytest.raises(ValueError, match="shared memory"):
+                    sk.sad_search(x, x, m, s)
+    for m in sk.INSTANCES:
+        assert largest[m] > max(s for s in range(61) if (
+            (m + 2 * s) ** 2 + m * m) * 8 <= sk.FIRST_DESIGN_SMEM)
     rng = np.random.default_rng(3)
-    for m, s in ((4, 37), (8, 34), (16, 30), (32, 19), (32, 44), (6, 20)):
+    for m, s in [(m, largest[m]) for m in sk.INSTANCES] + [(6, 20)]:
         lumas = torch.from_numpy(rng.integers(0, 256, (2, 1, 2 * m, 3 * m))
                                  .astype(np.float32)).to(dev)
         _sad_equal(lumas[0], lumas[1], m, s)
@@ -476,16 +491,34 @@ def test_sad_kernel_takes_every_range_accepted_before(dev):
 
 def test_sad_count_refined(dev):
     """count_refined: the kernel's outputs, and the screen's second sums
-    (none where every minimum is 0 or alone; all 2s + 1 dx of dy = 1 on
-    the near ties above, per block)."""
+    (none where every minimum is 0 or alone; every displacement where all
+    tie)."""
     g, h, w, m, s = 2, 48, 112, 16, 8
     x = torch.from_numpy(np.random.default_rng(1).integers(
         0, 256, (g, h, w)).astype(np.float32)).to(dev)
-    mv, sad, n = sk.count_refined(x, x, m, s)
-    assert n == 0 and bool((mv == 0).all()) and bool((sad == 0).all())
+    mv, sad, n, by_thread = sk.count_refined(x, x, m, s)
+    assert n == 0 and by_thread == 0
+    assert bool((mv == 0).all()) and bool((sad == 0).all())
     flat = torch.full((g, h, w), 9.0, dtype=torch.float32, device=dev)
-    _, _, n = sk.count_refined(flat, flat + 1.0, m, s)
+    _, _, n, _ = sk.count_refined(flat, flat + 1.0, m, s)
     assert n == g * (h // m) * (w // m) * (2 * s + 1) ** 2
+
+
+@pytest.mark.parametrize("w,by_thread", [(32, False), (240, True)])
+def test_sad_refinement_modes(dev, w, by_thread):
+    """A CTA sums its listed candidates a warp an item when the list is
+    short (2 blocks a row: at most 34 items a CTA) and a thread an item
+    when it is long (15 blocks, 255 items, all listed), bit-exact either
+    way, on ties whose exact minimum lies anywhere in a run."""
+    g, h, m, s = 1, 64, 16, 8
+    rng = np.random.default_rng(w)
+    ref = torch.from_numpy(37.0 + rng.integers(0, 2, (g, h, w)).astype(
+        np.float32) * 2.0 ** -14).to(dev)
+    cur = torch.full((g, h, w), 40.25, dtype=torch.float32, device=dev)
+    mv, sad, n, n_thread = sk.count_refined(ref, cur, m, s)
+    mv_p, sad_p = sk.sad_search_ref(ref, cur, m, s)
+    assert torch.equal(mv, mv_p) and torch.equal(sad, sad_p)
+    assert n > 0 and (n_thread > 0) == by_thread
 
 
 @pytest.mark.parametrize("g,h,w,m,s", SAD_CASES)

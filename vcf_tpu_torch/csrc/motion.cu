@@ -18,7 +18,7 @@
 // memory) loaded 2 shared values a term: shared-memory bandwidth set its
 // pace.
 //
-// Design (m = 4, 8, 16, 32: sad_search_kernel<M, R, SCREEN>).  A CTA takes
+// Design (m = 4, 8, 16, 32: sad_search_kernel<M, R>).  A CTA takes
 // bx_cta horizontally adjacent blocks of one block row (sad_plan picks the
 // count that leaves the fewest lanes idle: 15 at m=16, s=8, 255 items in
 // 256 threads) and stages their current blocks and the union of their
@@ -41,22 +41,23 @@
 // plain version agree bit for bit on mvs and SADs.  The SAD is cast to
 // float32 on output.
 //
-// SCREEN (shipped; SAD_SCREEN false gives the float64 pass alone): the
-// sums are taken in float32 (FADD, then FADD of the absolute value; no
-// multiply, so nothing contracts), at twice the float64 add rate, from a
-// float32 copy of the window, which also halves the shared memory a CTA
-// needs.  For m^2 terms with unit roundoff u = 2^-24 the float32 sum F
-// obeys |F - S| <= g S against the exact sum S, g = (m^2 + 1) u / (1 -
-// (m^2 + 1) u).  Every d with F_d <= F_min (1 + g) / (1 - g) (the factor
-// rounded up) is a candidate: every minimiser of S is one, and every other
-// d has S_d > S_min.  F_d = 0 is exact (every fl(a - b) was then 0) and
-// needs no second sum; the items with other candidates go on a list, and
-// a warp takes each listed item's float64 sums (a lane a row, converting
-// the staged values), so the (S, d) minimum over the candidates is the
-// answer.  On natural video few displacements are candidates (1383 of
-// 16.5 M on the 7-frame test clip); when all of them tie at a nonzero SAD
-// (a flat patch under a brightness change) the second sums cost ~3x the
-// float64 pass.
+// The screen: the sums are taken in float32 (FADD, then FADD of the
+// absolute value; no multiply, so nothing contracts), at twice the
+// float64 add rate, from a float32 window.  For m^2 terms with unit
+// roundoff u = 2^-24 the float32 sum F obeys |F - S| <= g S against the
+// exact sum S, g = (m^2 + 1) u / (1 - (m^2 + 1) u).  Every d with F_d <=
+// F_min (1 + g) / (1 - g) (the factor rounded up) is a candidate: every
+// minimiser of S is one, and every other d has S_d > S_min.  F_d = 0 is
+// exact (every fl(a - b) was then 0) and needs no second sum; the items
+// with other candidates go on a list, whose candidates are summed again in
+// float64 (converting the staged values), so the (S, d) minimum over the
+// candidates is the answer.  On natural video few displacements are
+// candidates (1383 of 16.5 M on the 7-frame test clip): a warp takes each
+// listed item (a lane a row), which keeps the CTA's tail short.  Where
+// many tie at a nonzero SAD (flat content under a change of light) the
+// list is long, and a CTA whose list holds SAD_THREAD_LIST items or more
+// gives each listed item to a thread instead (the screen's loop on
+// doubles), which issues no shuffles.
 //
 // Other block sizes take sad_search_generic_kernel, the first design: one
 // CTA per block, one thread per displacement, float64 sums out of shared
@@ -72,7 +73,6 @@
 // channel-last mode).  A copy, so it is bit-exact; memory-bound.
 
 #include <cstdint>
-#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -82,12 +82,12 @@ namespace vcf {
 constexpr int SAD_MAX_SMEM = 48 * 1024;
 constexpr int SAD_MAX_THREADS = 1024;
 // the block-size instances
-constexpr bool SAD_SCREEN = true;       // float32 screen, float64 refinement
 constexpr int SAD_RUN_SHORT = 9;        // dx values a work item sums: 9 or
 constexpr int SAD_RUN_LONG = 17;        // 17, whichever wastes fewer
 constexpr int SAD_CHUNK = 8;            // current values a register chunk
 constexpr int SAD_STAGE = 8;            // loads in flight a staging thread
 constexpr int SAD_CTA_THREADS = 320;
+constexpr int SAD_THREAD_LIST = 64;     // a list this long: a thread an item
 constexpr int SAD_MAX_BLOCKS = 32;      // blocks a CTA may take
 constexpr int SAD_SMEM_TARGET = 100 * 1024;   // two CTAs an SM
 constexpr int SAD_OPTIN_SMEM = 227 * 1024;    // one block's CTA at most
@@ -110,15 +110,14 @@ __host__ __device__ inline int sad_pitch(int m, int s, int bx, int run) {
 
 // Dynamic shared memory of a CTA of bx blocks: each item's best sum and
 // displacement, the window and the current blocks (each padded by one
-// element) in float32 with SCREEN (then also each item's float32 sums, a
-// block's minimum and the list of items to refine), else in float64.
+// element) in float32, each item's float32 sums, a block's minimum and
+// the list of items to refine.
 inline long long sad_smem(int m, int s, int bx) {
   const int n = 2 * s + 1, run = sad_run_for(n);
   const long long items = (long long)bx * n * ((n + run - 1) / run);
   const long long stage = (long long)(m + 2 * s) * sad_pitch(m, s, bx, run) +
                           (long long)bx * (m * m + 1);
-  if (SAD_SCREEN) return 4 * stage + (16 + 4LL * run) * items + 4 * bx;
-  return 8 * stage + 12 * items;
+  return 4 * stage + (16 + 4LL * run) * items + 4 * bx;
 }
 
 __device__ __forceinline__ bool sad_better(double a, int da, double b,
@@ -133,11 +132,12 @@ __device__ __forceinline__ float abs_diff(float a, float b) {
   return fabsf(a - b);
 }
 
-// acc[k] += sum over xx < M of |cb[xx] - rb[xx + k]|, k < R, in type A,
-// in chunks of C current values and C + R - 1 reference values held in
+// acc[k] += sum over xx < M of |cb[xx] - rb[xx + k]|, k < R, in type A
+// (float: the screen; double: the exact sums, each value converted), in
+// chunks of C current values and C + R - 1 reference values held in
 // registers.
-template <int M, int C, int R, typename A, typename S>
-__device__ __forceinline__ void sad_row(const S* cb, const S* rb,
+template <int M, int C, int R, typename A>
+__device__ __forceinline__ void sad_row(const float* cb, const float* rb,
                                         A (&acc)[R]) {
 #pragma unroll
   for (int x0 = 0; x0 < M; x0 += C) {
@@ -182,7 +182,8 @@ __device__ __forceinline__ void sad_stage(int n_rows, int cols, Load load,
 // |F - S| / S, every minimiser d of S has F_d (1 - g) <= F_min (1 + g);
 // the test F_d <= F_min K takes K = (1 + g) / (1 - g) rounded up past the
 // float32 product's rounding, so it keeps every minimiser (and perhaps a
-// few more candidates, each summed exactly).
+// few more candidates, each summed exactly).  A zero sum makes fmin 0, so
+// an item with candidates to refine has no zero sums.
 template <int M, int R>
 __device__ __forceinline__ void sad_candidates(const float* f, float fmin,
                                                unsigned& zero,
@@ -200,24 +201,33 @@ __device__ __forceinline__ void sad_candidates(const float* f, float fmin,
   }
 }
 
-// Fold an item's candidates into (best, best_d), k ascending: 0 for
-// `zero`, the float64 sum for `refine`.  The warp takes the sums: a lane a
-// row, 32 / M groups of M lanes each summing RR of the R displacements
-// (M = 32: one group, passes of 9), each sum added over its group's
-// lanes.  A group's last displacements may lie past R: their sums read
-// columns past the run and are never used.
+// Fold the float64 sum v of displacement d into (best, best_d); callers
+// go in ascending d, so the strict < keeps the first minimum.
+__device__ __forceinline__ void sad_fold(double v, int d, double& best,
+                                         int& best_d) {
+  if (v < best) {
+    best = v;
+    best_d = d;
+  }
+}
+
+// An item's `refine` candidates in float64 by one warp, for short lists:
+// a lane a row, 32 / M groups of M lanes each summing RR of the R
+// displacements (M = 32: one group, passes of 9), each sum added over its
+// group's lanes.  A group's last displacements may lie past R: their sums
+// read columns past the run and are never used.
 template <int M, int R>
-__device__ __forceinline__ void sad_refine(const float* cb, const float* rb,
-                                           int pitch, unsigned zero,
-                                           unsigned refine, int d0,
-                                           double& best, int& best_d) {
+__device__ __forceinline__ void sad_refine_warp(const float* cb,
+                                                const float* rb, int pitch,
+                                                unsigned refine, int d0,
+                                                double& best, int& best_d) {
   constexpr int G = M < 32 ? 32 / M : 1;
   constexpr int RR = G > 1 ? (R + G - 1) / G : SAD_RUN_SHORT;
   constexpr int PASSES = (R + G * RR - 1) / (G * RR);
   const int lane = threadIdx.x & 31, row = lane % M, grp = lane / M;
 #pragma unroll
   for (int p = 0; p < PASSES; ++p) {
-    if (((zero | refine) >> (p * G * RR)) == 0) break;
+    if ((refine >> (p * G * RR)) == 0) break;
     double acc[RR];
 #pragma unroll
     for (int k = 0; k < RR; ++k) acc[k] = 0.0;
@@ -233,31 +243,50 @@ __device__ __forceinline__ void sad_refine(const float* cb, const float* rb,
       for (int kk = 0; kk < RR; ++kk) {
         const int k = (p * G + g2) * RR + kk;
         const double sum = __shfl_sync(0xffffffffu, acc[kk], g2 * M);
-        if (k >= R) continue;
-        const unsigned bit = 1u << k;
-        const double v = refine & bit ? sum : 0.0;
-        if ((zero | refine) & bit && v < best) {
-          best = v;
-          best_d = d0 + k;
-        }
+        if (k < R && (refine >> k & 1u)) sad_fold(sum, d0 + k, best, best_d);
       }
   }
 }
 
+// An item's `refine` candidates in float64 by one thread, for long lists
+// (where a warp an item would issue its shuffles for every item): the
+// screen's loop on doubles, in passes of RH displacements (half a run of
+// 17: the registers of three CTAs an SM).  The second pass's last sum
+// reads a column past the run and is never used.
+template <int M, int R>
+__device__ __forceinline__ void sad_refine_thread(const float* cb,
+                                                  const float* rb, int pitch,
+                                                  unsigned refine, int d0,
+                                                  double& best,
+                                                  int& best_d) {
+  constexpr int RH = R > SAD_RUN_SHORT ? (R + 1) / 2 : R;
+#pragma unroll
+  for (int k0 = 0; k0 < R; k0 += RH) {
+    if ((refine >> k0) == 0) break;
+    double acc[RH];
+#pragma unroll
+    for (int k = 0; k < RH; ++k) acc[k] = 0.0;
+    for (int yy = 0; yy < M; ++yy)
+      sad_row<M, 4>(cb + yy * M, rb + yy * pitch + k0, acc);
+#pragma unroll
+    for (int k = 0; k < RH; ++k)
+      if (k0 + k < R && (refine >> (k0 + k) & 1u))
+        sad_fold(acc[k], d0 + k0 + k, best, best_d);
+  }
+}
+
 // ref, cur (G, H, W) f32; mv (G, nby, nbx, 2) i32; sad (G, nby, nbx) f32;
-// n_refined (nullable) counts the screen's candidates summed again in
-// float64.  Grid (ceil(nbx / bx_cta), nby, G); blockDim a multiple of 32,
+// n_refined (nullable; 2 counts) gets the screen's candidates summed
+// again in float64 and the CTAs that gave a listed item to a thread.  Grid (ceil(nbx / bx_cta), nby, G); blockDim a multiple of 32,
 // at most SAD_CTA_THREADS; R = sad_run_for(2s + 1); dynamic shared memory
 // sad_smem(M, s, bx_cta).
-template <int M, int R, bool SCREEN>
-__global__ void __launch_bounds__(SAD_CTA_THREADS, SCREEN ? 3 : 1)
+template <int M, int R>
+__global__ void __launch_bounds__(SAD_CTA_THREADS, 3)
 sad_search_kernel(const float* __restrict__ ref,
                   const float* __restrict__ cur, int* __restrict__ mv,
                   float* __restrict__ sad,
                   unsigned long long* __restrict__ n_refined, int H, int W,
                   int s, int bx_cta) {
-  // staged in float32 for the screen, float64 without it
-  using T = typename std::conditional<SCREEN, float, double>::type;
   constexpr int BLK = M * M + 1;  // a staged block, padded off the banks
   constexpr int C = M < SAD_CHUNK ? M : SAD_CHUNK;
   extern __shared__ double s_mem[];
@@ -269,12 +298,13 @@ sad_search_kernel(const float* __restrict__ ref,
   const int by = blockIdx.y, g = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n_warps = blockDim.x >> 5;
-  double* s_best = s_mem;
-  T* s_ref = reinterpret_cast<T*>(s_best + items);
-  T* s_cur = s_ref + rows * pitch;
-  int* s_d = reinterpret_cast<int*>(s_cur + bx_cta * BLK);
-  // SCREEN only: the float32 sums, each block's minimum (as the bits of a
+  // each item's (sad, d) best, the window, the current blocks, each
+  // item's float32 sums, each block's minimum (as the bits of a
   // non-negative float, which order as ints), the items to refine
+  double* s_best = s_mem;
+  float* s_ref = reinterpret_cast<float*>(s_best + items);
+  float* s_cur = s_ref + rows * pitch;
+  int* s_d = reinterpret_cast<int*>(s_cur + bx_cta * BLK);
   float* s_f = reinterpret_cast<float*>(s_d + items);
   int* s_fmin = reinterpret_cast<int*>(s_f + items * R);
   int* s_list = s_fmin + bx_cta;
@@ -289,7 +319,7 @@ sad_search_kernel(const float* __restrict__ ref,
         return r[(size_t)min(max(y0 + i, 0), H - 1) * W +
                  min(max(x0 + x, 0), W - 1)];
       },
-      [&](int i, int x, float v) { s_ref[i * pitch + x] = T(v); });
+      [&](int i, int x, float v) { s_ref[i * pitch + x] = v; });
   // row yy of the CTA's blocks is one run of bx_cta * M values; a block
   // past the row's end repeats the last column (its result is dropped)
   sad_stage(
@@ -298,83 +328,82 @@ sad_search_kernel(const float* __restrict__ ref,
         return c[(size_t)(by * M + yy) * W + min(bx0 * M + x, W - 1)];
       },
       [&](int yy, int x, float v) {
-        s_cur[(x / M) * BLK + yy * M + x % M] = T(v);
+        s_cur[(x / M) * BLK + yy * M + x % M] = v;
       });
   if (threadIdx.x == 0) s_n_list = 0;
-  for (int b = threadIdx.x; b < bx_cta && SCREEN; b += blockDim.x)
+  for (int b = threadIdx.x; b < bx_cta; b += blockDim.x)
     s_fmin[b] = 0x7f800000;  // +inf
   __syncthreads();
 
-  const double inf = __longlong_as_double(0x7ff0000000000000LL);
-  // item it = (b, run, dy), dy fastest: its R sums, row-major term order
+  // item it = (b, run, dy), dy fastest: its R float32 sums, row-major term
+  // order, and the block's minimum
   for (int it = threadIdx.x; it < items; it += blockDim.x) {
     const int dy = it % n, q = it / n, run = q % runs, b = q / runs;
     const int dx0 = run * R;
-    const T* cb = s_cur + b * BLK;
-    const T* rb = s_ref + dy * pitch + b * M + dx0;
-    T acc[R];
+    const float* cb = s_cur + b * BLK;
+    const float* rb = s_ref + dy * pitch + b * M + dx0;
+    float acc[R];
 #pragma unroll
-    for (int k = 0; k < R; ++k) acc[k] = T(0);
+    for (int k = 0; k < R; ++k) acc[k] = 0.0f;
     for (int yy = 0; yy < M; ++yy, cb += M, rb += pitch)
       sad_row<M, C>(cb, rb, acc);
-    if constexpr (SCREEN) {
-      float fmin = __int_as_float(0x7f800000);
+    float fmin = __int_as_float(0x7f800000);
 #pragma unroll
-      for (int k = 0; k < R; ++k) {
-        const float f = dx0 + k < n ? acc[k] : __int_as_float(0x7f800000);
-        s_f[it * R + k] = f;
-        fmin = fminf(fmin, f);
-      }
-      atomicMin(&s_fmin[b], __float_as_int(fmin));
+    for (int k = 0; k < R; ++k) {
+      const float f = dx0 + k < n ? acc[k] : __int_as_float(0x7f800000);
+      s_f[it * R + k] = f;
+      fmin = fminf(fmin, f);
+    }
+    atomicMin(&s_fmin[b], __float_as_int(fmin));
+  }
+  __syncthreads();
+
+  const double inf = __longlong_as_double(0x7ff0000000000000LL);
+  // items whose candidates are all zero sums are done; the others go on
+  // the list
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    const int dy = it % n, q = it / n, run = q % runs, b = q / runs;
+    unsigned zero, refine;
+    sad_candidates<M, R>(s_f + it * R, __int_as_float(s_fmin[b]), zero,
+                         refine);
+    if (refine != 0) {
+      s_list[atomicAdd(&s_n_list, 1)] = it;
+      if (n_refined != nullptr) atomicAdd(n_refined, __popc(refine));
     } else {
-      double best = inf;
-      int best_d = n * n;
-#pragma unroll
-      for (int k = 0; k < R; ++k)
-        if (dx0 + k < n && acc[k] < best) {
-          best = acc[k];
-          best_d = dy * n + dx0 + k;
-        }
-      s_best[it] = best;
-      s_d[it] = best_d;
+      // the first zero sum, if any (every minimiser is a candidate)
+      s_best[it] = zero != 0 ? 0.0 : inf;
+      s_d[it] = zero != 0 ? dy * n + run * R + __ffs(zero) - 1 : n * n;
     }
   }
+  __syncthreads();
 
-  if constexpr (SCREEN) {
-    __syncthreads();
-    // items whose candidates are all zero sums are done; the others go on
-    // the list
-    for (int it = threadIdx.x; it < items; it += blockDim.x) {
-      const int dy = it % n, q = it / n, run = q % runs, b = q / runs;
-      unsigned zero, refine;
-      sad_candidates<M, R>(s_f + it * R, __int_as_float(s_fmin[b]), zero,
-                           refine);
-      if (refine != 0) {
-        s_list[atomicAdd(&s_n_list, 1)] = it;
-        if (n_refined != nullptr) atomicAdd(n_refined, __popc(refine));
-      } else {
-        // the first zero sum, if any (every minimiser is a candidate)
-        s_best[it] = zero != 0 ? 0.0 : inf;
-        s_d[it] = zero != 0 ? dy * n + run * R + __ffs(zero) - 1 : n * n;
-      }
+  // the listed items' candidates in float64: a thread an item once the
+  // list is long (ties over flat content), else a warp an item
+  const int n_list = s_n_list;
+  const bool by_thread = n_list >= SAD_THREAD_LIST;
+  if (by_thread && threadIdx.x == 0 && n_refined != nullptr)
+    atomicAdd(n_refined + 1, 1ULL);
+  const int step = by_thread ? blockDim.x : n_warps;
+  for (int e = by_thread ? threadIdx.x : warp; e < n_list; e += step) {
+    const int it = s_list[e];
+    const int dy = it % n, q = it / n, run = q % runs, b = q / runs;
+    unsigned zero, refine;
+    sad_candidates<M, R>(s_f + it * R, __int_as_float(s_fmin[b]), zero,
+                         refine);
+    const float* cb = s_cur + b * BLK;
+    const float* rb = s_ref + dy * pitch + b * M + run * R;
+    double best = inf;
+    int best_d = n * n;
+    if (by_thread) {
+      sad_refine_thread<M, R>(cb, rb, pitch, refine, dy * n + run * R, best,
+                              best_d);
+    } else {
+      sad_refine_warp<M, R>(cb, rb, pitch, refine, dy * n + run * R, best,
+                            best_d);
+      if (lane != 0) continue;
     }
-    __syncthreads();
-    // the listed items' candidates in float64, one warp an item
-    for (int e = warp; e < s_n_list; e += n_warps) {
-      const int it = s_list[e];
-      const int dy = it % n, q = it / n, run = q % runs, b = q / runs;
-      unsigned zero, refine;
-      sad_candidates<M, R>(s_f + it * R, __int_as_float(s_fmin[b]), zero,
-                           refine);
-      double best = inf;
-      int best_d = n * n;
-      sad_refine<M, R>(s_cur + b * BLK, s_ref + dy * pitch + b * M + run * R,
-                       pitch, zero, refine, dy * n + run * R, best, best_d);
-      if (lane == 0) {
-        s_best[it] = best;
-        s_d[it] = best_d;
-      }
-    }
+    s_best[it] = best;
+    s_d[it] = best_d;
   }
   __syncthreads();
 
@@ -549,7 +578,7 @@ template <int M, int R>
 int launch_sad(const float* ref, const float* cur, int* mv, float* sad,
                unsigned long long* n_refined, int G, int H, int W, int s,
                cudaStream_t st) {
-  auto kernel = vcf::sad_search_kernel<M, R, vcf::SAD_SCREEN>;
+  auto kernel = vcf::sad_search_kernel<M, R>;
   int threads = 32;
   const int bx = sad_plan(M, s, W / M, &threads);
   const int smem = (int)vcf::sad_smem(M, s, bx);
@@ -596,8 +625,9 @@ int vcf_sad_smem(int m, int s) {
 }
 
 // ref, cur (G, H, W) f32 and outputs mv (G, H/m, W/m, 2) i32, sad
-// (G, H/m, W/m) f32, all on the device; n_refined (nullable) a device
-// u64 to which the screen adds its float64 second sums.  Returns
+// (G, H/m, W/m) f32, all on the device; n_refined (nullable) two device
+// u64s to which the screen adds its float64 second sums and the CTAs that
+// summed them a thread an item.  Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
 // shape the kernel does not take.
 int vcf_sad_search(const void* ref, const void* cur, void* mv, void* sad,

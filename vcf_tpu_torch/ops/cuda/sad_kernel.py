@@ -15,9 +15,11 @@ set the pace and not the shared-memory loads.  The sums are a float32
 screen (twice the float64 add rate): every displacement whose float32 sum
 F_d lies within the rounding bound of the block's smallest
 (`screen_bound`) is summed again in float64, and the (sad, d) minimum of
-those is the answer (`count_refined` reports how many).  Other block sizes
-take the generic mode, the first design (one CTA per block, one thread per
-displacement, float64), chosen by the block size alone and counted in
+those is the answer.  A CTA sums its candidates a warp an item, or a
+thread an item once many tie (flat content under a change of light);
+`count_refined` reports both counts.  Other block sizes take the generic
+mode, the first design (one CTA per block, one thread per displacement,
+float64), chosen by the block size alone and counted in
 `sad_search.generic_launches`.
 
 Exactness: every nonzero luma is a multiple of 2^-27 and a block's SAD is
@@ -26,6 +28,12 @@ minimiser passes the screen.  A CPU tensor runs the plain version,
 `sad_search_ref` (which is `ops.motion.full_search`); a CUDA tensor
 launches the kernel.  They agree bit for bit: mvs and SADs.
 `sad_search.launches` counts kernel launches of both modes.
+
+Shared memory: on the card the C entry's gate (`vcf_sad_smem`) decides
+which (m, s) run.  It takes every shape the first design took (its
+float64 window and block in 48 KiB, the generic mode's own gate) and, at
+the instances, larger ranges.  The plain version keeps the first design's
+gate.
 """
 
 from __future__ import annotations
@@ -39,35 +47,9 @@ from vcf_tpu_torch.ops.cuda import _build
 
 #: block sizes with a kernel instance; others take the generic mode
 INSTANCES = (4, 8, 16, 32)
-#: shared memory of a CTA of one block: an instance opts in up to the
-#: card's 227 KiB; the generic mode keeps the 48 KiB a launch gets without
-MAX_SMEM = 227 * 1024
-MAX_SMEM_GENERIC = 48 * 1024
-# the instances' layout (csrc/motion.cu): the dx values a work item sums
-_RUNS = (9, 17)
-
-
-def _run_for(n: int) -> int:
-    """`sad_run_for`: the run length whose runs cover n with fewer slots."""
-    short, long_ = _RUNS
-    return long_ if -(-n // long_) * long_ <= -(-n // short) * short \
-        else short
-
-
-def smem_bytes(m: int, s: int) -> int:
-    """Shared memory a CTA of one block needs for block m and range s
-    (`vcf_sad_smem` in csrc/motion.cu): an instance stages the window
-    (row pitch odd) and the block in float32, and keeps each work item's
-    float32 sums, (sad, d) best and list slot and the block's minimum; the
-    generic mode stages the (m + 2s)^2 window and the block in float64."""
-    if m not in INSTANCES:
-        return ((m + 2 * s) ** 2 + m * m) * 8
-    n = 2 * s + 1
-    run = _run_for(n)
-    runs = -(-n // run)
-    pitch = (runs * run - 1 + m) | 1
-    stage = (m + 2 * s) * pitch + m * m + 1
-    return 4 * stage + (16 + 4 * run) * n * runs + 4
+#: the first design's shared memory: the (m + 2s)^2 window and the m x m
+#: block in float64, within the 48 KiB a launch gets without opt-in
+FIRST_DESIGN_SMEM = 48 * 1024
 
 
 def screen_bound(m: int) -> float:
@@ -88,10 +70,13 @@ def _check(ref_luma: torch.Tensor, cur_luma: torch.Tensor, m: int,
         raise ValueError("sad_search: lumas on two devices")
     if m < 1 or s < 0:
         raise ValueError(f"sad_search: block {m}, range {s}")
-    limit = MAX_SMEM if m in INSTANCES else MAX_SMEM_GENERIC
-    if smem_bytes(m, s) > limit:
+    if _build.runs_plain(cur_luma):
+        fits = ((m + 2 * s) ** 2 + m * m) * 8 <= FIRST_DESIGN_SMEM
+    else:
+        fits = _build.load().vcf_sad_smem(m, s) >= 0
+    if not fits:
         raise ValueError(f"sad_search: block {m} with range {s} needs more "
-                         f"than {limit} bytes of shared memory")
+                         "shared memory than the kernel has")
 
 
 def sad_search_ref(ref_luma: torch.Tensor, cur_luma: torch.Tensor, m: int,
@@ -139,11 +124,13 @@ sad_search.generic_launches = 0
 
 def count_refined(ref_luma: torch.Tensor, cur_luma: torch.Tensor, m: int,
                   s: int):
-    """`sad_search` on CUDA lumas, also returning how many displacements
-    the screen summed again in float64 (0 in the generic mode)."""
+    """`sad_search` on CUDA lumas -> (mv, sad, refined, by_thread): also how
+    many displacements the screen summed again in float64, and how many
+    CTAs summed them a thread an item (both 0 in the generic mode)."""
     _check(ref_luma, cur_luma, m, s)
     if _build.runs_plain(cur_luma):
         raise ValueError("count_refined: the screen runs only on CUDA")
-    n = torch.zeros(1, dtype=torch.int64, device=cur_luma.device)
+    n = torch.zeros(2, dtype=torch.int64, device=cur_luma.device)
     mv, sad = _launch(ref_luma, cur_luma, m, s, n)
-    return mv, sad, int(n.item())
+    refined, by_thread = n.tolist()
+    return mv, sad, refined, by_thread
