@@ -1,0 +1,142 @@
+"""Shared pieces of the A/B scripts (dct_ab.py, encode_ab.py, sad_ab.py,
+lookback_ab.py), which compare the current tree's kernels with other
+builds on one GPU.
+
+Other builds live under _ab/ (git-ignored, so never committed): a library
+compiled from another directory's source or from an edited copy of the
+current one (`build_lib`), or a whole copy of vcf_tpu_torch with edits
+(`copy_package`), or another commit's tree unpacked there by `git
+archive`, which a process of its own imports (`import_tree`,
+`run_in_turns`).  Times are taken in turns, (other, current, current,
+other), so a drift of the card's clock over the call shows as a spread
+within each build's pair, not as a difference between them.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+AB = os.path.join(ROOT, "_ab")
+
+
+def edited(text: str, edits, what: str) -> str:
+    """`text` with each (old, new) of `edits` replaced; each old must occur
+    exactly once."""
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise RuntimeError(f"{what}: {old!r} is not once in the source")
+        text = text.replace(old, new)
+    return text
+
+
+def build_lib(name: str, src_dir: str, main: str, also=(), edits=(),
+              signatures=None, flags=()) -> tuple:
+    """Compile src_dir's `main` .cu (with `edits`, the headers `also`
+    copied beside it) by nvcc with the package's flags into
+    _ab/build_<name>/lib.so; load it, and set the argtypes of every entry
+    of `signatures` (entry -> argtypes, restype int).  Returns (the
+    library, nvcc's stderr)."""
+    sys.path.insert(0, ROOT)
+    from vcf_tpu_torch.ops.cuda import _build
+
+    out = os.path.join(AB, f"build_{name}")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    for f in also:
+        shutil.copy(os.path.join(src_dir, f), out)
+    path = os.path.join(out, main)
+    with open(os.path.join(src_dir, main)) as fh:
+        text = edited(fh.read(), edits, f"{name} {main}")
+    with open(path, "w") as fh:
+        fh.write(text)
+    lib = os.path.join(out, "lib.so")
+    done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *flags,
+                           f"-I{out}", "-shared", "-o", lib, path],
+                          capture_output=True, text=True)
+    if done.returncode:
+        raise RuntimeError(f"nvcc failed for {name}:\n{done.stderr}")
+    dll = ctypes.CDLL(lib)
+    for entry, argtypes in (signatures or {}).items():
+        fn = getattr(dll, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return dll, done.stderr
+
+
+def copy_package(name: str, edits) -> str:
+    """A copy of vcf_tpu_torch (without its build) under _ab/<name>/ with
+    `edits`, each (path in the package, old, new); returns the directory
+    to import it from."""
+    root = os.path.join(AB, name)
+    shutil.rmtree(root, ignore_errors=True)
+    pkg = os.path.join(root, "vcf_tpu_torch")
+    shutil.copytree(os.path.join(ROOT, "vcf_tpu_torch"), pkg,
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    for rel, old, new in edits:
+        path = os.path.join(pkg, rel)
+        with open(path) as fh:
+            text = edited(fh.read(), [(old, new)], f"{name} {rel}")
+        with open(path, "w") as fh:
+            fh.write(text)
+    return root
+
+
+def import_tree(root: str):
+    """Make this process import vcf_tpu_torch from `root` (the current
+    tree's chip_smoke.py drives it); returns chip_smoke.  Call it before
+    anything imports vcf_tpu_torch."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    sys.path.insert(0, root)   # after chip_smoke, which puts ROOT first
+    from vcf_tpu_torch.ops.cuda import _build
+
+    cs.require(os.path.samefile(_build.SRC_DIR.parent.parent, root),
+               f"imported {_build.SRC_DIR}, not {root}")
+    return cs
+
+
+def run_in_turns(script: str, roots, timeout: int = 900) -> list:
+    """Run `python3 script --time ROOT` for each of `roots` in order, each
+    in a process of its own (stderr passed through); returns the JSON
+    object each printed as its last line."""
+    out = []
+    for root in roots:
+        done = subprocess.run([sys.executable, script, "--time", root],
+                              stdout=subprocess.PIPE, text=True,
+                              timeout=timeout, check=True)
+        out.append(json.loads(done.stdout.strip().splitlines()[-1]))
+    return out
+
+
+@contextlib.contextmanager
+def quiet():
+    """Send what chip_smoke's phases print to stderr, so that a timing
+    process's stdout holds its JSON line alone."""
+    with contextlib.redirect_stdout(sys.stderr):
+        yield
+
+
+def turns(other, current, reps: int) -> dict:
+    """CUDA-event ms a call of `other` and `current` (chip_smoke.cuda_ms,
+    `reps` calls after a warm-up), in turns: {"other": [first, last],
+    "current": [second, third]}."""
+    import chip_smoke as cs
+
+    t = [cs.cuda_ms(f, reps) for f in (other, current, current, other)]
+    return {"other": [t[0], t[3]], "current": [t[1], t[2]]}
+
+
+def write_json(lines: list, path: str | None) -> None:
+    """Write the A/B's rows to `path` (if given), creating its directory."""
+    if not path:
+        return
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as fh:
+        json.dump(lines, fh, indent=1)

@@ -39,7 +39,9 @@ kernels from vcf_tpu_torch/csrc on first use.  Phases:
    sad_search with ref = frames 0..6 and cur = frames 1..7 (m=16, s=8),
    and on 2 of those pairs (the IPP loops' launch shape, also timed),
    against its plain version (0 differing mvs, SAD max_abs_err 0), with
-   the count of displacements its float32 screen sums again, and
+   the count of displacements its float32 screen sums again, and at
+   s=77 on a 2x64x96 crop (past the instance's shared memory: the generic
+   kernel's global mode), and
    mc_apply_planar / mc_apply (channel-last) on the (7, 3, 1088, 1920)
    float32 frames with seeded mvs in [-8, 8], the frame-edge blocks
    pointing out of the frame, bit-exact; CUDA-event times of each;
@@ -493,16 +495,30 @@ def phase_dct_kernels(dev, frames: np.ndarray) -> list:
     for name, line, (err, share), kern, plain, bnd in rows:
         ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 5)
         print(f"time {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} "
-              f"ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+              f"ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+              f"{ms / bnd['bound_ms']:.2f}x the bound")
         results.append(kernel_row(name, "dct.cu", f"dct_kernel.py:{line}",
                                   err, ms, plain_ms, bnd, diff_share=share))
     # B1/B2 in plain mode too (BatchCodec's color="none" route)
     k1, _, _ = modes[False]
-    print(f"time plain mode: fused_dct_quantize "
-          f"{cuda_ms(lambda: dk.fused_dct_quantize(ct), 20):.4f} ms, "
-          f"fused_dequantize_idct "
-          f"{cuda_ms(lambda: dk.fused_dequantize_idct(k1), 20):.4f} ms")
+    print_plain_mode(dk, ct, k1, grid_layout=False)
     return results
+
+
+def print_plain_mode(dk, ct: torch.Tensor, k1: torch.Tensor,
+                     grid_layout: bool) -> None:
+    """Time B1 and B2 in plain mode (no perceptual table) on the clip's
+    planes ct and B1's indexes k1, B1 also against its plain version."""
+    kw = dict(grid_layout=grid_layout)
+    bnd = bound(nbytes(ct, k1), k1.numel() * dct_ops_per_elem(8))
+    ms1 = cuda_ms(lambda: dk.fused_dct_quantize(ct, **kw), 20)
+    plain1 = cuda_ms(lambda: dk.fused_dct_quantize_ref(ct, **kw), 5)
+    ms2 = cuda_ms(lambda: dk.fused_dequantize_idct(k1, **kw), 20)
+    print(f"time plain mode{' [grid_layout]' if grid_layout else ''}: "
+          f"fused_dct_quantize {ms1:.4f} ms ({ms1 / bnd['bound_ms']:.2f}x "
+          f"the bound, {bnd['bound_ms']:.4f} ms), plain torch {plain1:.4f} "
+          f"ms; fused_dequantize_idct {ms2:.4f} ms "
+          f"({ms2 / bnd['bound_ms']:.2f}x)")
 
 
 def phase_main_path(dev, frames: np.ndarray, planes: torch.Tensor) -> dict:
@@ -738,6 +754,21 @@ def phase_motion_kernels(dev, clip: np.ndarray) -> list:
             sk.sad_search.generic_launches == 0,
             "sad_search: phase 3c's launches did not all take the "
             "block-size instance")
+    # a range past the instance's shared memory (m = 16 from s = 77) takes
+    # the generic kernel's global mode: ROADMAP C12, on a 64 x 96 crop
+    far = 77
+    r_far = ref2[:, :64, :96].contiguous()
+    c_far = cur2[:, :64, :96].contiguous()
+    mv_k, sad_k = sk.sad_search(r_far, c_far, ME_BLOCK, far)
+    mv_p, sad_p = sk.sad_search_ref(r_far, c_far, ME_BLOCK, far)
+    require(torch.equal(mv_k, mv_p) and torch.equal(sad_k, sad_p) and
+            sk.sad_search.generic_launches == 1,
+            f"sad_search's global mode (m={ME_BLOCK}, s={far}) differs from "
+            "its plain version or did not launch")
+    print(f"sad_search global mode: m={ME_BLOCK} s={far} on 2x64x96 equals "
+          f"its plain version; kernel "
+          f"{cuda_ms(lambda: sk.sad_search(r_far, c_far, ME_BLOCK, far), 5):.4f}"
+          " ms")
     mode = f"sad_search_kernel<{ME_BLOCK}, R> (block-size instance)"
     n_disp = (2 * SEARCH + 1) ** 2
     per_frame = n_disp * (H // ME_BLOCK) * (W // ME_BLOCK)
@@ -1421,14 +1452,17 @@ def phase_grid_kernels(dev, frames: np.ndarray, ctx_grids: dict) -> list:
             extra["ms_2_frames"] = cuda_ms(two_frames[name], 20)
         print(f"time {name} [{mode}]: kernel {ms:.4f} ms, plain torch "
               f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
-              f"({bnd['bound_by']})"
-              + (f"; 2 frames {extra['ms_2_frames']:.4f} ms"
+              f"({bnd['bound_by']}), {ms / bnd['bound_ms']:.2f}x the bound"
+              + (f"; 2 frames {extra['ms_2_frames']:.4f} ms "
+                 f"({FRAMES / 2 * extra['ms_2_frames'] / bnd['bound_ms']:.2f}"
+                 "x)"
                  if "ms_2_frames" in extra else ""))
         # a mode of a wrapper that has an entry of its own is named apart
         shared = mode == "grid_layout"
         results.append(kernel_row(f"{name}[{mode}]" if shared else name, src,
                                   rep, err, ms, plain_ms, bnd, mode=mode,
                                   diff_share=share, **extra))
+    print_plain_mode(dk, ct, b12[False][0], grid_layout=True)
     c4, c15 = ctx_out[4][1], ctx_out[15][1]
     for n_ctx, (_, t) in ctx_out.items():
         print(f"time rans_decode_ctx_grid ({n_ctx} classes): kernel "
@@ -1699,33 +1733,24 @@ def gop_encode_split(enc, gops: torch.Tensor) -> tuple:
     return split, lumas
 
 
-def phase_ipp_grid(dev, clip: np.ndarray) -> dict:
-    """4g: IPPCodec's planar grid loop (benchmarks/bench_ipp.py:57-172)."""
-    import zlib
-
-    from vcf_tpu_torch import CodecConfig, metrics, video
+def ipp_grid_route(dev, clip: np.ndarray) -> tuple:
+    """Phase 4g's set-up, as benchmarks/bench_ipp.py: the planar IPP codec
+    on `dev`, the clip's GOP batch, rANS tables trained once on its planes,
+    and the whole encode (GOP loop, laning, K1) and decode (grid decode,
+    unlaning, GOP loop).  Returns (ipp, gops, encode_full, decode_full,
+    fg_np, s_streams)."""
+    from vcf_tpu_torch import CodecConfig, video
     from vcf_tpu_torch.config import VideoConfig
     from vcf_tpu_torch.entropy import rans
-    from vcf_tpu_torch.ops.cuda import dct_kernel as dk
-    from vcf_tpu_torch.ops.cuda import mc_kernel as mk
     from vcf_tpu_torch.ops.cuda import rans_decode as rd
     from vcf_tpu_torch.ops.cuda import rans_encode as re_
-    from vcf_tpu_torch.ops.cuda import sad_kernel as sk
 
-    kernels = {"sad_search": sk.sad_search,
-               "mc_apply_planar": mk.mc_apply_planar,
-               "fused_cdct_quantize": dk.fused_cdct_quantize,
-               "fused_dequantize_cdct": dk.fused_dequantize_cdct,
-               "rans_encode_grouped": re_.rans_encode_grouped,
-               "rans_decode_grouped_grid": rd.rans_decode_grouped_grid}
     n, h, w, _ = clip.shape
     vcfg = VideoConfig(mode="ipp", n_frames=n, gop_size=GOP,
                        me_block=ME_BLOCK, search_range=SEARCH)
-    ccfg = CodecConfig(entropy="grans", subbands=False)
-    ipp = video.get(vcfg, ccfg, dev)
+    ipp = video.get(vcfg, CodecConfig(entropy="grans", subbands=False), dev)
     enc, dec = ipp._gop_encode_grid_batch, ipp._gop_decode_grid_batch
     gops = torch.from_numpy(clip).to(dev).reshape(-1, GOP, h, w, 3)
-    # set-up, as bench_ipp.py: tables trained once on the clip's planes
     planes0, _ = enc(gops)
     lanes0, s_streams, cw = grid_lanes_of(planes0.reshape(-1, 3, h, w))
     l = lanes0.shape[0]
@@ -1741,6 +1766,31 @@ def phase_ipp_grid(dev, clip: np.ndarray) -> dict:
         lanes = rd.rans_decode_grouped_grid(raw, st, fg, cg, l).t()
         planes = rans.grid_unlanes_lmajor(lanes, 8, (n, 3, h, w), cw=cw)
         return dec(planes.reshape(-1, GOP, 3, h, w), mvs)
+
+    return ipp, gops, encode_full, decode_full, fg_np, s_streams
+
+
+def phase_ipp_grid(dev, clip: np.ndarray) -> dict:
+    """4g: IPPCodec's planar grid loop (benchmarks/bench_ipp.py:57-172)."""
+    import zlib
+
+    from vcf_tpu_torch import metrics, video
+    from vcf_tpu_torch.ops.cuda import dct_kernel as dk
+    from vcf_tpu_torch.ops.cuda import mc_kernel as mk
+    from vcf_tpu_torch.ops.cuda import rans_decode as rd
+    from vcf_tpu_torch.ops.cuda import rans_encode as re_
+    from vcf_tpu_torch.ops.cuda import sad_kernel as sk
+
+    kernels = {"sad_search": sk.sad_search,
+               "mc_apply_planar": mk.mc_apply_planar,
+               "fused_cdct_quantize": dk.fused_cdct_quantize,
+               "fused_dequantize_cdct": dk.fused_dequantize_cdct,
+               "rans_encode_grouped": re_.rans_encode_grouped,
+               "rans_decode_grouped_grid": rd.rans_decode_grouped_grid}
+    n, h, w, _ = clip.shape
+    ipp, gops, encode_full, decode_full, fg_np, s_streams = ipp_grid_route(
+        dev, clip)
+    enc, dec = ipp._gop_encode_grid_batch, ipp._gop_decode_grid_batch
 
     zero_counts(kernels)
     planes, mvs, raw, st = encode_full(gops)
@@ -1764,7 +1814,7 @@ def phase_ipp_grid(dev, clip: np.ndarray) -> dict:
     rec = torch.clamp(torch.round(recs), 0, 255).to(torch.uint8).permute(
         0, 1, 3, 4, 2).reshape(n, h, w, 3).cpu().numpy()
 
-    cpu = video.get(vcfg, ccfg, "cpu")
+    cpu = video.get(ipp.vcfg, ipp.ccfg, "cpu")
     t0 = time.perf_counter()
     planes_c, mvs_c = cpu._gop_encode_grid_batch(
         torch.from_numpy(clip).reshape(-1, GOP, h, w, 3))

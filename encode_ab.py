@@ -34,14 +34,14 @@ import argparse
 import ctypes
 import json
 import os
-import shutil
 import sys
 
 import numpy as np
 import torch
 
-ROOT = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, ROOT)
+import ab_common as ab
+
+sys.path.insert(0, ab.ROOT)
 ENCODE = "rans_encode.cu"
 VARIANTS = {
     "rcp": [("""  const uint32_t q = x / f;
@@ -59,33 +59,14 @@ REPS = 20
 
 
 def build(name: str, src_dir: str, edits=()) -> ctypes.CDLL:
-    """Compile src_dir's rans_encode.cu (with `edits`) into
-    _ab/build_<name>/libk1.so and load it."""
+    """Compile src_dir's rans_encode.cu (with `edits`) under
+    _ab/build_<name>/ and load it."""
     from vcf_tpu_torch.ops.cuda import _build
 
-    out = os.path.join(ROOT, "_ab", f"build_{name}")
-    shutil.rmtree(out, ignore_errors=True)
-    os.makedirs(out)
-    for f in (ENCODE, "rans_common.cuh"):
-        shutil.copy(os.path.join(src_dir, f), out)
-    path = os.path.join(out, ENCODE)
-    with open(path) as fh:
-        src = fh.read()
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise RuntimeError(f"{name}: {old!r} is not once in {ENCODE}")
-        src = src.replace(old, new)
-    with open(path, "w") as fh:
-        fh.write(src)
-    lib = os.path.join(out, "libk1.so")
-    _build._run_all([[_build._nvcc(), *_build.NVCC_FLAGS, f"-I{out}",
-                      "-shared", "-o", lib, path]])
-    dll = ctypes.CDLL(lib)
-    for entry in ("vcf_rans_encode_grouped", "vcf_rans_encode_ctx"):
-        fn = getattr(dll, entry)
-        fn.argtypes = _build._SIGNATURES[entry]
-        fn.restype = ctypes.c_int
-    return dll
+    entries = ("vcf_rans_encode_grouped", "vcf_rans_encode_ctx")
+    return ab.build_lib(name, src_dir, ENCODE, also=("rans_common.cuh",),
+                        edits=edits, signatures={
+                            e: _build._SIGNATURES[e] for e in entries})[0]
 
 
 def launcher(dll: ctypes.CDLL):
@@ -171,7 +152,7 @@ def main() -> None:
     dev = cs.phase_device()   # no card: exits; else prints name and limit
     _build.load()
     others = {"parent": launcher(build("parent", args.parent))}
-    src = os.path.join(ROOT, "vcf_tpu_torch", "csrc")
+    src = os.path.join(ab.ROOT, "vcf_tpu_torch", "csrc")
     for name in args.variants:
         others[name] = launcher(build(name, src, VARIANTS[name]))
     lines = []
@@ -190,15 +171,12 @@ def main() -> None:
                 cs.require(torch.equal(raw, raw_o) and torch.equal(st, st_o),
                            f"{what}: K1 differs from the {name} build")
                 row[f"bit_identical_to_{name}"] = True
-            t = [cs.cuda_ms(f, REPS) for f in (other, cur, cur, other)]
-            row[f"{name}_ms"] = [t[0], t[3]]
-            row[f"current_ms_vs_{name}"] = [t[1], t[2]]
+            t = ab.turns(other, cur, REPS)
+            row[f"{name}_ms"] = t["other"]
+            row[f"current_ms_vs_{name}"] = t["current"]
         print(json.dumps(row), flush=True)
         lines.append(row)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as fh:
-            json.dump(lines, fh, indent=1)
+    ab.write_json(lines, args.out)
 
 
 if __name__ == "__main__":

@@ -22,14 +22,13 @@ ms (the phases' own log goes to stderr).  Variants:
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
-import shutil
 import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.abspath(__file__))
+import ab_common as ab
+
 COMMON = "csrc/rans_common.cuh"
 DECODE = "csrc/rans_decode.cu"
 ENCODE = "csrc/rans_encode.cu"
@@ -51,43 +50,20 @@ TIMES = ("ms", "ms_15_classes", "launch_ms", "launch_ms_15_classes",
          "ms_no_counts", "library_ms")
 
 
-def make_variant(name: str) -> str:
-    """The directory holding a copy of vcf_tpu_torch with `name`'s edits."""
-    root = os.path.join(ROOT, "_ab", name)
-    shutil.rmtree(root, ignore_errors=True)
-    pkg = os.path.join(root, "vcf_tpu_torch")
-    shutil.copytree(os.path.join(ROOT, "vcf_tpu_torch"), pkg,
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    for rel, old, new in VARIANTS[name]:
-        path = os.path.join(pkg, rel)
-        with open(path) as f:
-            src = f.read()
-        if src.count(old) != 1:
-            raise RuntimeError(f"{name}: {old!r} is not once in {rel}")
-        with open(path, "w") as f:
-            f.write(src.replace(old, new))
-    return root
-
-
 def time_package(pkg_root: str) -> dict:
     """Run phases 3 and 3d on the vcf_tpu_torch under pkg_root (this
     process); returns their kernels' times."""
-    sys.path.insert(0, ROOT)
-    import chip_smoke as cs
-    sys.path.insert(0, pkg_root)   # after chip_smoke, which puts ROOT first
+    cs = ab.import_tree(pkg_root)
     from vcf_tpu_torch import Codec, CodecConfig
-    from vcf_tpu_torch.ops.cuda import _build
 
-    cs.require(os.path.samefile(_build.SRC_DIR.parent.parent, pkg_root),
-               f"imported {_build.SRC_DIR}, not {pkg_root}")
-    with contextlib.redirect_stdout(sys.stderr):
+    with ab.quiet():
         dev = cs.phase_device()
         _, frames = cs.clip_frames()
         planes = cs.index_planes(
             Codec(CodecConfig(entropy="grans"), device=dev), frames)
         rows = cs.phase_kernels(dev, planes) + \
             cs.phase_ctx_kernels(dev, planes)[0]
-    out = {"package": os.path.relpath(pkg_root, ROOT)}
+    out = {"package": os.path.relpath(pkg_root, ab.ROOT)}
     for row in rows:
         out[row["name"]] = {k: row[k] for k in TIMES if row.get(k)}
     return out
@@ -101,13 +77,14 @@ def main() -> None:
     if args.time:
         print(json.dumps(time_package(args.time)), flush=True)
         return
+    sys.path.insert(0, ab.ROOT)
     import chip_smoke as cs
 
     cs.phase_device()   # no card: exits; else prints its name and limit
     sys.stdout.flush()
     for name in args.variants:
-        variant = make_variant(name)
-        for pkg in (ROOT, variant, variant, ROOT):
+        variant = ab.copy_package(name, VARIANTS[name])
+        for pkg in (ab.ROOT, variant, variant, ab.ROOT):
             subprocess.run([sys.executable, __file__, "--time", pkg],
                            check=True, timeout=600)
 

@@ -36,14 +36,14 @@ import argparse
 import ctypes
 import json
 import os
-import shutil
 import sys
 
 import numpy as np
 import torch
 
-ROOT = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, ROOT)
+import ab_common as ab
+
+sys.path.insert(0, ab.ROOT)
 MOTION = "motion.cu"
 VARIANTS = {
     "r17": [("  return r_long <= r_short ? SAD_RUN_LONG : SAD_RUN_SHORT;",
@@ -67,30 +67,13 @@ PARENT_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 
 
 def build(name: str, src_dir: str, edits=()) -> ctypes.CDLL:
-    """Compile src_dir's motion.cu (with `edits`) into
-    _ab/build_<name>/libsad.so and load it."""
+    """Compile src_dir's motion.cu (with `edits`) under _ab/build_<name>/
+    and load it."""
     from vcf_tpu_torch.ops.cuda import _build
 
-    out = os.path.join(ROOT, "_ab", f"build_{name}")
-    shutil.rmtree(out, ignore_errors=True)
-    os.makedirs(out)
-    path = os.path.join(out, MOTION)
-    with open(os.path.join(src_dir, MOTION)) as fh:
-        src = fh.read()
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise RuntimeError(f"{name}: {old!r} is not once in {MOTION}")
-        src = src.replace(old, new)
-    with open(path, "w") as fh:
-        fh.write(src)
-    lib = os.path.join(out, "libsad.so")
-    _build._run_all([[_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-                      lib, path]])
-    dll = ctypes.CDLL(lib)
-    dll.vcf_sad_search.argtypes = (PARENT_SIGNATURE if name == "parent"
-                                   else _build._SIGNATURES["vcf_sad_search"])
-    dll.vcf_sad_search.restype = ctypes.c_int
-    return dll
+    return ab.build_lib(name, src_dir, MOTION, edits=edits, signatures={
+        "vcf_sad_search": PARENT_SIGNATURE if name == "parent"
+        else _build._SIGNATURES["vcf_sad_search"]})[0]
 
 
 def launcher(dll: ctypes.CDLL, parent: bool):
@@ -138,7 +121,7 @@ def main() -> None:
 
     dev = cs.phase_device()   # no card: exits; else prints name and limit
     others = {"parent": launcher(build("parent", args.parent), True)}
-    src = os.path.join(ROOT, "vcf_tpu_torch", "csrc")
+    src = os.path.join(ab.ROOT, "vcf_tpu_torch", "csrc")
     for name in args.variants:
         others[name] = launcher(build(name, src, VARIANTS[name]), False)
     m, s = cs.ME_BLOCK, cs.SEARCH
@@ -172,16 +155,12 @@ def main() -> None:
                 cs.require(torch.equal(mv, mv_o) and torch.equal(sad, sad_o),
                            f"{row['shape']}: the {name} build differs")
                 row[f"bit_identical_to_{name}"] = True
-            t = [cs.cuda_ms(f, REPS) for f in (other, current, current,
-                                                other)]
-            row[f"{name}_ms"] = [t[0], t[3]]
-            row[f"current_ms_vs_{name}"] = [t[1], t[2]]
+            t = ab.turns(other, current, REPS)
+            row[f"{name}_ms"] = t["other"]
+            row[f"current_ms_vs_{name}"] = t["current"]
         print(json.dumps(row), flush=True)
         lines.append(row)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as fh:
-            json.dump(lines, fh, indent=1)
+    ab.write_json(lines, args.out)
 
 
 if __name__ == "__main__":

@@ -316,20 +316,33 @@ def _pixel_rule(got, want):
     assert d.max() <= 1 and (d != 0).mean() < 1e-3
 
 
-# (N, H, W, b, qss): odd shapes, a ragged last column strip (W not a
+# (N, H, W, b, qss, off): odd shapes, a ragged last column strip (W not a
 # multiple of the kernels' 1024 / b columns), rows that are not 16-byte
-# aligned (W = 40, 20, 136, 18, 1030), both steps, and every block size:
-# the inverse kernel has an instance for each b
-DCT_CASES = [(2, 24, 40, 8, 32), (1, 8, 20, 4, 24), (3, 16, 136, 8, 24),
-             (1, 32, 288, 4, 32), (1, 8, 18, 2, 24), (2, 32, 96, 16, 32),
-             (1, 64, 160, 32, 24), (1, 4, 1030, 1, 32)]
+# aligned (W = 40, 20, 136, 18, 1030), both steps, every block size (both
+# kernels have an instance for each b), and inputs whose storage starts
+# `off` elements into their buffer (a u8 input 1 byte in, an f32 input 1
+# element in: no run is 16-byte aligned)
+DCT_CASES = [(2, 24, 40, 8, 32, 0), (1, 8, 20, 4, 24, 0),
+             (3, 16, 136, 8, 24, 0), (1, 32, 288, 4, 32, 0),
+             (1, 8, 18, 2, 24, 0), (2, 32, 96, 16, 32, 0),
+             (1, 64, 160, 32, 24, 0), (1, 4, 1030, 1, 32, 0),
+             (2, 32, 256, 8, 32, 1), (1, 16, 1920, 8, 24, 1)]
 
 
-@pytest.mark.parametrize("n,h,w,b,qss", DCT_CASES)
-def test_dct_kernels_match_plain_versions(dev, n, h, w, b, qss):
+def _at_offset(x: torch.Tensor, off: int) -> torch.Tensor:
+    """x's values in a tensor whose storage starts `off` elements into a
+    larger buffer (so its data pointer is misaligned for off > 0)."""
+    buf = torch.empty(x.numel() + off, dtype=x.dtype, device=x.device)
+    y = buf[off:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+@pytest.mark.parametrize("n,h,w,b,qss,off", DCT_CASES)
+def test_dct_kernels_match_plain_versions(dev, n, h, w, b, qss, off):
     rng = np.random.default_rng(h + w)
-    px = torch.from_numpy(rng.integers(0, 256, (n, 3, h, w)).astype(
-        np.uint8)).to(dev)
+    px = _at_offset(torch.from_numpy(rng.integers(0, 256, (n, 3, h, w))
+                                     .astype(np.uint8)).to(dev), off)
     mf = dk.static_mat(color_ops.YCRCB_FWD)
     mi = dk.static_mat(color_ops.YCRCB_INV)
     k = dk.fused_cdct_quantize(px, mf, b=b, qss=qss)
@@ -337,8 +350,8 @@ def test_dct_kernels_match_plain_versions(dev, n, h, w, b, qss):
     pix = dk.fused_dequantize_cdct(k, mi, b=b, qss=qss)
     _pixel_rule(pix.cpu(), dk.fused_dequantize_cdct_ref(k, mi, b=b,
                                                         qss=qss).cpu())
-    planes = torch.from_numpy(rng.normal(0, 80, (n, 3, h, w)).astype(
-        np.float32)).to(dev)
+    planes = _at_offset(torch.from_numpy(rng.normal(0, 80, (n, 3, h, w))
+                                         .astype(np.float32)).to(dev), off)
     for perceptual in (False, True):
         kw = dict(b=b, qss=qss, perceptual=perceptual)
         k1 = dk.fused_dct_quantize(planes, **kw)
@@ -405,7 +418,8 @@ SAD_CASES = [(3, 48, 80, 8, 4), (2, 64, 96, 16, 8), (1, 32, 160, 16, 4),
 
 def _sad_equal(ref, cur, m, s):
     """The kernel's mvs and SADs equal the plain version's; one launch,
-    counted as generic exactly when m has no instance."""
+    counted as generic exactly when m has no instance or (m, s) is past
+    the instance's shared memory (the generic kernel's global mode)."""
     before = sk.sad_search.launches
     generic = sk.sad_search.generic_launches
     mv, sad = sk.sad_search(ref, cur, m, s)
@@ -413,7 +427,7 @@ def _sad_equal(ref, cur, m, s):
     assert torch.equal(mv, mv_p) and torch.equal(sad, sad_p)
     assert sk.sad_search.launches == before + 1
     assert sk.sad_search.generic_launches == generic + int(
-        m not in sk.INSTANCES)
+        m not in sk.INSTANCES or _build.load().vcf_sad_smem(m, s) < 0)
     return mv, sad
 
 
@@ -459,15 +473,17 @@ def test_sad_kernel_ties_and_near_ties(dev, g, h, w, m, s):
 
 
 def test_sad_kernel_takes_every_range_accepted_before(dev):
-    """Shared memory: the C entry's gate takes every (m, s) the first
-    design took (its window and block in 48 KiB of float64), exactly those
-    in the generic mode and larger ranges at the instances; the wrapper
-    raises past it; each instance's largest range runs bit-exact."""
+    """Shared memory: the staged modes' gate (`vcf_sad_smem`) takes every
+    (m, s) the first design took (its window and block in 48 KiB of
+    float64), exactly those in the generic mode and larger ranges at the
+    instances; past it the generic kernel's global mode takes the shape,
+    so the card takes every range (`vcf_sad_mode`, `fits`); each
+    instance's largest staged range and the first ranges past the gates
+    run bit-exact against the plain version."""
     lib = _build.load()
-    x = torch.zeros((2, 32), device=dev)
     largest = {}
     for m in (1, 3, 4, 5, 8, 12, 16, 32):
-        for s in range(0, 61):
+        for s in range(0, 81):
             first = ((m + 2 * s) ** 2 + m * m) * 8 <= sk.FIRST_DESIGN_SMEM
             takes = lib.vcf_sad_smem(m, s) >= 0
             assert takes >= first
@@ -475,14 +491,18 @@ def test_sad_kernel_takes_every_range_accepted_before(dev):
                 assert takes == first
             if takes:
                 largest[m] = s
-            else:
-                with pytest.raises(ValueError, match="shared memory"):
-                    sk.sad_search(x, x, m, s)
+            assert sk.fits(m, s, dev)
+            assert lib.vcf_sad_mode(m, s) == (
+                2 if not takes else 0 if m in sk.INSTANCES else 1)
     for m in sk.INSTANCES:
         assert largest[m] > max(s for s in range(61) if (
             (m + 2 * s) ** 2 + m * m) * 8 <= sk.FIRST_DESIGN_SMEM)
+    assert largest[16] == 76
+    assert lib.vcf_sad_mode(0, 4) == lib.vcf_sad_mode(16, -1) == -1
     rng = np.random.default_rng(3)
-    for m, s in [(m, largest[m]) for m in sk.INSTANCES] + [(6, 20)]:
+    past = [(m, largest[m] + 1) for m in (4, 16, 12)]
+    for m, s in ([(m, largest[m]) for m in sk.INSTANCES] + [(6, 20)]
+                 + past):
         lumas = torch.from_numpy(rng.integers(0, 256, (2, 1, 2 * m, 3 * m))
                                  .astype(np.float32)).to(dev)
         _sad_equal(lumas[0], lumas[1], m, s)
@@ -565,6 +585,39 @@ def test_ipp_on_cuda_matches_cpu(dev, kw):
     rmse = metrics.rmse(frames, rec_g)
     assert abs(rmse - metrics.rmse(frames, cpu.decode(cs_g))) <= 1e-2
     assert abs(rmse - metrics.rmse(frames, cpu.decode(cs_c))) <= 1e-2
+
+
+def test_ipp_search_range_past_the_kernel_gate(dev):
+    """ROADMAP C12 on the card: at m = 16 the first range past the
+    instance's shared memory (s = 77) still takes the kernel (its generic
+    global mode), while the CPU run takes the full search by shape; the
+    two encode alike (both searches are exact)."""
+    m = 16
+    s = next(s for s in range(1, 1000)
+             if _build.load().vcf_sad_smem(m, s) < 0)
+    assert not sk.fits(m, s, "cpu")
+    frames = np.random.default_rng(s).integers(0, 256, (2, 32, 48, 3),
+                                               dtype=np.uint8)
+    vcfg = VideoConfig(mode="ipp", n_frames=2, gop_size=2, search_range=s)
+    gpu, cpu = video.get(vcfg, CodecConfig(), dev), video.get(
+        vcfg, CodecConfig(), "cpu")
+    assert gpu._make_search(32, 48).kind == "sad_search"
+    assert cpu._make_search(32, 48).kind == "full_search"
+    before = sk.sad_search.launches
+    generic = sk.sad_search.generic_launches
+    cs_g, cs_c = gpu.encode(frames), cpu.encode(frames)
+    assert sk.sad_search.launches > before
+    assert sk.sad_search.generic_launches - generic == (
+        sk.sad_search.launches - before)
+    np.testing.assert_array_equal(cs_g.get_array("mv_0001"),
+                                  cs_c.get_array("mv_0001"))
+    d = np.abs(gpu.last_planes.astype(np.int64) - cpu.last_planes)
+    assert d.max() <= 1 and np.count_nonzero(d) <= 5e-4 * d.size
+    if not d.any():
+        assert cs_g.to_bytes() == cs_c.to_bytes()
+    rec_g = gpu.decode(CodeStream.from_bytes(cs_g.to_bytes()))
+    np.testing.assert_array_equal(rec_g.astype(np.float32),
+                                  gpu.last_recon.cpu().numpy())
 
 
 def _ctx_case(g, sg, l, n_ctx, seed):
@@ -687,23 +740,29 @@ def test_deadzone_quantize_on_cuda_is_ieee(dev, qss):
 # the routing-free grid decodes, IPPCodec's planar grid loop
 # ---------------------------------------------------------------------------
 
-# cw = 256, 512 (W = 2048), 128, 96, 256, 192 (three b = 16 strips a
-# chunk), 256 and 128: every block size of the inverse kernel's grid mode
-GRID_DCT_CASES = [(2, 64, 256, 8, 32), (1, 32, 2048, 8, 32),
-                  (2, 64, 128, 4, 24), (1, 32, 96, 8, 24),
-                  (1, 32, 256, 2, 32), (2, 64, 192, 16, 24),
-                  (1, 64, 256, 32, 32), (1, 32, 128, 1, 32)]
+# (N, H, W, b, qss, off): cw = 256, 512 (W = 2048), 128, 96 (a chunk
+# narrower than a b = 8 strip), 256, 192 (three b = 16 strips a chunk),
+# 256 and 128: every block size of both kernels' grid modes; W = 40 and
+# 72 (W % 16 != 0; chunks of 40 and 72, narrower than a strip); inputs
+# whose storage starts one element into their buffer
+GRID_DCT_CASES = [(2, 64, 256, 8, 32, 0), (1, 32, 2048, 8, 32, 0),
+                  (2, 64, 128, 4, 24, 0), (1, 32, 96, 8, 24, 0),
+                  (1, 32, 256, 2, 32, 0), (2, 64, 192, 16, 24, 0),
+                  (1, 64, 256, 32, 32, 0), (1, 32, 128, 1, 32, 0),
+                  (2, 32, 40, 8, 32, 0), (1, 64, 72, 4, 24, 0),
+                  (2, 32, 1920, 8, 32, 1)]
 
 
-@pytest.mark.parametrize("n,h,w,b,qss", GRID_DCT_CASES)
-def test_dct_grid_modes_are_block_modes_permuted(dev, n, h, w, b, qss):
+@pytest.mark.parametrize("n,h,w,b,qss,off", GRID_DCT_CASES)
+def test_dct_grid_modes_are_block_modes_permuted(dev, n, h, w, b, qss, off):
     """The grid mode permutes the block mode's stores and loads: equal to
     the block-mode kernel's output permuted, bit for bit, and within the
     +-1 rule of the plain version."""
     rng = np.random.default_rng(h + w + b)
-    px = torch.from_numpy(rng.integers(0, 256, (n, 3, h, w), np.uint8)).to(dev)
-    planes = torch.from_numpy(rng.normal(0, 80, (n, 3, h, w)).astype(
-        np.float32)).to(dev)
+    px = _at_offset(torch.from_numpy(rng.integers(0, 256, (n, 3, h, w),
+                                                  np.uint8)).to(dev), off)
+    planes = _at_offset(torch.from_numpy(rng.normal(0, 80, (n, 3, h, w))
+                                         .astype(np.float32)).to(dev), off)
     mf = dk.static_mat(color_ops.YCOCG_FWD)
     mi = dk.static_mat(color_ops.YCOCG_INV)
     kw = dict(b=b, qss=qss)

@@ -123,6 +123,31 @@ def test_b2_b4_block_sizes_match_pallas(b, kind):
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-3)
 
 
+# every block size of the forward kernel (an instance each) in both
+# layouts; vcf_tpu takes each b at 64x256 (H % 32 == 0, 32 % b == 0)
+FWD_BLOCK_SIZES = [1, 2, 4, 8, 16, 32]
+FWD_KINDS = ["B1", "B1-perceptual", "B3"]
+
+
+@pytest.mark.parametrize("grid_layout", [False, True], ids=["block", "grid"])
+@pytest.mark.parametrize("kind", FWD_KINDS)
+@pytest.mark.parametrize("b", FWD_BLOCK_SIZES)
+def test_b1_b3_block_sizes_match_pallas(b, kind, grid_layout):
+    kw = dict(b=b, qss=24, grid_layout=grid_layout)
+    if kind == "B3":
+        px = _pixels((3, 64, 256), seed=b)
+        m = jk.static_mat(jcolor.YCOCG_FWD)
+        want = jk.fused_cdct_quantize(jnp.asarray(px), m, interpret=True, **kw)
+        got = tk.fused_cdct_quantize(torch.from_numpy(px),
+                                     tk.static_mat(jcolor.YCOCG_FWD), **kw)
+    else:
+        planes = _planes((3, 64, 256), seed=b)
+        kw["perceptual"] = kind == "B1-perceptual"
+        want = jk.fused_dct_quantize(jnp.asarray(planes), interpret=True, **kw)
+        got = tk.fused_dct_quantize(torch.from_numpy(planes), **kw)
+    _index_rule(got.numpy(), np.asarray(want))
+
+
 def test_frame_axis_is_per_frame():
     """(N, C, H, W) gives each frame's (C, H, W) result: the frame axis
     stands for vcf_tpu's jax.vmap."""

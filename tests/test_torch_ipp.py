@@ -101,10 +101,10 @@ def runs():
     return get
 
 
-@pytest.mark.parametrize("case", IDS)
-def test_ipp_streams_match_vcf_tpu(runs, case):
-    r = runs(case)
-    cs_j, cs_t, tc = r["cs_j"], r["cs_t"], r["tc"]
+def _streams_agree(cs_t, cs_j, tc, n):
+    """The port's stream against vcf_tpu's: the same segments and
+    payload, equal mvs and modes, index planes under the +-1 rule of the
+    closed loop, and the same bytes where the planes are equal."""
     assert list(cs_t) == list(cs_j)
     assert cs_t.get_json("payload") == cs_j.get_json("payload")
     for name in cs_j:
@@ -112,7 +112,6 @@ def test_ipp_streams_match_vcf_tpu(runs, case):
             a, b = cs_t.get_array(name), cs_j.get_array(name)
             assert a.dtype == b.dtype and a.shape == b.shape
             np.testing.assert_array_equal(a, b, err_msg=name)
-    n = len(r["frames"])
     planes_t, planes_j = _planes(tc, cs_t, n), _planes(tc, cs_j, n)
     np.testing.assert_array_equal(planes_t, tc.last_planes)
     d = np.abs(planes_t.astype(np.int64) - planes_j)
@@ -120,6 +119,43 @@ def test_ipp_streams_match_vcf_tpu(runs, case):
     assert np.count_nonzero(d) <= MAX_DIFF_SHARE * d.size
     if not d.any():
         assert cs_t.to_bytes() == cs_j.to_bytes()
+
+
+@pytest.mark.parametrize("case", IDS)
+def test_ipp_streams_match_vcf_tpu(runs, case):
+    r = runs(case)
+    _streams_agree(r["cs_t"], r["cs_j"], r["tc"], len(r["frames"]))
+
+
+@pytest.mark.parametrize("s", [30, 31])
+def test_ipp_search_range_past_the_sad_gate(s):
+    """ROADMAP C12: at m = 16 the SAD kernel's CPU gate takes s = 30 and
+    refuses s = 31; `_make_search` then takes the full search by shape
+    (vcf_tpu's "lax_full"), so the port encodes both, with vcf_tpu's
+    stream under C7's rule.  The port's decoder gives its encoder's
+    reconstruction; across packages the decodes follow the pixel rule
+    (uniform noise frames put a pixel on a rounding edge of the inverse
+    DCT's float32 sums: 1 of 36,864 differs by 1 at s = 31)."""
+    frames = np.random.default_rng(s).integers(0, 256, (3, 64, 64, 3),
+                                               dtype=np.uint8)
+    kw = dict(mode="ipp", n_frames=3, gop_size=3, search_range=s)
+    jc = jvideo.get(vcf_tpu.config.VideoConfig(**kw), vcf_tpu.CodecConfig())
+    tc = video.get(VideoConfig(**kw), CodecConfig(), "cpu")
+    kind = "sad_search" if s == 30 else "full_search"
+    assert tc._make_search(64, 64).kind == kind
+    assert sk.fits(16, s, "cpu") == (s == 30)
+    cs_j = jc.encode(frames)
+    cs_t = CodeStream.from_bytes(tc.encode(frames).to_bytes())
+    _streams_agree(cs_t, cs_j, tc, 3)
+    rec_t = tc.decode(cs_t)
+    np.testing.assert_array_equal(rec_t.astype(np.float32),
+                                  tc.last_recon.numpy())
+    for got, want in ((tc.decode(cs_j), jc.decode(cs_j)),
+                      (rec_t, jc.decode(cs_t))):
+        d = np.abs(got.astype(np.int64) - np.asarray(want))
+        assert d.max() <= 1 and (d != 0).mean() < 1e-3
+    assert abs(metrics.rmse(frames, rec_t) - metrics.rmse(
+        frames, np.asarray(jc.decode(cs_j)))) <= MAX_RMSE_DIFF
 
 
 @pytest.mark.parametrize("case", IDS)

@@ -268,6 +268,22 @@ def test_sad_gate_keeps_every_shape_accepted_before(m):
         sk._check(x, x, m, s)
 
 
+@pytest.mark.parametrize("m", [4, 8, 16, 32])
+def test_sad_fits_is_the_wrappers_gate(m):
+    """`fits` (the route's predicate) agrees with `_check` (the wrapper's
+    refusal) on both sides of the CPU gate."""
+    x = torch.zeros((m, m))
+    s = max(s for s in range(200)
+            if ((m + 2 * s) ** 2 + m * m) * 8 <= sk.FIRST_DESIGN_SMEM)
+    assert sk.fits(m, s, "cpu") and sk.fits(m, s, x.device)
+    sk._check(x, x, m, s)
+    assert not sk.fits(m, s + 1, "cpu")
+    with pytest.raises(ValueError, match="shared memory"):
+        sk._check(x, x, m, s + 1)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        sk.fits(m, s, "meta")
+
+
 MC_CASES = [(64, 128, 16, 4), (96, 160, 16, 8), (64, 256, 8, 4)]
 
 

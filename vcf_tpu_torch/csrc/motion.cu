@@ -61,7 +61,10 @@
 //
 // Other block sizes take sad_search_generic_kernel, the first design: one
 // CTA per block, one thread per displacement, float64 sums out of shared
-// memory.
+// memory.  Past the shared-memory gates (an instance's window and lists
+// over 227 KiB, the first design's over 48 KiB: m = 16 from s = 77) every
+// block size takes its global mode, which reads each term from global
+// memory and so takes every range.
 //
 // mc_kernel replaces mc_apply_planar (vcf_tpu/ops/pallas/mc_kernel.py:115)
 // and, as its CHANNEL_LAST mode, mc_apply (:103):
@@ -120,8 +123,8 @@ inline long long sad_smem(int m, int s, int bx) {
   return 4 * stage + (16 + 4LL * run) * items + 4 * bx;
 }
 
-__device__ __forceinline__ bool sad_better(double a, int da, double b,
-                                           int db) {
+template <typename D>
+__device__ __forceinline__ bool sad_better(double a, D da, double b, D db) {
   return a < b || (a == b && da < db);
 }
 
@@ -433,9 +436,17 @@ sad_search_kernel(const float* __restrict__ ref,
   }
 }
 
-// The first design, for block sizes without an instance.  Grid (nbx, nby,
-// G); blockDim a multiple of 32; dynamic shared memory ((m + 2s)^2 + m^2)
-// doubles.
+// The first design, for block sizes without an instance, and for every
+// (m, s) past the shared-memory gates.  Grid (nbx, nby, G); blockDim a
+// multiple of 32.  STAGED: the clamped (m + 2s)^2 window and the m x m
+// block in dynamic shared memory as doubles (vcf_sad_smem bytes).
+// Otherwise (the global mode) each term is read from global memory: a
+// warp's lanes take consecutive displacements, mostly consecutive dx, so
+// their reference loads are coalesced and their current value is one
+// address; the window's rows stay in L1/L2.  Displacements count in 64
+// bits, so the global mode takes any s.  Its sums stay exact for m <= 512
+// (m^2 terms below 2^8, multiples of 2^-27: under 2^53).
+template <bool STAGED>
 __global__ void sad_search_generic_kernel(const float* __restrict__ ref,
                                           const float* __restrict__ cur,
                                           int* __restrict__ mv,
@@ -443,39 +454,56 @@ __global__ void sad_search_generic_kernel(const float* __restrict__ ref,
                                           int W, int m, int s) {
   extern __shared__ double s_mem[];
   __shared__ double w_sad[SAD_MAX_THREADS / 32];
-  __shared__ int w_d[SAD_MAX_THREADS / 32];
-  const int win = m + 2 * s;
-  double* s_ref = s_mem;
-  double* s_cur = s_mem + win * win;
+  __shared__ unsigned long long w_d[SAD_MAX_THREADS / 32];
   const int bx = blockIdx.x, by = blockIdx.y, g = blockIdx.z;
   const size_t plane = (size_t)H * W;
   const float* r = ref + g * plane;
   const float* c = cur + g * plane;
-  const int y0 = by * m - s, x0 = bx * m - s;
-  for (int i = threadIdx.x; i < win * win; i += blockDim.x) {
-    const int wy = i / win, wx = i - wy * win;
-    const int y = min(max(y0 + wy, 0), H - 1);
-    const int x = min(max(x0 + wx, 0), W - 1);
-    s_ref[i] = (double)r[(size_t)y * W + x];
+  const int win = STAGED ? m + 2 * s : 0;
+  double* s_ref = s_mem;
+  double* s_cur = s_mem + win * win;
+  if (STAGED) {
+    const int y0 = by * m - s, x0 = bx * m - s;
+    for (int i = threadIdx.x; i < win * win; i += blockDim.x) {
+      const int wy = i / win, wx = i - wy * win;
+      const int y = min(max(y0 + wy, 0), H - 1);
+      const int x = min(max(x0 + wx, 0), W - 1);
+      s_ref[i] = (double)r[(size_t)y * W + x];
+    }
+    for (int i = threadIdx.x; i < m * m; i += blockDim.x) {
+      const int yy = i / m, xx = i - yy * m;
+      s_cur[i] = (double)c[(size_t)(by * m + yy) * W + bx * m + xx];
+    }
+    __syncthreads();
   }
-  for (int i = threadIdx.x; i < m * m; i += blockDim.x) {
-    const int yy = i / m, xx = i - yy * m;
-    s_cur[i] = (double)c[(size_t)(by * m + yy) * W + bx * m + xx];
-  }
-  __syncthreads();
 
-  const int n = 2 * s + 1, n_disp = n * n;
+  // n^2 < 2^64 for every int s >= 0
+  const unsigned long long n = 2ULL * s + 1, n_disp = n * n;
   double best = __longlong_as_double(0x7ff0000000000000LL);  // +inf
-  int best_d = n_disp;                                         // no candidate
+  unsigned long long best_d = n_disp;                          // none
   // each thread visits its displacements in increasing order, so a strict
   // < keeps its first minimum
-  for (int d = threadIdx.x; d < n_disp; d += blockDim.x) {
-    const int dy = d / n, dx = d - dy * n;
+  for (unsigned long long d = threadIdx.x; d < n_disp; d += blockDim.x) {
+    const long long dy = (long long)(d / n), dx = (long long)(d % n);
     double acc = 0.0;
-    for (int yy = 0; yy < m; ++yy) {
-      const double* rr = s_ref + (yy + dy) * win + dx;
-      const double* cc = s_cur + yy * m;
-      for (int xx = 0; xx < m; ++xx) acc += fabs(cc[xx] - rr[xx]);
+    if (STAGED) {
+      for (int yy = 0; yy < m; ++yy) {
+        const double* rr = s_ref + (yy + (int)dy) * win + (int)dx;
+        const double* cc = s_cur + yy * m;
+        for (int xx = 0; xx < m; ++xx) acc += fabs(cc[xx] - rr[xx]);
+      }
+    } else {
+      const long long y0 = (long long)by * m + dy - s;
+      const long long x0 = (long long)bx * m + dx - s;
+      for (int yy = 0; yy < m; ++yy) {
+        const long long y = min(max(y0 + yy, 0LL), (long long)H - 1);
+        const float* rr = r + (size_t)y * W;
+        const float* cc = c + (size_t)(by * m + yy) * W + (size_t)bx * m;
+        for (int xx = 0; xx < m; ++xx) {
+          const long long x = min(max(x0 + xx, 0LL), (long long)W - 1);
+          acc += fabs((double)__ldg(cc + xx) - (double)__ldg(rr + x));
+        }
+      }
     }
     if (acc < best) {
       best = acc;
@@ -485,7 +513,7 @@ __global__ void sad_search_generic_kernel(const float* __restrict__ ref,
   // CTA argmin over (sad, d) pairs: warp shuffles, then the first warp
   for (int off = 16; off > 0; off >>= 1) {
     const double o = __shfl_down_sync(0xffffffffu, best, off);
-    const int od = __shfl_down_sync(0xffffffffu, best_d, off);
+    const unsigned long long od = __shfl_down_sync(0xffffffffu, best_d, off);
     if (sad_better(o, od, best, best_d)) {
       best = o;
       best_d = od;
@@ -504,7 +532,7 @@ __global__ void sad_search_generic_kernel(const float* __restrict__ ref,
     best_d = lane < n_warps ? w_d[lane] : n_disp;
     for (int off = 16; off > 0; off >>= 1) {
       const double o = __shfl_down_sync(0xffffffffu, best, off);
-      const int od = __shfl_down_sync(0xffffffffu, best_d, off);
+      const unsigned long long od = __shfl_down_sync(0xffffffffu, best_d, off);
       if (sad_better(o, od, best, best_d)) {
         best = o;
         best_d = od;
@@ -512,8 +540,8 @@ __global__ void sad_search_generic_kernel(const float* __restrict__ ref,
     }
     if (lane == 0) {
       const size_t blk = ((size_t)g * gridDim.y + by) * gridDim.x + bx;
-      mv[2 * blk] = best_d / n - s;
-      mv[2 * blk + 1] = best_d % n - s;
+      mv[2 * blk] = (int)((long long)(best_d / n) - s);
+      mv[2 * blk + 1] = (int)((long long)(best_d % n) - s);
       sad[blk] = (float)best;
     }
   }
@@ -610,9 +638,9 @@ bool sad_instance(int m) { return m == 4 || m == 8 || m == 16 || m == 32; }
 
 extern "C" {
 
-// Shared memory a CTA of one block needs for block m and range s, in the
-// mode sad_search takes for m (an instance or the generic kernel), or -1
-// for an m or s it refuses; either mode refuses past its limit.
+// Shared memory a CTA of one block needs for block m and range s in the
+// staged mode for m (the instance, or the generic kernel's STAGED mode),
+// or -1 past that mode's limit.
 int vcf_sad_smem(int m, int s) {
   if (m < 1 || s < 0 || m > 65535 || s > 65535) return -1;
   if (sad_instance(m)) {
@@ -624,6 +652,15 @@ int vcf_sad_smem(int m, int s) {
   return b <= vcf::SAD_MAX_SMEM ? (int)b : -1;
 }
 
+// The mode sad_search takes for block m and range s: 0 the instance, 1
+// the generic kernel's staged mode, 2 its global mode (past the staged
+// mode's shared memory); -1 for m < 1 or s < 0.
+int vcf_sad_mode(int m, int s) {
+  if (m < 1 || s < 0) return -1;
+  if (vcf_sad_smem(m, s) < 0) return 2;
+  return sad_instance(m) ? 0 : 1;
+}
+
 // ref, cur (G, H, W) f32 and outputs mv (G, H/m, W/m, 2) i32, sad
 // (G, H/m, W/m) f32, all on the device; n_refined (nullable) two device
 // u64s to which the screen adds its float64 second sums and the CTAs that
@@ -633,8 +670,9 @@ int vcf_sad_smem(int m, int s) {
 int vcf_sad_search(const void* ref, const void* cur, void* mv, void* sad,
                    void* n_refined, int G, int H, int W, int m, int s,
                    void* stream) {
-  if (G < 1 || m < 1 || s < 0 || H % m || W % m || H < m || W < m ||
-      vcf_sad_smem(m, s) < 0 || H / m > 65535 || G > 65535)
+  const int mode = vcf_sad_mode(m, s);
+  if (G < 1 || mode < 0 || H % m || W % m || H < m || W < m ||
+      H / m > 65535 || G > 65535)
     return (int)cudaErrorInvalidValue;
   const float* r = (const float*)ref;
   const float* c = (const float*)cur;
@@ -642,20 +680,26 @@ int vcf_sad_search(const void* ref, const void* cur, void* mv, void* sad,
   float* d = (float*)sad;
   auto* nr = (unsigned long long*)n_refined;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (m) {
-    case 4: return launch_sad<4>(r, c, v, d, nr, G, H, W, s, st);
-    case 8: return launch_sad<8>(r, c, v, d, nr, G, H, W, s, st);
-    case 16: return launch_sad<16>(r, c, v, d, nr, G, H, W, s, st);
-    case 32: return launch_sad<32>(r, c, v, d, nr, G, H, W, s, st);
-    default: break;
+  if (mode == 0) {
+    switch (m) {
+      case 4: return launch_sad<4>(r, c, v, d, nr, G, H, W, s, st);
+      case 8: return launch_sad<8>(r, c, v, d, nr, G, H, W, s, st);
+      case 16: return launch_sad<16>(r, c, v, d, nr, G, H, W, s, st);
+      default: return launch_sad<32>(r, c, v, d, nr, G, H, W, s, st);
+    }
   }
-  const int n_disp = (2 * s + 1) * (2 * s + 1);
-  int threads = (n_disp + 31) / 32 * 32;
-  if (threads > vcf::SAD_MAX_THREADS) threads = vcf::SAD_MAX_THREADS;
+  const unsigned long long n_disp = (2ULL * s + 1) * (2ULL * s + 1);
+  const int threads = n_disp >= (unsigned long long)vcf::SAD_MAX_THREADS
+                          ? vcf::SAD_MAX_THREADS
+                          : (int)((n_disp + 31) / 32 * 32);
   dim3 grid(W / m, H / m, G);
-  vcf::sad_search_generic_kernel<<<grid, threads,
-                                   vcf_sad_smem(m, s), st>>>(
-      r, c, v, d, H, W, m, s);
+  if (mode == 1)
+    vcf::sad_search_generic_kernel<true><<<grid, threads,
+                                           vcf_sad_smem(m, s), st>>>(
+        r, c, v, d, H, W, m, s);
+  else
+    vcf::sad_search_generic_kernel<false><<<grid, threads, 0, st>>>(
+        r, c, v, d, H, W, m, s);
   return (int)cudaGetLastError();
 }
 

@@ -34,10 +34,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F, _FP = ctypes.c_float, ctypes.POINTER(ctypes.c_float)
-# vcf_dct_forward takes the DCT matrix on the device, vcf_dct_inverse on
-# the host (it passes the matrix to its kernel by value)
-_DCT = [_P, _P, _P, _P, _FP, _I, _I, _I, _I, _I, _F, _I, _I, _P]
-_IDCT = [_P, _P, _FP, _P, _FP, _I, _I, _I, _I, _I, _F, _I, _I, _P]
+# both DCT entries take the DCT matrix on the host (they pass it to their
+# kernels by value)
+_DCT = [_P, _P, _FP, _P, _FP, _I, _I, _I, _I, _I, _F, _I, _I, _P]
 # C entry -> argtypes; every pointer and the stream are c_void_p so
 # ctypes never narrows them to a 32-bit int
 _SIGNATURES = {
@@ -60,8 +59,9 @@ _SIGNATURES = {
     "vcf_rans_decode_grid": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vcf_rans_decode_ctx_grid": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vcf_dct_forward": _DCT,
-    "vcf_dct_inverse": _IDCT,
+    "vcf_dct_inverse": _DCT,
     "vcf_sad_smem": [_I, _I],
+    "vcf_sad_mode": [_I, _I],
     "vcf_sad_search": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vcf_mc_apply": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
@@ -147,10 +147,16 @@ def runs_plain(tensor) -> bool:
     """True for a CPU tensor (a wrapper then runs its plain version),
     False for a CUDA tensor (it launches its kernel); raise for any other
     device."""
-    if tensor.device.type == "cpu":
+    return plain_on(tensor.device)
+
+
+def plain_on(device) -> bool:
+    """`runs_plain` for a tensor on `device`."""
+    device = torch.device(device)
+    if device.type == "cpu":
         return True
-    if tensor.device.type != "cuda":
-        raise ValueError(f"no kernel for device {tensor.device}")
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
     return False
 
 

@@ -232,18 +232,17 @@ def fused_dequantize_cdct_ref(planes_u8: torch.Tensor, m, b: int = 8,
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _device_consts(b: int, device: torch.device) -> tuple:
-    """(the b x b DCT matrix, the (2, b, b) luma and chroma perceptual
-    tables) on `device`, uploaded once per (b, device)."""
-    return (torch.from_numpy(dct_ops.dct_matrix(b)).to(device),
-            torch.from_numpy(np.stack(dct_ops.perceptual_tables(b))).to(device))
+def _device_tables(b: int, device: torch.device) -> torch.Tensor:
+    """The (2, b, b) luma and chroma perceptual tables on `device`,
+    uploaded once per (b, device)."""
+    return torch.from_numpy(np.stack(dct_ops.perceptual_tables(b))).to(device)
 
 
 @functools.lru_cache(maxsize=None)
 def _host_dct(b: int):
-    """The b x b DCT matrix as a C float array: the inverse kernel takes it
-    by value (it reaches the kernel as a launch parameter, with no copy of
-    its own)."""
+    """The b x b DCT matrix as a C float array: both kernels take it by
+    value (it reaches the kernel as a launch parameter, with no copy of its
+    own)."""
     return (ctypes.c_float * (b * b))(*dct_ops.dct_matrix(b).ravel().tolist())
 
 
@@ -256,15 +255,13 @@ def _launch(entry: str, x: torch.Tensor, out: torch.Tensor, b: int,
     x = x.contiguous()
     n = x.shape[0] if x.dim() == 4 else 1
     c, h, w = x.shape[-3:]
-    dmat, tables = _device_consts(b, x.device)
-    dmat = _host_dct(b) if entry == "vcf_dct_inverse" else dmat.data_ptr()
+    tables = _device_tables(b, x.device).data_ptr() if perceptual else None
     mat = None
     if m is not None:
         mat = (ctypes.c_float * 9)(*[v for row in m for v in row])
     with torch.cuda.device(x.device):
         rc = getattr(lib, entry)(
-            x.data_ptr(), out.data_ptr(), dmat,
-            tables.data_ptr() if perceptual else None, mat,
+            x.data_ptr(), out.data_ptr(), _host_dct(b), tables, mat,
             n, c, h, w, b, step, offset, cw, _build.stream_of(x))
     _build.check(rc, entry)
 

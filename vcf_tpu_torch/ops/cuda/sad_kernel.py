@@ -19,21 +19,27 @@ those is the answer.  A CTA sums its candidates a warp an item, or a
 thread an item once many tie (flat content under a change of light);
 `count_refined` reports both counts.  Other block sizes take the generic
 mode, the first design (one CTA per block, one thread per displacement,
-float64), chosen by the block size alone and counted in
-`sad_search.generic_launches`.
+float64, the window staged in shared memory).  Past the shared-memory
+gates every block size takes the generic kernel's global mode, which reads
+each term from global memory and so takes every range.  Both generic modes
+count in `sad_search.generic_launches`.
 
 Exactness: every nonzero luma is a multiple of 2^-27 and a block's SAD is
-< 2^18, so a float64 sum of |a - b| is exact in any order, and every
-minimiser passes the screen.  A CPU tensor runs the plain version,
+< 2^18 (m <= 32; < 2^26 for the generic modes' m <= 512), so a float64
+sum of |a - b| is exact in any order, and every minimiser passes the
+screen.  A CPU tensor runs the plain version,
 `sad_search_ref` (which is `ops.motion.full_search`); a CUDA tensor
 launches the kernel.  They agree bit for bit: mvs and SADs.
 `sad_search.launches` counts kernel launches of both modes.
 
-Shared memory: on the card the C entry's gate (`vcf_sad_smem`) decides
-which (m, s) run.  It takes every shape the first design took (its
-float64 window and block in 48 KiB, the generic mode's own gate) and, at
-the instances, larger ranges.  The plain version keeps the first design's
-gate.
+Shared memory: on the card `vcf_sad_mode` picks the mode of (m, s): the
+instance or the staged generic mode where their shared memory fits
+(`vcf_sad_smem`: every shape the first design took, its float64 window
+and block in 48 KiB, and at the instances larger ranges), else the global
+mode, so the card takes every m >= 1 and s >= 0.  The plain version keeps
+the first design's gate.  `fits(m, s, device)` is the gate of `device`;
+`sad_search` raises past it, and `IPPCodec._make_search` takes the full
+search there instead (on the CPU only).
 """
 
 from __future__ import annotations
@@ -62,6 +68,15 @@ def screen_bound(m: int) -> float:
     return math.nextafter(nu / (1.0 - nu), math.inf)
 
 
+def fits(m: int, s: int, device) -> bool:
+    """True where `sad_search` takes block m and range s (m >= 1, s >= 0)
+    on `device`: on the CPU the first design's gate (its float64 window
+    and block in 48 KiB); on CUDA every (m, s) (`vcf_sad_mode`)."""
+    if _build.plain_on(device):
+        return ((m + 2 * s) ** 2 + m * m) * 8 <= FIRST_DESIGN_SMEM
+    return _build.load().vcf_sad_mode(m, s) >= 0
+
+
 def _check(ref_luma: torch.Tensor, cur_luma: torch.Tensor, m: int,
            s: int) -> None:
     if ref_luma.dtype != torch.float32 or cur_luma.dtype != torch.float32:
@@ -70,11 +85,7 @@ def _check(ref_luma: torch.Tensor, cur_luma: torch.Tensor, m: int,
         raise ValueError("sad_search: lumas on two devices")
     if m < 1 or s < 0:
         raise ValueError(f"sad_search: block {m}, range {s}")
-    if _build.runs_plain(cur_luma):
-        fits = ((m + 2 * s) ** 2 + m * m) * 8 <= FIRST_DESIGN_SMEM
-    else:
-        fits = _build.load().vcf_sad_smem(m, s) >= 0
-    if not fits:
+    if not fits(m, s, cur_luma.device):
         raise ValueError(f"sad_search: block {m} with range {s} needs more "
                          "shared memory than the kernel has")
 
@@ -104,7 +115,7 @@ def _launch(ref_luma, cur_luma, m, s, n_refined=None):
             s, _build.stream_of(cur))
     _build.check(rc, "vcf_sad_search")
     sad_search.launches += 1
-    if m not in INSTANCES:
+    if lib.vcf_sad_mode(m, s) != 0:
         sad_search.generic_launches += 1
     return mv, sad
 

@@ -119,8 +119,12 @@ class IPPCodec:
         """Motion search for (G, h, w) lumas, tagged with `.kind`:
         "three_step" when `fast_search` is set; "sad_search" (the kernel
         on CUDA, its plain version on the CPU; vcf_tpu's "pallas_sad" and
-        "pallas_sad_tiled") when `use_pallas` is set and h, w are multiples
-        of the block; else "full_search" (vcf_tpu's "lax_full")."""
+        "pallas_sad_tiled") when `use_pallas` is set, h, w are multiples
+        of the block and the kernel takes the range on this device
+        (`sad_kernel.fits`: on the CPU the first kernel design's gate, on
+        CUDA every range); else "full_search" (vcf_tpu's "lax_full").
+        The route follows the shape alone; both searches are exact, so it
+        never changes a stream (ROADMAP C6, C12)."""
         m, s = self.vcfg.me_block, self.vcfg.search_range
 
         def tagged(kind, fn):
@@ -130,7 +134,8 @@ class IPPCodec:
         if self.vcfg.fast_search:
             return tagged("three_step",
                           lambda r, c: motion.three_step_search(r, c, m, s))
-        if self.ccfg.use_pallas and h % m == 0 and w % m == 0:
+        if (self.ccfg.use_pallas and h % m == 0 and w % m == 0
+                and sad_kernel.fits(m, s, self.device)):
             return tagged("sad_search",
                           lambda r, c: sad_kernel.sad_search(r, c, m, s))
         return tagged("full_search",
