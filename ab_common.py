@@ -1,5 +1,5 @@
 """Shared pieces of the A/B scripts (dct_ab.py, encode_ab.py, sad_ab.py,
-lookback_ab.py), which compare the current tree's kernels with other
+lookback_ab.py, grid_ab.py), which compare the current tree's kernels with other
 builds on one GPU.
 
 Other builds live under _ab/ (git-ignored, so never committed): a library
@@ -102,13 +102,13 @@ def import_tree(root: str):
     return cs
 
 
-def run_in_turns(script: str, roots, timeout: int = 900) -> list:
-    """Run `python3 script --time ROOT` for each of `roots` in order, each
-    in a process of its own (stderr passed through); returns the JSON
+def run_in_turns(script: str, roots, timeout: int = 900, args=()) -> list:
+    """Run `python3 script *args --time ROOT` for each of `roots` in order,
+    each in a process of its own (stderr passed through); returns the JSON
     object each printed as its last line."""
     out = []
     for root in roots:
-        done = subprocess.run([sys.executable, script, "--time", root],
+        done = subprocess.run([sys.executable, script, *args, "--time", root],
                               stdout=subprocess.PIPE, text=True,
                               timeout=timeout, check=True)
         out.append(json.loads(done.stdout.strip().splitlines()[-1]))

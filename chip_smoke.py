@@ -61,7 +61,9 @@ kernels from vcf_tpu_torch/csrc on first use.  Phases:
    (cgrans and grans) against the port's CPU run, K1 (context mode,
    order 0) bit-exact and timed on its (17*512, 3060) lane grid, and its
    device-resident context route (context encode -> rans_decode_ctx_grid
-   -> synthesis), whose lanes equal the wire decode's;
+   -> synthesis), whose lanes equal the wire decode's, and the context
+   grid decode on that grid bit-exact against its plain version, timed
+   (wrapper and launch alone) with its plan;
 3e. the lane-grid modes at full size: B1-B4 in the subband-grid layout
    (B1/B2 perceptual too) under the +-1 rule against their plain
    versions and bit-exact against the block-mode kernels' output
@@ -69,7 +71,9 @@ kernels from vcf_tpu_torch/csrc on first use.  Phases:
    `ms_2_frames`); K1 on the (L, S) lanes' transposed view, the row mode of
    K2 and assemble_stream, the grid decode and K3 (each output's .t() is
    the (L, S) layout) on the grid lanes of the 8 frames, and the context grid decode
-   on 3d's grids, each bit-exact against its plain version;
+   on 3d's grids, each bit-exact against its plain version; the grid
+   decodes also timed as launches alone, with their launch plans
+   (`decode_plan`, held equal to its Python mirror);
 4f. the 8-frame grans clip on the lane-grid path (bench.py's
    composition): device-resident B3 grid -> grid_lanes_lmajor -> K1 on
    lanes.t() -> grid decode .t() -> grid_unlanes_lmajor -> B4 grid, and
@@ -1118,7 +1122,7 @@ def phase_dwt(dev, frame: np.ndarray) -> dict:
     expect = {"cgrans": ("rans_encode_ctx", "rans_compact", "rans_decode_ctx"),
               "grans": ("rans_encode_grouped", "rans_compact",
                         "rans_decode_grouped")}
-    out, k1_grid = {}, {}
+    out, dwt_grid = {}, {}
     for ent in ("cgrans", "grans"):
         cfg = CodecConfig(spatial="dwt", qss=DWT_QSS, entropy=ent)
         codec = Codec(cfg, device=dev)
@@ -1160,9 +1164,10 @@ def phase_dwt(dev, frame: np.ndarray) -> dict:
         rmse, rmse_cpu = metrics.rmse(frame, rec), metrics.rmse(frame, rec_cpu)
         require(abs(rmse - rmse_cpu) < 1e-3, f"DWT {ent} rmse {rmse} vs CPU "
                 f"{rmse_cpu}")
-        k1_grid[expect[ent][0]] = dwt_k1_grid(dev, grid, cs["gdwt_model"])
+        dwt_grid[expect[ent][0]] = dwt_k1_grid(dev, grid, cs["gdwt_model"])
         if ent == "cgrans":
-            ctx_launches = dwt_ctx_grid_route(dev, codec, frame, cs, grid, rec)
+            ctx_launches, dwt_grid["rans_decode_ctx_grid"] = \
+                dwt_ctx_grid_route(dev, codec, frame, cs, grid, rec)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         cs_w = codec.encode(frame)
@@ -1185,7 +1190,7 @@ def phase_dwt(dev, frame: np.ndarray) -> dict:
     print(f"dwt: cgrans {out['cgrans']['bpp']:.6f} bpp against grans "
           f"{out['grans']['bpp']:.6f} "
           f"({100 * (out['cgrans']['bpp'] / out['grans']['bpp'] - 1):+.2f}%)")
-    return ctx_launches, k1_grid
+    return ctx_launches, dwt_grid
 
 
 def dwt_k1_grid(dev, grid: torch.Tensor, model) -> dict:
@@ -1224,11 +1229,14 @@ def dwt_k1_grid(dev, grid: torch.Tensor, model) -> dict:
 
 
 def dwt_ctx_grid_route(dev, codec, frame: np.ndarray, cs, grid: torch.Tensor,
-                       rec: np.ndarray) -> dict:
+                       rec: np.ndarray) -> tuple:
     """4e, device-resident: the DWT frame's context lanes -> the context
     encode's raw grid -> rans_decode_ctx_grid -> synthesis (the decode
     of benchmarks/sweep_tpu.py:326-333); its lanes equal the wire
-    decode's and its frame the codec's."""
+    decode's and its frame the codec's.  Then the grid decode on that
+    (S, L) = (17 * 512, 3060) grid against its plain version, timed
+    (wrapper, launch alone, plain) with its bound and plan.  Returns
+    (launch counts, the `*_dwt_grid` keys of the kernel's entry)."""
     from vcf_tpu_torch.entropy import dwt_device as dd
     from vcf_tpu_torch.ops.cuda import rans_ctx as rc
 
@@ -1260,7 +1268,31 @@ def dwt_ctx_grid_route(dev, codec, frame: np.ndarray, cs, grid: torch.Tensor,
             "the device-resident DWT frame differs from the codec's")
     print(f"dwt cgrans device-resident route ({g}x{sg} lanes, L={l}): "
           "lanes equal the wire decode's, frame equals the codec's")
-    return launches
+    n_ctx = fg.shape[1]
+    plain = rc.rans_decode_ctx_grid_ref(raw, st, fgt, cgt, l)
+    err = max_abs_err(lanes.t(), plain)
+    require(err == 0, f"rans_decode_ctx_grid on the DWT grid differs from "
+            f"its plain version by {err}")
+    alone = grid_launch_alone(
+        "vcf_rans_decode_ctx_grid", raw, st,
+        (rc.cum_rows(fgt, cgt, dev), rc.class_lut_on(n_ctx, dev)), l, g,
+        n_ctx)
+    out = {"ms_dwt_grid": cuda_ms(lambda: rc.rans_decode_ctx_grid(
+               raw, st, fgt, cgt, l), 20),
+           "launch_ms_dwt_grid": cuda_ms(alone, 20),
+           "plain_ms_dwt_grid": cuda_ms(lambda: rc.rans_decode_ctx_grid_ref(
+               raw, st, fgt, cgt, l), 1),
+           "bound_ms_dwt_grid": bound(
+               nbytes(raw, lanes) + 4 * g * sg + 2 * 257 * g * n_ctx
+               + 256)["bound_ms"],
+           "max_abs_err_dwt_grid": err,
+           "plan_dwt_grid": grid_plan(dev, g * sg, g, n_ctx)}
+    print(f"time rans_decode_ctx_grid ({n_ctx} classes) on the DWT grid "
+          f"(S={g * sg} L={l} G={g}; bit-exact against its plain version): "
+          f"{json.dumps(out)}; launch "
+          f"{out['launch_ms_dwt_grid'] / out['bound_ms_dwt_grid']:.2f}x the "
+          "bound")
+    return launches, out
 
 
 def grid_lanes_of(planes: torch.Tensor):
@@ -1283,6 +1315,44 @@ def grid_tables(dev, lanes_lm: torch.Tensor):
         rans.group_histograms(lanes_lm.t(), 64).cpu().numpy())
     return (torch.from_numpy(fg_np.astype(np.int64)).to(dev),
             torch.from_numpy(cg_np.astype(np.int64)).to(dev), fg_np)
+
+
+def grid_launch_alone(entry: str, raw: torch.Tensor, states: torch.Tensor,
+                      tables: tuple, l: int, g: int, *extra, lib=None):
+    """A call that launches the grid decode's C entry `entry` (of `lib`,
+    by default the package's library) alone: the states' int32 copy, the
+    output and err made before, no readback (the wrapper's `launch_grid`
+    without its host work).  Its `out` and `err` attributes are the
+    tensors it writes."""
+    from vcf_tpu_torch.ops.cuda import _build
+    from vcf_tpu_torch.ops.cuda import rans_encode as re_
+
+    lib = lib or _build.load()
+    st32 = re_.u32_as_i32(states.to(torch.int64)).contiguous()
+    out = torch.empty((l, st32.numel()), dtype=torch.uint8, device=raw.device)
+    err = torch.zeros(1, dtype=torch.int32, device=raw.device)
+    stream = _build.stream_of(raw)
+
+    def call():
+        _build.check(getattr(lib, entry)(
+            raw.data_ptr(), st32.data_ptr(), *[t.data_ptr() for t in tables],
+            out.data_ptr(), err.data_ptr(), st32.numel(), l, g, *extra,
+            stream), entry)
+    call.out, call.err = out, err
+    return call
+
+
+def grid_plan(dev, s_streams: int, g: int, n_ctx: int) -> dict:
+    """The grid decode's plan on this card (its C entry), which must equal
+    the Python mirror's."""
+    from vcf_tpu_torch.ops.cuda import rans_decode as rd
+
+    plan = rd.decode_plan(s_streams, g, n_ctx)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    require(plan == rd.decode_plan_for(s_streams, g, n_ctx, sms),
+            f"decode_plan({s_streams}, {g}, {n_ctx}) differs from its Python "
+            "mirror")
+    return plan
 
 
 def phase_grid_kernels(dev, frames: np.ndarray, ctx_grids: dict) -> list:
@@ -1389,11 +1459,18 @@ def phase_grid_kernels(dev, frames: np.ndarray, ctx_grids: dict) -> list:
                 f"rans_decode_ctx_grid ({n_ctx} classes) differs from its "
                 f"plain version ({err_c}) or from rans_decode_ctx's output")
         g_rows = fgc.shape[0] * n_ctx * 257 * 2
+        # the launch alone: cumulative rows and class LUT made before
+        alone = grid_launch_alone(
+            "vcf_rans_decode_ctx_grid", raw_c, st_c,
+            (rc.cum_rows(fgc, cgc, dev), rc.class_lut_on(n_ctx, dev)), l,
+            fgc.shape[0], n_ctx)
         ctx_out[n_ctx] = (err_c, {
             "ms": cuda_ms(lambda: rc.rans_decode_ctx_grid(
-                raw_c, st_c, fgc, cgc, l), 5),
+                raw_c, st_c, fgc, cgc, l), 20),
+            "launch_ms": cuda_ms(alone, 20),
             "plain_ms": cuda_ms(lambda: rc.rans_decode_ctx_grid_ref(
                 raw_c, st_c, fgc, cgc, l), 2),
+            "plan": grid_plan(dev, s_streams, fgc.shape[0], n_ctx),
             "bound": bound(nbytes(raw_c, out_c) + 4 * s_streams + g_rows
                            + 256)})
     print("grid kernels: rans_decode_ctx_grid (4 and 15 classes) bit-exact "
@@ -1430,7 +1507,7 @@ def phase_grid_kernels(dev, frames: np.ndarray, ctx_grids: dict) -> list:
         ("rans_decode_grouped_grid", "rans_grid.cu", "rans_decode.py:349",
          (err_dec, 0.0), lambda: rd.rans_decode_grouped_grid(
              raw, st, fg, cg, l),
-         lambda: rd.rans_decode_grouped_grid_ref(raw, st, fg, cg, l), 5, 2,
+         lambda: rd.rans_decode_grouped_grid_ref(raw, st, fg, cg, l), 20, 2,
          bound(nbytes(raw, dec) + 4 * s_streams + tab)),
     ]
     modes = ["grid_layout"] * 4 + ["rows", "grid"]
@@ -1450,13 +1527,22 @@ def phase_grid_kernels(dev, frames: np.ndarray, ctx_grids: dict) -> list:
         extra = {"also_replaces": also[name]} if name in also else {}
         if mode == "grid_layout" and name in two_frames:
             extra["ms_2_frames"] = cuda_ms(two_frames[name], 20)
+        if name == "rans_decode_grouped_grid":
+            # the launch alone: tables packed before
+            extra["launch_ms"] = cuda_ms(grid_launch_alone(
+                "vcf_rans_decode_grid", raw, st,
+                (re_.pack_tables(fg, cg, dev),), l, fg.shape[0]), 20)
+            extra["plan"] = grid_plan(dev, s_streams, fg.shape[0], 0)
         print(f"time {name} [{mode}]: kernel {ms:.4f} ms, plain torch "
               f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
               f"({bnd['bound_by']}), {ms / bnd['bound_ms']:.2f}x the bound"
               + (f"; 2 frames {extra['ms_2_frames']:.4f} ms "
                  f"({FRAMES / 2 * extra['ms_2_frames'] / bnd['bound_ms']:.2f}"
                  "x)"
-                 if "ms_2_frames" in extra else ""))
+                 if "ms_2_frames" in extra else "")
+              + (f"; launch alone {extra['launch_ms']:.4f} ms "
+                 f"({extra['launch_ms'] / bnd['bound_ms']:.2f}x), plan "
+                 f"{extra['plan']}" if "launch_ms" in extra else ""))
         # a mode of a wrapper that has an entry of its own is named apart
         shared = mode == "grid_layout"
         results.append(kernel_row(f"{name}[{mode}]" if shared else name, src,
@@ -1466,14 +1552,20 @@ def phase_grid_kernels(dev, frames: np.ndarray, ctx_grids: dict) -> list:
     c4, c15 = ctx_out[4][1], ctx_out[15][1]
     for n_ctx, (_, t) in ctx_out.items():
         print(f"time rans_decode_ctx_grid ({n_ctx} classes): kernel "
-              f"{t['ms']:.4f} ms, plain torch {t['plain_ms']:.4f} ms, bound "
-              f"{t['bound']['bound_ms']:.4f} ms ({t['bound']['bound_by']})")
+              f"{t['ms']:.4f} ms, launch alone {t['launch_ms']:.4f} ms, "
+              f"plain torch {t['plain_ms']:.4f} ms, bound "
+              f"{t['bound']['bound_ms']:.4f} ms ({t['bound']['bound_by']}), "
+              f"launch {t['launch_ms'] / t['bound']['bound_ms']:.2f}x the "
+              f"bound; plan {t['plan']}")
     results.append(kernel_row(
         "rans_decode_ctx_grid", "rans_grid.cu", "rans_ctx.py:415",
         max(ctx_out[4][0], ctx_out[15][0]), c4["ms"], c4["plain_ms"],
-        c4["bound"], mode="grid", diff_share=0.0,
-        ms_15_classes=c15["ms"], plain_ms_15_classes=c15["plain_ms"],
-        bound_ms_15_classes=c15["bound"]["bound_ms"]))
+        c4["bound"], mode="grid", diff_share=0.0, launch_ms=c4["launch_ms"],
+        plan=c4["plan"], ms_15_classes=c15["ms"],
+        launch_ms_15_classes=c15["launch_ms"],
+        plain_ms_15_classes=c15["plain_ms"],
+        bound_ms_15_classes=c15["bound"]["bound_ms"],
+        plan_15_classes=c15["plan"]))
     return results
 
 
@@ -1891,14 +1983,15 @@ def main() -> None:
     launches.update(phase_ipp(dev, clip))
     launches.update(phase_cgrans_clip(dev, frames, planes, ctx_words,
                                       grans_clip))
-    ctx_grid_launches, k1_grid = phase_dwt(dev, base)
+    ctx_grid_launches, dwt_grid = phase_dwt(dev, base)
     grid_launches["rans_decode_ctx_grid"] = \
         ctx_grid_launches["rans_decode_ctx_grid"]
     for row in results:
         row["launches"] = launches[row["name"]]
-        row.update(k1_grid.get(row["name"], {}))
+        row.update(dwt_grid.get(row["name"], {}))
     for row in grid_rows:
         row["launches"] = grid_launches[row["name"].split("[")[0]]
+        row.update(dwt_grid.get(row["name"], {}))
     print(json.dumps({"kernels": results + grid_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -860,3 +860,144 @@ def test_ipp_planar_grid_loop_on_cuda_matches_cpu(dev):
     assert torch.equal(rec, gpu.last_grid_recon)
     assert torch.equal(rec.cpu(), cpu._gop_decode_grid_batch(planes.cpu(),
                                                              mvs.cpu()))
+
+
+# The grid decode's paths (csrc/rans_grid.cu), chosen by shape: L around
+# its staged tile of GT steps (1, GT - 1, GT, GT + 1); S that picks 32,
+# 64 and 128 lanes a block on a 132-SM card (1100, 8704, 16896); a
+# ragged S (1099: plain loads); sg = 2 under 128-lane blocks (tables in
+# global memory); tables with zero-frequency symbols between used ones,
+# and one symbol at frequency 2^15.
+GT = rd.GRID_TILE
+GRID_CASES = [(1, 1100, 1, "random"), (1, 1100, GT - 1, "zeros"),
+              (1, 1100, GT, "random"), (1, 1100, GT + 1, "single"),
+              (17, 512, GT + 1, "random"), (64, 264, GT - 1, "zeros"),
+              (1, 1099, GT + 1, "random"), (8448, 2, GT + 1, "zeros")]
+
+
+def _grid_tables(kind, g, rng):
+    """(G, 256) freqs and cums: every symbol used ("random"), most
+    symbols at frequency 0 ("zeros"), one symbol at 2^15 ("single")."""
+    if kind == "single":
+        f = np.zeros((g, 256), np.int64)
+        f[:, 77] = 1 << 15
+    else:
+        counts = rng.integers(1, 1000, (g, 256))
+        if kind == "zeros":
+            counts *= rng.random((g, 256)) < 0.2
+            counts[:, [0, 1, 255]] = 0
+            counts[:, 17] += 5
+        f = np.stack([rans.quantize_freqs(c, min_all=kind == "random")
+                      for c in counts]).astype(np.int64)
+    c = np.concatenate([np.zeros((g, 1), np.int64), np.cumsum(f, 1)[:, :255]],
+                       axis=1)
+    return f, c
+
+
+def _symbols_of(f, sg, l, rng):
+    """(G * sg, L) symbols drawn from each group's freqs."""
+    return np.concatenate([rng.choice(256, size=(sg, l), p=fi / fi.sum())
+                           for fi in f]).astype(np.uint8)
+
+
+def _grid_plan_on(dev, s_streams, g, n_ctx):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = rd.decode_plan(s_streams, g, n_ctx)
+    assert plan == rd.decode_plan_for(s_streams, g, n_ctx, sms)
+    return plan
+
+
+@pytest.mark.parametrize("g,sg,l,kind", GRID_CASES)
+def test_grid_decode_paths_match_plain_version(dev, g, sg, l, kind):
+    """Order 0 on every path of the kernel, through the wrapper and on a
+    grid 4 bytes off 16-byte alignment (plain loads), against the plain
+    version and the encoded symbols."""
+    rng = np.random.default_rng(g + sg + l)
+    f, c = _grid_tables(kind, g, rng)
+    s = torch.from_numpy(_symbols_of(f, sg, l, rng)).to(dev)
+    ft, ct = _tables(dev, f, c)
+    raw, st = re_.rans_encode_grouped(s, ft, ct)
+    before = rd.rans_decode_grouped_grid.launches
+    out = rd.rans_decode_grouped_grid(raw, st, ft, ct, l)
+    assert rd.rans_decode_grouped_grid.launches == before + 1
+    assert torch.equal(out, s)
+    assert torch.equal(rd.rans_decode_grouped_grid_ref(raw, st, ft, ct, l),
+                       s.t())
+    buf = torch.empty(raw.numel() + 1, dtype=torch.int32, device=dev)
+    off = buf[1:].view(raw.shape)
+    off.copy_(raw)
+    assert torch.equal(rd.rans_decode_grouped_grid(off, st, ft, ct, l), s)
+    plan = _grid_plan_on(dev, g * sg, g, 0)
+    lanes = {1100: 32, 1099: 32, 8704: 64, 16896: 128}[g * sg]
+    assert plan["lanes"] == lanes
+    assert plan["tables"] == ("global" if sg == 2 else "shared")
+
+
+def _ctx_tables_sparse(s, g, n_ctx):
+    """Context tables with frequency 0 for every symbol a row never saw
+    (a row that saw one symbol gives it 2^15); rows never used give every
+    symbol a frequency."""
+    counts = rans.ctx_group_histograms(s, g, n_ctx).cpu().numpy()
+    f = np.stack([[rans.quantize_freqs(c, min_all=not c.any()) for c in row]
+                  for row in counts]).astype(np.int64)
+    c = np.concatenate([np.zeros((*f.shape[:2], 1), np.int64),
+                        np.cumsum(f, axis=2)[..., :255]], axis=2)
+    return f, c
+
+
+@pytest.mark.parametrize("g,sg,l,n_ctx,kind", [
+    (1, 1100, GT + 1, 4, "normal"), (17, 512, GT - 1, 15, "normal"),
+    (64, 264, GT, 15, "walk"), (1, 1099, 1, 4, "walk"),
+    (512, 2, GT + 1, 4, "normal"), (2, 550, GT + 1, 4, "const"),
+    (3, 100, GT + 1, 15, "normal")])
+def test_ctx_grid_decode_paths_match_plain_version(dev, g, sg, l, n_ctx,
+                                                   kind):
+    """The context mode on every path, with tables whose rows give
+    frequency 0 to every symbol they never saw: tiles around GT, 32, 64
+    and 128 lanes a block, a ragged S, global tables (sg = 2: 16 groups a
+    32-lane block), buckets of 8, 32 and 128 slots (15 classes whose
+    128-lane blocks span two groups: S = 16896, past 48 KiB, the opt-in),
+    and one symbol at 2^15 ("const")."""
+    rng = np.random.default_rng(g + sg + l + n_ctx)
+    if kind == "const":
+        syms = np.full((g * sg, l), 128, np.uint8)
+    elif kind == "walk":
+        syms = _ctx_case(g, sg, l, n_ctx, seed=g + l)[0]
+    else:
+        syms = (128 + rng.normal(0, 20, (g * sg, l))).clip(0, 255).astype(
+            np.uint8)
+    s = torch.from_numpy(syms).to(dev)
+    fg, cg = _ctx_tables_sparse(s, g, n_ctx)
+    assert (fg == 0).any()
+    if kind == "const":
+        assert (fg[:, 0, 128] == 1 << 15).all()
+    ft, ct = _tables(dev, fg, cg)
+    raw, st = rc.rans_encode_ctx(s, ft, ct)
+    before = rc.rans_decode_ctx_grid.launches
+    out = rc.rans_decode_ctx_grid(raw, st, ft, ct, l)
+    assert rc.rans_decode_ctx_grid.launches == before + 1
+    assert torch.equal(out, s)
+    assert torch.equal(rc.rans_decode_ctx_grid_ref(raw, st, ft, ct, l), s.t())
+    plan = _grid_plan_on(dev, g * sg, g, n_ctx)
+    assert plan["tables"] == ("global" if sg == 2 else "shared")
+    if g * sg == 16896:
+        assert plan["lanes"] == 128 and plan["smem"] > 48 * 1024
+        assert plan["shift"] == 7
+
+
+def test_ctx_grid_decode_rejects_a_bad_grid(dev):
+    syms = _ctx_case(4, 64, 8, 4, seed=5)[0]
+    s = torch.from_numpy(syms).to(dev)
+    fg, cg = rans.ctx_freqs_from_counts(
+        rans.ctx_group_histograms(s, 4, 4).cpu().numpy())
+    ft, ct = _tables(dev, fg, cg)
+    raw, st = rc.rans_encode_ctx(s, ft, ct)
+    assert torch.equal(rc.rans_decode_ctx_grid(raw, st, ft, ct, 8), s)
+    bad = raw.clone()
+    t, lane = (bad >> 16).nonzero()[0].tolist()
+    bad[t, lane] &= 0xFFFF
+    with pytest.raises(ValueError, match="emit flags"):
+        rc.rans_decode_ctx_grid(bad, st, ft, ct, 8)
+    st_bad = st ^ 1      # every lane's state off by one bit
+    with pytest.raises(ValueError, match="emit flags"):
+        rc.rans_decode_ctx_grid(raw, st_bad, ft, ct, 8)

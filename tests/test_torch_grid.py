@@ -363,6 +363,96 @@ def test_ctx_grid_decode_matches_pallas(n_ctx):
     np.testing.assert_array_equal(got.numpy(), syms)
 
 
+def test_ctx_grid_decode_ref_raises_on_a_bad_grid():
+    """The context mode's plain version raises as the kernel does: a
+    dropped emit flag, a state that does not end at RANS_L."""
+    rng = np.random.default_rng(21)
+    syms = torch.from_numpy((128 + rng.normal(0, 30, (G * SG, 16))).clip(
+        0, 255).astype(np.uint8))
+    fgc, cgc = trans.ctx_freqs_from_counts(
+        trans.ctx_group_histograms(syms, G, 4).numpy())
+    ft = torch.from_numpy(fgc.astype(np.int64))
+    ct = torch.from_numpy(cgc.astype(np.int64))
+    raw, st = trc.rans_encode_ctx(syms, ft, ct)
+    assert torch.equal(trc.rans_decode_ctx_grid(raw, st, ft, ct, 16), syms)
+    bad = raw.clone()
+    t, s = (bad >> 16).nonzero()[0].tolist()
+    bad[t, s] &= 0xFFFF
+    with pytest.raises(ValueError, match="emit flags"):
+        trc.rans_decode_ctx_grid(bad, st, ft, ct, 16)
+    st_bad = st ^ 1      # every lane's state off by one bit
+    with pytest.raises(ValueError, match="emit flags"):
+        trc.rans_decode_ctx_grid_ref(raw, st_bad, ft, ct, 16)
+    with pytest.raises(ValueError, match="is not"):
+        trc.rans_decode_ctx_grid(raw[:-1], st, ft, ct, 16)
+
+
+# decode_plan_for at the main path's shapes on a 132-SM card: 3e's
+# grids (S = 65536, G = 64; order 0, 4 and 15 classes), the DWT grid
+# (17 x 512 lanes: 64-lane blocks), 8192 lanes (32), sg = 2 (global
+# tables), 15 classes over two groups a 128-lane block.  Shared memory:
+# the two tile stages (32 steps x lanes x 4 bytes each), then per table
+# row 1024 (order 0) or 514 (context) bytes and a bucket row of
+# 2^(15 - shift) + 4 bytes, at the least shift whose tables fit 24 KiB
+PLAN_CASES = [
+    ((65536, 64, 0), (128, "shared", 3, 32768 + 1024 + 4100)),
+    ((65536, 64, 4), (128, "shared", 3, 32768 + 4 * (514 + 4100))),
+    ((65536, 64, 15), (128, "shared", 5, 32768 + 15 * (514 + 1028))),
+    ((8704, 17, 4), (64, "shared", 3, 16384 + 4 * (514 + 4100))),
+    ((8704, 17, 0), (64, "shared", 3, 16384 + 1024 + 4100)),
+    ((8192, 64, 0), (32, "shared", 3, 8192 + 1024 + 4100)),
+    ((16896, 8448, 0), (128, "global", 8, 32768)),
+    ((16896, 64, 15), (128, "shared", 7, 32768 + 30 * (514 + 260))),
+]
+
+
+@pytest.mark.parametrize("args,want", PLAN_CASES)
+def test_decode_plan_for_main_path_shapes(args, want):
+    plan = trd.decode_plan_for(*args, sms=132)
+    assert (plan["lanes"], plan["tables"], plan["shift"],
+            plan["smem"]) == want
+    assert plan["tile"] == trd.GRID_TILE
+
+
+def test_decode_plan_for_spans_and_limits():
+    """Lanes halve until every SM has a block (never below 32); a block
+    spans the groups its lanes touch, and its tables take the least shift
+    that fits the budget, or global memory where none does; bad shapes
+    raise."""
+    for sms, lanes in ((1, 128), (132, 32), (10**6, 32)):
+        assert trd.decode_plan_for(1100, 1, 4, sms)["lanes"] == lanes
+    # sg = 3 in 32-lane blocks: a block starting 2 lanes before a group's
+    # end spans 12 groups; 12 order-0 rows fit at shift 6 (not 5), 12 x 15
+    # context rows at none
+    plan = trd.decode_plan_for(96, 32, 0, 132)
+    assert (plan["shift"], plan["smem"]) == (6, 8192 + 12 * (1024 + 516))
+    assert trd.decode_plan_for(96, 32, 15, 132)["tables"] == "global"
+    with pytest.raises(ValueError):
+        trd.decode_plan_for(100, 3, 0, 132)
+
+
+def test_ctx_tables_checked_in_one_readback():
+    """_check_tables keeps both checks and their messages; the class LUT
+    tensors are made once per (n_ctx, device, dtype)."""
+    f = np.full((2, 4, 256), 128, np.int64)
+    c = np.concatenate([np.zeros((2, 4, 1), np.int64),
+                        np.cumsum(f, 2)[..., :255]], axis=2)
+    trc._check_tables(f, c)
+    f_bad = f.copy()
+    f_bad[1, 2, 7] += 1
+    with pytest.raises(ValueError, match="must sum"):
+        trc._check_tables(f_bad, c)
+    c_bad = c.copy()
+    c_bad[0, 3, 9] += 1
+    with pytest.raises(ValueError, match="exclusive prefix"):
+        trc._check_tables(f, c_bad)
+    for n_ctx in (4, 15):
+        lut = trc.class_lut_on(n_ctx, "cpu")
+        assert lut is trc.class_lut_on(n_ctx, torch.device("cpu"))
+        np.testing.assert_array_equal(lut.numpy(), trc.class_lut(n_ctx))
+        assert trc.class_lut_on(n_ctx, "cpu", torch.int64).dtype == torch.int64
+
+
 def test_new_wrappers_do_not_launch_on_the_cpu(grouped):
     counters = (tre.rans_compact_rows, trd.rans_decode_grouped_grid,
                 trc.rans_decode_ctx_grid, tre.rans_encode_grouped)

@@ -58,6 +58,7 @@ _SIGNATURES = {
                                  _I, _I, _P],
     "vcf_rans_decode_grid": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vcf_rans_decode_ctx_grid": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "vcf_rans_decode_grid_plan": [_I, _I, _I, _P],
     "vcf_dct_forward": _DCT,
     "vcf_dct_inverse": _DCT,
     "vcf_sad_smem": [_I, _I],

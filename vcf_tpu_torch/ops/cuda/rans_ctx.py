@@ -61,6 +61,18 @@ def class_lut(n_ctx: int) -> np.ndarray:
             ).sum(axis=1).astype(np.uint8)
 
 
+_LUTS: dict = {}
+
+
+def class_lut_on(n_ctx: int, device, dtype=torch.uint8) -> torch.Tensor:
+    """`class_lut(n_ctx)` as a tensor of `dtype` on `device`, made once per
+    (n_ctx, device, dtype) and shared: callers only read it."""
+    key = (n_ctx, torch.device(device), dtype)
+    if key not in _LUTS:
+        _LUTS[key] = torch.from_numpy(class_lut(n_ctx)).to(device, dtype)
+    return _LUTS[key]
+
+
 def _check_tables(freqs_gc, cums_gc) -> Tuple[torch.Tensor, torch.Tensor]:
     """(G, n_ctx, 256) tables as int64; raise unless every row sums to
     2^15 and cums is the exclusive prefix sum of freqs (the kernels read
@@ -72,11 +84,13 @@ def _check_tables(freqs_gc, cums_gc) -> Tuple[torch.Tensor, torch.Tensor]:
              f"and {tuple(c.shape)}")
     _require(f.shape[1] in CTX_BOUNDS,
              f"n_ctx must be one of {sorted(CTX_BOUNDS)}, got {f.shape[1]}")
-    _require(bool((f.sum(dim=2) == 1 << K_PROB).all()),
-             f"every context table's freqs must sum to 2^{K_PROB}")
-    _require(bool((c[..., 0] == 0).all())
-             and torch.equal(c[..., 1:], torch.cumsum(f, dim=2)[..., :-1]),
-             "cums_gc is not the exclusive prefix sum of freqs_gc")
+    # both checks come back in one readback
+    sums_ok, prefix_ok = torch.stack([
+        (f.sum(dim=2) == 1 << K_PROB).all(),
+        (c[..., 0] == 0).all()
+        & (c[..., 1:] == torch.cumsum(f, dim=2)[..., :-1]).all()]).tolist()
+    _require(sums_ok, f"every context table's freqs must sum to 2^{K_PROB}")
+    _require(prefix_ok, "cums_gc is not the exclusive prefix sum of freqs_gc")
     return f, c
 
 
@@ -100,7 +114,7 @@ def rans_encode_ctx_ref(syms: torch.Tensor, freqs_gc, cums_gc
     f, c = _check_tables(freqs_gc, cums_gc)
     g, n_ctx = f.shape[:2]
     grp = _groups(syms.shape[0], g, dev)
-    lut = torch.from_numpy(class_lut(n_ctx).astype(np.int64)).to(dev)
+    lut = class_lut_on(n_ctx, dev, torch.int64)
     sym_l = syms.t().to(torch.int64)                         # (L, S)
     prev = torch.cat([torch.full_like(sym_l[:1], 128), sym_l[:-1]])
     idx = ((grp[None, :] * n_ctx + lut[prev]) << 8) + sym_l
@@ -126,7 +140,7 @@ def rans_encode_ctx(syms: torch.Tensor, freqs_gc, cums_gc
     dev = syms.device
     tab = pack_tables(f.reshape(g * n_ctx, 256), c.reshape(g * n_ctx, 256),
                       dev)
-    lut = torch.from_numpy(class_lut(n_ctx)).to(dev)
+    lut = class_lut_on(n_ctx, dev)
     # (L, S): the kernel stages tiles of steps x lanes
     raw, states = launch_encode(syms.t().contiguous(), tab, lut, g, n_ctx)
     rans_encode_ctx.launches += 1
@@ -159,7 +173,7 @@ def _ctx_resolver(freqs_gc, cums_gc, s_streams: int, dev):
     f, c = _check_tables(freqs_gc, cums_gc)
     g, n_ctx = f.shape[:2]
     grp = _groups(s_streams, g, dev)
-    lut = torch.from_numpy(class_lut(n_ctx).astype(np.int64)).to(dev)
+    lut = class_lut_on(n_ctx, dev, torch.int64)
     f_flat = f.to(dev).reshape(-1)
     rows = torch.arange(g * n_ctx, device=dev)
     c_flat = c.to(dev).reshape(g * n_ctx, 256)
@@ -222,7 +236,7 @@ def rans_decode_ctx(words: torch.Tensor, states: torch.Tensor,
     _require(s_streams % g == 0, f"{s_streams} lanes do not split into {g} "
              "groups")
     dev = words.device
-    lut = torch.from_numpy(class_lut(n_ctx)).to(dev)
+    lut = class_lut_on(n_ctx, dev)
     out, err = launch_decode(words, states, cum_rows(f, c, dev), lut, counts,
                              l, g, n_ctx)
     rans_decode_ctx.launches += 1
@@ -258,7 +272,7 @@ def rans_decode_ctx_grid(raw: torch.Tensor, states: torch.Tensor,
         return rans_decode_ctx_grid_ref(raw, states, f, c, l).t()
     _require_cuda(raw)
     dev = raw.device
-    lut = torch.from_numpy(class_lut(n_ctx)).to(dev)
+    lut = class_lut_on(n_ctx, dev)
     out = launch_grid("vcf_rans_decode_ctx_grid", raw, states,
                       (cum_rows(f, c, dev), lut), l, g, n_ctx)
     rans_decode_ctx_grid.launches += 1

@@ -16,7 +16,10 @@ notes and bounds are in csrc/rans_decode.cu.
 routing-free decode straight from K1's raw (L, S) grid, whose emit flags
 are the decoder's renormalization flags lane for lane.  A grid whose
 flags disagree with the decode, or whose states do not end at RANS_L,
-raises ValueError.  Design notes and bounds are in csrc/rans_grid.cu.
+raises ValueError.  Its launch shape (lanes a block, where the tables
+live, the symbol lookup's bucket size) is picked from the shape:
+`decode_plan` asks the card's C entry, `decode_plan_for` is the same
+rule in Python.  Design notes and bounds are in csrc/rans_grid.cu.
 
 Each wrapper runs the plain torch version for a CPU tensor and launches
 its CUDA kernel for a CUDA tensor; `launches` counts kernel launches.
@@ -24,6 +27,8 @@ its CUDA kernel for a CUDA tensor; `launches` counts kernel launches.
 
 from __future__ import annotations
 
+import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -258,6 +263,55 @@ def check_grid(raw: torch.Tensor, states: torch.Tensor, l: int, g: int
     _require(g >= 1 and states.shape[0] % g == 0,
              f"{states.shape[0]} lanes do not split into {g} groups")
     _require(states.device == raw.device, "raw and states on two devices")
+
+
+#: the grid decode's launch constants (csrc/rans_grid.cu): most lanes a
+#: block, steps a staged tile, tiles staged at once, the shifts a bucket
+#: of the symbol lookup may take (2^shift slots) and the bytes of a
+#: block's tables that pick the least of them
+GRID_LANES, GRID_TILE, GRID_STAGES = 128, 32, 2
+GRID_SHIFTS = range(3, 9)
+GRID_TABLE_BUDGET = 24 * 1024
+
+
+def decode_plan_for(s_streams: int, g: int, n_ctx: int, sms: int) -> dict:
+    """The grid decode's launch shape for S lanes in G groups (n_ctx 0:
+    order 0) on a card of `sms` SMs, as csrc/rans_grid.cu's `grid_plan`
+    computes it: lanes a block (the most of 128, 64, 32 that still gives
+    every SM a block); where the blocks keep their groups' tables
+    ("shared", with a bucket table of 2^shift slots a bucket, the least
+    shift from 3 to 8 whose tables fit GRID_TABLE_BUDGET; else "global",
+    shift 8 unused); steps a tile; dynamic shared memory bytes (the tile
+    stages, the tables)."""
+    _require(s_streams >= 1 and g >= 1 and s_streams % g == 0
+             and n_ctx >= 0, f"no grid plan for S={s_streams} G={g} "
+             f"n_ctx={n_ctx}")
+    lanes = GRID_LANES
+    while lanes > 32 and -(-s_streams // lanes) < sms:
+        lanes //= 2
+    sg = s_streams // g
+    # a block starts at a multiple of `lanes`: at most gcd(lanes, sg)
+    # lanes before a group's end
+    span = min(g, (sg - math.gcd(lanes, sg) + lanes - 1) // sg + 1)
+    rows = span * max(n_ctx, 1)
+    table = 2 * 257 if n_ctx else 4 * 256
+    fits = [sh for sh in GRID_SHIFTS
+            if rows * (table + (1 << (K_PROB - sh)) + 4) <= GRID_TABLE_BUDGET]
+    shift = fits[0] if fits else GRID_SHIFTS[-1]
+    tables = rows * (table + (1 << (K_PROB - shift)) + 4) if fits else 0
+    return {"lanes": lanes, "tables": "shared" if fits else "global",
+            "shift": shift, "tile": GRID_TILE,
+            "smem": GRID_STAGES * GRID_TILE * lanes * 4 + tables}
+
+
+def decode_plan(s_streams: int, g: int, n_ctx: int = 0) -> dict:
+    """`decode_plan_for` as the card's C entry computes it (on the current
+    card)."""
+    out = (ctypes.c_int * 5)()
+    _build.check(_build.load().vcf_rans_decode_grid_plan(
+        s_streams, g, n_ctx, out), "rans_decode_grid_plan")
+    return {"lanes": out[0], "tables": "shared" if out[1] else "global",
+            "shift": out[2], "tile": out[3], "smem": out[4]}
 
 
 def launch_grid(entry: str, raw: torch.Tensor, states: torch.Tensor,
