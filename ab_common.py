@@ -1,6 +1,6 @@
 """Shared pieces of the A/B scripts (dct_ab.py, encode_ab.py, sad_ab.py,
-lookback_ab.py, grid_ab.py), which compare the current tree's kernels with other
-builds on one GPU.
+lookback_ab.py, grid_ab.py, mc_ab.py, rows_ab.py), which compare the
+current tree's kernels with other builds on one GPU.
 
 Other builds live under _ab/ (git-ignored, so never committed): a library
 compiled from another directory's source or from an edited copy of the
@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import hashlib
 import json
 import os
 import shutil
@@ -121,6 +122,99 @@ def quiet():
     process's stdout holds its JSON line alone."""
     with contextlib.redirect_stdout(sys.stderr):
         yield
+
+
+def sha(*tensors) -> str:
+    """A short SHA-256 of the tensors' bytes."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def queued_ms(fn, reps: int = 20) -> float:
+    """Device ms a call of `fn` with the host out of its way: the calls
+    are issued while a sleeping kernel (~5 ms) holds the stream, so they
+    run back to back once it ends."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda._sleep(10_000_000)
+    ev[0].record()
+    for _ in range(reps):
+        fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / reps
+
+
+def tree_lines(name: str, runs: list, head, exact: bool = True) -> list:
+    """The rows of an A/B of trees from `run_in_turns`' results, run as
+    (other, current, current, other) per round: every output's "sha" must
+    agree across all runs (for an exact other tree; a timing-only one
+    records whether it did); a kernel row is `head(key, the first run's
+    row)` (shape, bound, ...) and each tree's values of every timed field
+    in run order (with the multiples of "bound_ms" for "ms"); a path row
+    each tree's values."""
+    import chip_smoke as cs
+
+    theirs = [r for i, r in enumerate(runs) if i % 4 in (0, 3)]
+    mine = [r for i, r in enumerate(runs) if i % 4 in (1, 2)]
+    lines = []
+    for key in runs[0]["rows"]:
+        same = len({r["rows"][key]["sha"] for r in runs}) == 1
+        cs.require(same or not exact, f"{key}: the {name} tree's output "
+                   "differs")
+        row = {**head(key, runs[0]["rows"][key]),
+               f"bit_identical_to_{name}": same}
+        for who, rs in ((name, theirs), ("current", mine)):
+            for k in rs[0]["rows"][key]:
+                if k == "sha":
+                    continue
+                vals = [r["rows"][key][k] for r in rs]
+                row[f"{who}_{k}"] = vals
+                if k == "ms" and "bound_ms" in row:
+                    row[f"{who}_x_bound"] = [t / row["bound_ms"] for t in vals]
+        lines.append(row)
+    for path in runs[0].get("paths", {}):
+        same = len({r["paths"][path]["sha"] for r in runs}) == 1
+        cs.require(same or not exact, f"phase {path}: the {name} tree's "
+                   "output differs")
+        row = {"path": path, f"bit_identical_to_{name}": same}
+        for who, rs in ((name, theirs), ("current", mine)):
+            for k in rs[0]["paths"][path]:
+                if k == "sha":
+                    continue
+                vals = [r["paths"][path][k] for r in rs]
+                if isinstance(vals[0], dict):
+                    row[f"{who}_{k}"] = {part: [v[part] for v in vals]
+                                         for part in vals[0]}
+                else:
+                    row[f"{who} {k}"] = vals
+        lines.append(row)
+    return lines
+
+
+def compare_trees(script: str, parent, variants: dict, rounds: int,
+                  head, timing_only=()) -> list:
+    """Run `script --time TREE` for the parent tree (if given) and each
+    variant package (name -> edits, copied by `copy_package`) in turns
+    with the current tree, `rounds` times each; print and return
+    `tree_lines`' rows (variants named in `timing_only` may differ)."""
+    others = {}
+    if parent:
+        others["parent"] = os.path.abspath(parent)
+    for name, edits in variants.items():
+        others[name] = copy_package(name, edits)
+    lines = []
+    for name, root in others.items():
+        runs = run_in_turns(script, [root, ROOT, ROOT, root] * rounds)
+        for row in tree_lines(name, runs, head, name not in timing_only):
+            print(json.dumps(row), flush=True)
+            lines.append(row)
+    return lines
 
 
 def turns(other, current, reps: int) -> dict:

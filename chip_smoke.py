@@ -44,7 +44,11 @@ kernels from vcf_tpu_torch/csrc on first use.  Phases:
    kernel's global mode), and
    mc_apply_planar / mc_apply (channel-last) on the (7, 3, 1088, 1920)
    float32 frames with seeded mvs in [-8, 8], the frame-edge blocks
-   pointing out of the frame, bit-exact; CUDA-event times of each;
+   pointing out of the frame, and with the SAD kernel's real mvs, at 7
+   and 2 frames, bit-exact, every launch in the vector mode (its Python
+   mirror `launch_mode` equal to `vcf_mc_mode`); CUDA-event times of
+   each (MC at 7 and 2 frames, both layouts, beside torch.take with a
+   prebuilt source index, and the wrapper's host time a call);
 4c. main path, IPP: IPPCodec(VideoConfig(mode="ipp", n_frames=8,
    gop_size=4, me_block=16, search_range=8), CodecConfig(entropy="grans",
    subbands=False), "cuda") encode -> bytes -> decode of that clip (SAD,
@@ -53,8 +57,9 @@ kernels from vcf_tpu_torch/csrc on first use.  Phases:
    reconstruction; rmse within 1e-2 of the port's CPU run of the whole
    clip, with the share of mv blocks and indexes that differ, and equal
    streams when none differs; SAD's launches all take its m=16
-   instance, none its generic mode), with warm encode/decode times and the
-   split of each into its device loop and its entropy stage;
+   instance and MC's its vector mode, none a generic mode), with warm
+   encode/decode times and the split of each into its device loop and
+   its entropy stage;
 3d. the context modes of K1/K3 at S=65536, L=765, G=64 with 4 and 15
    classes, bit-exact (K3 with counts and without), each also timed as a
    launch alone; 4d: the 8-frame cgrans clip; 4e: the 1088x1920 DWT frame
@@ -86,9 +91,10 @@ kernels from vcf_tpu_torch/csrc on first use.  Phases:
    composition): _gop_encode_grid_batch -> grid lanes -> K1 ->
    grid decode -> _gop_decode_grid_batch; decoder == encoder; mvs and
    indexes against the port's CPU run of the same loop (SAD's m=16
-   instance launched); rmse, bpp, encode/decode times, the GOP-loop
-   encode split by CUDA events into luma, SAD, MC, B3/B4 and the rest,
-   and the SAD screen's second sums on the loop's references.
+   instance and MC's vector mode launched); rmse, bpp, encode/decode
+   times, the GOP-loop encode split by CUDA events into luma, SAD, MC,
+   B3/B4 and the rest, and the SAD screen's second sums on the loop's
+   references.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Any failed check raises (non-zero exit, no result).  The last
@@ -169,6 +175,20 @@ def host_ms(fn, reps: int) -> float:
     return sorted(ts)[reps // 2]
 
 
+def issue_ms(fn, reps: int = 20) -> float:
+    """Mean host-clock ms to issue one call of `fn` (no sync between
+    calls): a wrapper's host time, which paces it once its kernel is
+    shorter."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return t
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     require(a.shape == b.shape, f"shape {tuple(a.shape)} vs {tuple(b.shape)}")
     if a.numel() == 0:
@@ -215,7 +235,7 @@ COUNTS = ("launches", "grid_launches", "generic_launches")
 
 def zero_counts(kernels: dict) -> None:
     """Set every launch count of the wrappers in `kernels` to 0: `launches`,
-    the grid-mode count `grid_launches` and the SAD kernel's
+    the grid-mode count `grid_launches` and the SAD and MC kernels'
     `generic_launches`."""
     for fn in kernels.values():
         for attr in COUNTS:
@@ -714,6 +734,7 @@ def phase_clip(dev, frames: np.ndarray, planes_codec: torch.Tensor) -> dict:
 
 def phase_motion_kernels(dev, clip: np.ndarray) -> list:
     from vcf_tpu_torch.ops import motion
+    from vcf_tpu_torch.ops.cuda import _build
     from vcf_tpu_torch.ops.cuda import mc_kernel as mk
     from vcf_tpu_torch.ops.cuda import sad_kernel as sk
 
@@ -748,6 +769,7 @@ def phase_motion_kernels(dev, clip: np.ndarray) -> list:
                 f"{n_mv} mvs, SAD max {err}")
         if what == "7 frames":
             moving = float((mv_k != 0).any(-1).double().mean())
+            real_mv = mv_k
         sad_err = max(sad_err, err)
     require(refined["7 frames"]["displacements"] > 0 and
             refined["7 frames"]["thread_ctas"] == 0 and
@@ -789,10 +811,12 @@ def phase_motion_kernels(dev, clip: np.ndarray) -> list:
     mv[:, 0, :, 0], mv[:, -1, :, 0] = -SEARCH, SEARCH   # out of the frame
     mv[:, :, 0, 1], mv[:, :, -1, 1] = -SEARCH, SEARCH
     mv_t = torch.from_numpy(mv).to(dev)
+    frames_cl = frames.permute(0, 2, 3, 1).contiguous()
+    mc = {"mc_apply_planar": mk.mc_apply_planar, "mc_apply": mk.mc_apply}
+    zero_counts(mc)
     out_k = mk.mc_apply_planar(frames, mv_t, ME_BLOCK)
     mc_err = float((out_k - mk.mc_apply_planar_ref(frames, mv_t, ME_BLOCK)
                     ).abs().max())
-    frames_cl = frames.permute(0, 2, 3, 1).contiguous()
     out_cl = mk.mc_apply(frames_cl, mv_t, ME_BLOCK)
     cl_err = float((out_cl - mk.mc_apply_ref(frames_cl, mv_t, ME_BLOCK)
                     ).abs().max())
@@ -802,9 +826,36 @@ def phase_motion_kernels(dev, clip: np.ndarray) -> list:
             f"channel-last {cl_err}")
     require(torch.equal(out_cl, out_k.permute(0, 2, 3, 1)),
             "the two MC layouts disagree")
+    # the clip's real SAD mvs (its background pans, so nearly every block
+    # shares one vector) and the IPP loops' 2 frames
+    for mvs in (mv_t, real_mv):
+        for n in (g, 2):
+            for fn, plain, fr in ((mk.mc_apply_planar, mk.mc_apply_planar_ref,
+                                   frames), (mk.mc_apply, mk.mc_apply_ref,
+                                             frames_cl)):
+                fr_n, mv_n = fr[:n], mvs[:n]
+                require(torch.equal(fn(fr_n, mv_n, ME_BLOCK),
+                                    plain(fr_n, mv_n, ME_BLOCK)),
+                        f"{fn.__name__} differs from its plain version on "
+                        f"{n} frames")
+    lib = _build.load()
+    require(all(mk.launch_mode(ME_BLOCK, fr.data_ptr(), o.data_ptr()) ==
+                "vector" and lib.vcf_mc_mode(fr.data_ptr(), o.data_ptr(), 3,
+                                             w, ME_BLOCK) == 0
+                for fr, o in ((frames, out_k), (frames_cl, out_cl))) and
+            all(fn.launches == 5 and fn.generic_launches == 0
+                for fn in mc.values()),
+            f"MC: phase 3c's launches did not all take the vector mode "
+            f"({[(fn.launches, fn.generic_launches) for fn in mc.values()]})")
+    # one PyTorch call for the same gather: torch.take with the source
+    # index of every output (int64, 8 bytes an element), built beforehand
+    idx = mc_source_index(frames.shape, mv_t, ME_BLOCK)
+    require(torch.equal(torch.take(frames, idx), out_k),
+            "torch.take with the MC source index differs from the kernel")
     print(f"motion kernels: {g}x{h}x{w}, m={ME_BLOCK} s={SEARCH}: SAD mvs "
           f"and SADs equal ({moving:.3f} of blocks move); MC planar and "
-          "channel-last bit-exact")
+          "channel-last bit-exact on random and real mvs at 7 and 2 frames, "
+          "vector mode")
 
     # SAD: |cur - ref| and the sum, 3 operations per term, float32 in the
     # function replaced (the kernel's float32 screen and float64 second
@@ -830,30 +881,61 @@ def phase_motion_kernels(dev, clip: np.ndarray) -> list:
         results.append(kernel_row(name, "motion.cu", rep, err, ms, plain_ms,
                                   bnd, also_replaces=f"vcf_tpu/ops/pallas/{also}",
                                   diff_share=0.0))
-    sad_row = results[0]
+    sad_row, mc_row = results
     sad_row["ms_2_frames"] = cuda_ms(
         lambda: sk.sad_search(ref2, cur2, ME_BLOCK, SEARCH), 20)
     sad_row["mode"] = mode
     sad_row["refined"] = refined
     print(f"time sad_search at 2 frames: {sad_row['ms_2_frames']:.4f} ms "
           f"({sad_row['mode']})")
-    print(f"time mc_apply (channel-last): kernel "
-          f"{cuda_ms(lambda: mk.mc_apply(frames_cl, mv_t, ME_BLOCK), 20):.4f}"
-          f" ms, plain torch "
-          f"{cuda_ms(lambda: mk.mc_apply_ref(frames_cl, mv_t, ME_BLOCK), 3):.4f}"
-          " ms")
+    fr2, mv2 = frames[:2], mv_t[:2]
+    mc_row.update({
+        "ms_2_frames": cuda_ms(lambda: mk.mc_apply_planar(fr2, mv2, ME_BLOCK),
+                               20),
+        "bound_ms_2_frames": bound(nbytes(fr2, mv2, fr2))["bound_ms"],
+        "channel_last_ms": cuda_ms(
+            lambda: mk.mc_apply(frames_cl, mv_t, ME_BLOCK), 20),
+        "channel_last_plain_ms": cuda_ms(
+            lambda: mk.mc_apply_ref(frames_cl, mv_t, ME_BLOCK), 3),
+        "mode": "vector",
+        "wrapper_host_ms_2_frames": issue_ms(
+            lambda: mk.mc_apply_planar(fr2, mv2, ME_BLOCK)),
+        "library_ms": cuda_ms(lambda: torch.take(frames, idx), 20),
+        "library": "torch.take(ref, idx), idx an int64 source index built "
+                   "beforehand: 8 more bytes read an element"})
+    print(f"time mc_apply_planar: 2 frames {mc_row['ms_2_frames']:.4f} ms "
+          f"(bound {mc_row['bound_ms_2_frames']:.4f}; wrapper's host "
+          f"{mc_row['wrapper_host_ms_2_frames']:.4f} ms a call), "
+          f"channel-last {mc_row['channel_last_ms']:.4f} ms (plain torch "
+          f"{mc_row['channel_last_plain_ms']:.4f}), torch.take "
+          f"{mc_row['library_ms']:.4f} ms")
     return results
 
 
-def require_sad_instance(what: str) -> None:
-    """The IPP paths' SAD launches took the block-size instance."""
+def mc_source_index(shape, mv: torch.Tensor, m: int) -> torch.Tensor:
+    """The int64 flat index into (G, C, H, W) frames of every motion-
+    compensated output's source (the clamped, displaced pixel)."""
+    g, c, h, w = shape
+    dev = mv.device
+    vy, vx = (mv[..., k].repeat_interleave(m, 1).repeat_interleave(m, 2)
+              .to(torch.int64) for k in (0, 1))       # (G, H, W)
+    sy = (torch.arange(h, device=dev)[:, None] + vy).clamp(0, h - 1)
+    sx = (torch.arange(w, device=dev) + vx).clamp(0, w - 1)
+    plane = torch.arange(g * c, device=dev).view(g, c, 1, 1)
+    return (plane * h + sy[:, None]) * w + sx[:, None]
+
+
+def require_ipp_modes(what: str) -> None:
+    """The IPP paths' SAD launches took the block-size instance and their
+    MC launches the vector mode."""
+    from vcf_tpu_torch.ops.cuda import mc_kernel as mk
     from vcf_tpu_torch.ops.cuda import sad_kernel as sk
 
-    require(sk.sad_search.launches > 0 and
-            sk.sad_search.generic_launches == 0,
-            f"{what}: the SAD kernel's generic mode launched "
-            f"({sk.sad_search.generic_launches} of "
-            f"{sk.sad_search.launches})")
+    for name, fn in (("SAD kernel", sk.sad_search),
+                     ("MC kernel", mk.mc_apply_planar)):
+        require(fn.launches > 0 and fn.generic_launches == 0,
+                f"{what}: the {name}'s generic mode launched "
+                f"({fn.generic_launches} of {fn.launches})")
 
 
 def ipp_split(ipp, clip: np.ndarray) -> dict:
@@ -919,7 +1001,7 @@ def phase_ipp(dev, clip: np.ndarray) -> dict:
     print(f"ipp path: launches {launches}")
     for name, count in launches.items():
         require(count > 0, f"kernel {name} was not launched on the IPP path")
-    require_sad_instance("IPP path")
+    require_ipp_modes("IPP path")
 
     side = {name[len("clip."):]: cs2[name] for name in cs2
             if name.startswith("clip.") and name != "clip.payload"}
@@ -1900,7 +1982,7 @@ def phase_ipp_grid(dev, clip: np.ndarray) -> dict:
     for name, count in launches.items():
         require(count > 0, f"kernel {name} was not launched on the IPP grid "
                 "path")
-    require_sad_instance("IPP grid path")
+    require_ipp_modes("IPP grid path")
     require(torch.equal(recs, ipp.last_grid_recon),
             "the grid decoder differs from the encoder's reconstruction")
     rec = torch.clamp(torch.round(recs), 0, 255).to(torch.uint8).permute(

@@ -39,12 +39,10 @@ inv64, the inverse kernel in CTAs of 64 threads.
 from __future__ import annotations
 
 import argparse
-import hashlib
 import json
 import os
 import re
 import sys
-import time
 
 import ab_common as ab
 
@@ -58,45 +56,6 @@ VARIANTS = {
 MODES = {"B1": (False, False), "B1 perceptual": (True, False),
          "B3": (False, True), "B2 perceptual": (True, False),
          "B4": (False, True)}
-
-
-def sha(*tensors) -> str:
-    h = hashlib.sha256()
-    for t in tensors:
-        h.update(t.contiguous().cpu().numpy().tobytes())
-    return h.hexdigest()[:16]
-
-
-def issue_us(fn, reps: int = 20) -> float:
-    """Host microseconds to issue one call of `fn` (no sync between)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    t = (time.perf_counter() - t0) * 1e6 / reps
-    torch.cuda.synchronize()
-    return t
-
-
-def queued_ms(fn, reps: int = REPS) -> float:
-    """Device ms a call of `fn` with the host out of its way: the calls
-    are issued while a sleeping kernel (~5 ms) holds the stream, so they
-    run back to back once it ends."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    torch.cuda._sleep(10_000_000)
-    ev[0].record()
-    for _ in range(reps):
-        fn()
-    ev[1].record()
-    torch.cuda.synchronize()
-    return ev[0].elapsed_time(ev[1]) / reps
 
 
 def time_tree(root: str) -> dict:
@@ -135,9 +94,9 @@ def time_tree(root: str) -> dict:
                 "B4": lambda: dk.fused_dequantize_cdct(k3, mi, **kw)}
             for mode, fn in calls.items():
                 out["rows"][f"{mode}|{layout}|{n}"] = {
-                    "ms": cs.cuda_ms(fn, REPS), "queued_ms": queued_ms(fn),
-                    "host_us": issue_us(fn),
-                    "sha": sha(fn())}
+                    "ms": cs.cuda_ms(fn, REPS), "queued_ms": ab.queued_ms(fn),
+                    "host_us": 1e3 * cs.issue_ms(fn),
+                    "sha": ab.sha(fn())}
 
     ipp, gops, encode_full, decode_full, _, _ = cs.ipp_grid_route(dev, clip)
     enc, dec = ipp._gop_encode_grid_batch, ipp._gop_decode_grid_batch
@@ -150,7 +109,7 @@ def time_tree(root: str) -> dict:
         "encode_ms": cs.cuda_ms(lambda: encode_full(gops), 3),
         "decode_ms": cs.cuda_ms(lambda: decode_full(raw, st, mvs), 3),
         "split": split,
-        "sha": sha(planes, mvs, raw, st, decode_full(raw, st, mvs))}
+        "sha": ab.sha(planes, mvs, raw, st, decode_full(raw, st, mvs))}
 
     lanes0, s_streams, cw = cs.grid_lanes_of(dk.fused_cdct_quantize(
         px, mf, grid_layout=True))
@@ -161,7 +120,7 @@ def time_tree(root: str) -> dict:
     out["paths"]["4f"] = {
         "device_encode_ms": cs.cuda_ms(lambda: encode_dev(x), 5),
         "device_decode_ms": cs.cuda_ms(lambda: decode_dev(raw4f, st4f), 3),
-        "sha": sha(raw4f, st4f, decode_dev(raw4f, st4f))}
+        "sha": ab.sha(raw4f, st4f, decode_dev(raw4f, st4f))}
     return out
 
 
@@ -230,53 +189,14 @@ def main() -> None:
             "ptxas", os.path.join(ab.ROOT, "vcf_tpu_torch", "csrc"),
             "dct.cu", flags=("-Xptxas", "-v"))
         print(json.dumps({"ptxas": ptxas_b8(report)}), flush=True)
-    others = {}
-    if args.parent:
-        others["parent"] = os.path.abspath(args.parent)
-    for name in args.variants:
-        others[name] = ab.copy_package(name, VARIANTS[name])
-    lines = []
-    for name, root in others.items():
-        runs = ab.run_in_turns(__file__, [root, ab.ROOT, ab.ROOT, root]
-                               * args.rounds)
-        # in the order they ran: the other tree's first and last turns of
-        # each round, the current tree's middle two
-        theirs = [r for i, r in enumerate(runs) if i % 4 in (0, 3)]
-        mine = [r for i, r in enumerate(runs) if i % 4 in (1, 2)]
-        for key in runs[0]["rows"]:
-            cs.require(len({r["rows"][key]["sha"] for r in runs}) == 1,
-                       f"{key}: the {name} tree's output differs")
-            bnd = kernel_bound(cs, key)
-            mode, layout, n = key.split("|")
-            row = {"shape": f"{n}x3x{cs.H}x{cs.W}", "mode": mode,
-                   "layout": layout, **bnd,
-                   f"bit_identical_to_{name}": True}
-            for who, rs in ((name, theirs), ("current", mine)):
-                ms = [r["rows"][key]["ms"] for r in rs]
-                row[f"{who}_ms"] = ms
-                row[f"{who}_x_bound"] = [t / bnd["bound_ms"] for t in ms]
-                row[f"{who}_queued_ms"] = [r["rows"][key]["queued_ms"]
-                                           for r in rs]
-                row[f"{who}_host_us"] = [r["rows"][key]["host_us"]
-                                         for r in rs]
-            print(json.dumps(row), flush=True)
-            lines.append(row)
-        for path in runs[0]["paths"]:
-            cs.require(len({r["paths"][path]["sha"] for r in runs}) == 1,
-                       f"phase {path}: the {name} tree's output differs")
-            row = {"path": path, f"bit_identical_to_{name}": True}
-            for who, rs in ((name, theirs), ("current", mine)):
-                for k in rs[0]["paths"][path]:
-                    if k == "sha":
-                        continue
-                    vals = [r["paths"][path][k] for r in rs]
-                    if k == "split":
-                        row[f"{who}_split"] = {
-                            part: [v[part] for v in vals] for part in vals[0]}
-                    else:
-                        row[f"{who} {k}"] = vals
-            print(json.dumps(row), flush=True)
-            lines.append(row)
+
+    def head(key, _):
+        mode, layout, n = key.split("|")
+        return {"shape": f"{n}x3x{cs.H}x{cs.W}", "mode": mode,
+                "layout": layout, **kernel_bound(cs, key)}
+
+    lines = ab.compare_trees(__file__, args.parent, {
+        name: VARIANTS[name] for name in args.variants}, args.rounds, head)
     ab.write_json(lines, args.out)
 
 

@@ -56,7 +56,6 @@ and shared memory of each kernel instance.
 from __future__ import annotations
 
 import argparse
-import hashlib
 import json
 import os
 import re
@@ -144,13 +143,6 @@ VARIANTS = {
 }
 
 
-def sha(*tensors) -> str:
-    h = hashlib.sha256()
-    for t in tensors:
-        h.update(t.contiguous().cpu().numpy().tobytes())
-    return h.hexdigest()[:16]
-
-
 def kernel_inputs(cs, dev) -> dict:
     """The grids of phases 3e, 3d and 4e: name -> (entry, raw, states,
     freqs, cums, l, n_ctx)."""
@@ -229,7 +221,7 @@ def time_tree(root: str, kernels_only: bool) -> dict:
         alone = cs.grid_launch_alone(entry, raw, st, tables, l, g, *extra)
         out["rows"][key] = {
             "ms": cs.cuda_ms(call, REPS), "launch_ms": cs.cuda_ms(alone, REPS),
-            "sha": sha(call()),
+            "sha": ab.sha(call()),
             "bytes": cs.nbytes(raw) + raw.numel() + 4 * st.numel()
             + cs.nbytes(*tables), "S": raw.shape[1], "L": l, "G": g,
             "n_ctx": n_ctx}
@@ -256,14 +248,14 @@ def time_tree(root: str, kernels_only: bool) -> dict:
     raw4f, st4f = encode_dev(x)
     out["paths"]["4f"] = {
         "device_decode_ms": cs.cuda_ms(lambda: decode_dev(raw4f, st4f), 5),
-        "sha": sha(raw4f, st4f, decode_dev(raw4f, st4f))}
+        "sha": ab.sha(raw4f, st4f, decode_dev(raw4f, st4f))}
     clip = test_video(cs.FRAMES, cs.H, cs.W, seed=7)
     with ab.quiet():
         _, gops, encode_full, decode_full, _, _ = cs.ipp_grid_route(dev, clip)
     _, mvs, raw, st = encode_full(gops)
     out["paths"]["4g"] = {
         "decode_ms": cs.cuda_ms(lambda: decode_full(raw, st, mvs), 5),
-        "sha": sha(mvs, raw, st, decode_full(raw, st, mvs))}
+        "sha": ab.sha(mvs, raw, st, decode_full(raw, st, mvs))}
     return out
 
 

@@ -559,6 +559,83 @@ def test_mc_kernel_matches_plain_version(dev, g, h, w, m, s):
     torch.cuda.synchronize()
 
 
+# (g, c, h, w, m, storage offset in floats, mv range, 3-D): every route of
+# the MC kernel's choice: m = 4, 8, 16, 32 (vector mode), m = 5, 6 and
+# W * C % 4 != 0 (generic), C = 1 and 3, a storage offset of 1 float
+# (generic by alignment) or 4 (aligned), mvs past the frame by more than
+# its size, 3-D and 4-D frames
+MC_MODE_CASES = [
+    (2, 3, 32, 48, 4, 0, 3, False), (2, 3, 48, 64, 8, 0, 9, False),
+    (2, 3, 64, 1920, 16, 0, 8, False), (1, 3, 64, 96, 32, 0, 40, False),
+    (2, 1, 32, 48, 16, 0, 8, False), (1, 3, 32, 48, 16, 0, 8, True),
+    (2, 3, 30, 35, 5, 0, 4, False), (1, 1, 36, 48, 6, 0, 7, False),
+    (2, 3, 32, 48, 16, 1, 8, False), (2, 3, 32, 48, 16, 4, 8, False),
+    (2, 3, 32, 64, 16, 0, 200, False), (1, 1, 24, 40, 8, 1, 50, True),
+]
+
+
+@pytest.mark.parametrize("g,c,h,w,m,offset,far,three_d", MC_MODE_CASES)
+def test_mc_kernel_modes(dev, g, c, h, w, m, offset, far, three_d):
+    """Both layouts equal the plain versions bit for bit; the launch takes
+    the mode of `launch_mode`, which equals the C launcher's
+    `vcf_mc_mode`."""
+    rng = np.random.default_rng(h * w + m)
+    n = g * c * h * w
+    mv = torch.from_numpy(rng.integers(-far, far + 1, (g, h // m, w // m, 2))
+                          .astype(np.int32)).to(dev)
+    lib = _build.load()
+    for cl, fn, plain in ((False, mk.mc_apply_planar, mk.mc_apply_planar_ref),
+                          (True, mk.mc_apply, mk.mc_apply_ref)):
+        flat = torch.from_numpy(rng.integers(0, 256, n + offset).astype(
+            np.float32)).to(dev)
+        shape = (g, h, w, c) if cl else (g, c, h, w)
+        ref = flat[offset:].view(shape)
+        mvs = mv
+        if three_d:
+            ref, mvs = ref[0], mv[0]
+        fn.launches = fn.generic_launches = 0
+        out = fn(ref, mvs, m)
+        assert torch.equal(out, plain(ref, mvs, m))
+        mode = mk.launch_mode(m, ref.data_ptr(), out.data_ptr())
+        want = "vector" if m % 4 == 0 and offset % 4 == 0 else "generic"
+        assert mode == want
+        assert lib.vcf_mc_mode(ref.data_ptr(), out.data_ptr(), c, w,
+                               m) == (mode == "generic")
+        assert (fn.launches, fn.generic_launches) == (1, int(mode == "generic"))
+    torch.cuda.synchronize()
+
+
+def _rows_grid(l, s, density, seed):
+    rng = np.random.default_rng(seed)
+    low = rng.integers(0, 1 << 16, (l, s))
+    flag = rng.random((l, s)) < density
+    return torch.from_numpy((low | flag.astype(np.int64) << 16).astype(
+        np.int32))
+
+
+# (L, S, share of entries flagged, rows sliced off a grid with one more):
+# S % 4 != 0, S below one round (4096 entries), L = 1, a raw base 4 bytes
+# off 16-byte alignment (a row slice of a grid with S = 4097), every entry
+# flagged and none, and the main path's S with a ragged last round
+ROWS_CASES = [(5, 1101, 0.2, False), (7, 100, 0.4, False),
+              (1, 5000, 0.1, False), (3, 4097, 0.1, True),
+              (2, 8192, 1.0, False), (2, 8192, 0.0, False),
+              (4, 65536, 0.014, False), (3, 12292, 0.3, False)]
+
+
+@pytest.mark.parametrize("l,s,density,sliced", ROWS_CASES)
+def test_row_mode_matches_plain_version(dev, l, s, density, sliced):
+    raw = _rows_grid(l + sliced, s, density, l * s).to(dev)
+    if sliced:
+        raw = raw[1:]
+        assert raw.is_contiguous() and raw.data_ptr() % 16 == 4
+    rows, counts = re_.rans_compact_rows(raw)
+    rows_p, counts_p = re_.rans_compact_rows_ref(raw)
+    assert torch.equal(counts, counts_p)
+    prefix = torch.arange(s, device=dev) < counts[:, None]
+    assert torch.equal(rows.masked_fill(~prefix, 0), rows_p)
+
+
 @pytest.mark.parametrize("kw", [dict(entropy="grans"),
                                 dict(entropy="zlib", use_pallas=False),
                                 dict(entropy="zlib", qss=16)],

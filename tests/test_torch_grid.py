@@ -210,24 +210,36 @@ def test_grid_layout_shape_checks():
 # The rANS modes
 # ---------------------------------------------------------------------------
 
+def _grouped_case(g, sg, l, seed):
+    """A (G, SG, L) grouped case with vcf_tpu's raw grid and states."""
+    rng = np.random.default_rng(seed)
+    syms = rng.integers(0, 256, (g * sg, l), np.uint8)
+    counts = rng.integers(1, 1000, (256,))
+    fr = np.stack([jrans.quantize_freqs(np.roll(counts, i), min_all=True)
+                   for i in range(g)]).astype(np.uint32)
+    cu = np.concatenate([np.zeros((g, 1), np.uint32),
+                         np.cumsum(fr, 1)[:, :255]], 1).astype(np.uint32)
+    le, st = jre.pallas_encode_grouped_raw(
+        jnp.asarray(syms), jnp.asarray(fr), jnp.asarray(cu), unroll=4, sg=sg,
+        interpret=True)
+    return dict(syms=syms, fr=fr, cu=cu, sg=sg, le=np.asarray(le),
+                st=np.asarray(st).astype(np.int64),
+                ft=torch.from_numpy(fr.astype(np.int64)),
+                ct=torch.from_numpy(cu.astype(np.int64)))
+
+
 @pytest.fixture(scope="module")
 def grouped():
     """tests/test_pallas_r5.py's (G, SG, L) grouped case, with vcf_tpu's
     raw grid and states."""
-    rng = np.random.default_rng(11)
-    syms = rng.integers(0, 256, (G * SG, L), np.uint8)
-    counts = rng.integers(1, 1000, (256,))
-    fr = np.stack([jrans.quantize_freqs(np.roll(counts, i), min_all=True)
-                   for i in range(G)]).astype(np.uint32)
-    cu = np.concatenate([np.zeros((G, 1), np.uint32),
-                         np.cumsum(fr, 1)[:, :255]], 1).astype(np.uint32)
-    le, st = jre.pallas_encode_grouped_raw(
-        jnp.asarray(syms), jnp.asarray(fr), jnp.asarray(cu), unroll=4, sg=SG,
-        interpret=True)
-    return dict(syms=syms, fr=fr, cu=cu, le=np.asarray(le),
-                st=np.asarray(st).astype(np.int64),
-                ft=torch.from_numpy(fr.astype(np.int64)),
-                ct=torch.from_numpy(cu.astype(np.int64)))
+    return _grouped_case(G, SG, L, 11)
+
+
+@pytest.fixture(scope="module")
+def grouped_ragged():
+    """A grouped case whose S = 15 lanes are not a multiple of 4 (the row
+    mode's kernel then takes 4-byte loads)."""
+    return _grouped_case(3, 5, L, 13)
 
 
 def test_k1_lmajor_matches_raw_u8(grouped):
@@ -245,40 +257,45 @@ def test_k1_lmajor_matches_raw_u8(grouped):
 
 
 @pytest.fixture(scope="module")
-def pallas_rows(grouped):
-    """vcf_tpu's compacting encodes on the grouped case, by layout:
-    (rows, counts, states) as numpy, each computed once."""
+def pallas_rows(grouped, grouped_ragged):
+    """vcf_tpu's compacting encodes by layout (a "-ragged" suffix: on the
+    S = 15 case): (rows, counts, states) as numpy, each computed once."""
     cache = {}
 
     def get(layout):
         if layout not in cache:
-            syms = grouped["syms"]
-            fj, cj = jnp.asarray(grouped["fr"]), jnp.asarray(grouped["cu"])
-            if layout == "grouped":
+            case = grouped_ragged if layout.endswith("-ragged") else grouped
+            kind = layout.removesuffix("-ragged")
+            syms, sg = case["syms"], case["sg"]
+            fj, cj = jnp.asarray(case["fr"]), jnp.asarray(case["cu"])
+            if kind == "grouped":
                 out = jre.pallas_encode_grouped(jnp.asarray(syms), fj, cj,
-                                                unroll=1, sg=SG, interpret=True)
+                                                unroll=1, sg=sg, interpret=True)
             else:
-                lmajor = layout == "u8-lmajor"
+                lmajor = kind == "u8-lmajor"
                 out = jre.pallas_encode_grouped_u8(
                     jnp.asarray(syms.T if lmajor else syms), fj, cj, unroll=1,
-                    sg=SG, interpret=True, lmajor=lmajor)
+                    sg=sg, interpret=True, lmajor=lmajor)
             cache[layout] = tuple(np.asarray(x) for x in out)
         return cache[layout]
 
     return get
 
 
-@pytest.mark.parametrize("layout", ["grouped", "u8", "u8-lmajor"])
-def test_encode_rows_matches_pallas(grouped, pallas_rows, layout):
+@pytest.mark.parametrize("layout", ["grouped", "u8", "u8-lmajor",
+                                    "grouped-ragged", "u8-ragged"])
+def test_encode_rows_matches_pallas(grouped, grouped_ragged, pallas_rows,
+                                    layout):
     """Counts, states and each row's prefix equal vcf_tpu's compacting
     encodes (their row tails are unspecified; the plain version's are
-    zero).  The (L, S) layout reaches the port as a transposed view."""
-    syms = torch.from_numpy(grouped["syms"])
+    zero).  The (L, S) layout reaches the port as a transposed view; the
+    ragged case has S = 15 lanes."""
+    case = grouped_ragged if layout.endswith("-ragged") else grouped
+    syms = torch.from_numpy(case["syms"])
     if layout == "u8-lmajor":
         syms = syms.t().contiguous().t()
     rows_j, cnt_j, st_j = pallas_rows(layout)
-    rows, counts, st = tre.rans_encode_rows(syms, grouped["ft"],
-                                            grouped["ct"])
+    rows, counts, st = tre.rans_encode_rows(syms, case["ft"], case["ct"])
     assert rows.dtype == torch.int16 and rows.shape == rows_j.shape
     np.testing.assert_array_equal(counts.numpy(), cnt_j)
     np.testing.assert_array_equal(st.numpy(), st_j.astype(np.int64))

@@ -284,7 +284,8 @@ def test_sad_fits_is_the_wrappers_gate(m):
         sk.fits(m, s, "meta")
 
 
-MC_CASES = [(64, 128, 16, 4), (96, 160, 16, 8), (64, 256, 8, 4)]
+MC_CASES = [(64, 128, 16, 4), (96, 160, 16, 8), (64, 256, 8, 4),
+            (32, 96, 4, 3), (64, 128, 32, 8)]
 
 
 @pytest.mark.parametrize("h,w,m,s", MC_CASES)
@@ -307,6 +308,25 @@ def test_mc_plain_versions_match_pallas(h, w, m, s):
         tm.compensate(torch.from_numpy(ref), torch.from_numpy(mv), m,
                       pad=max(s, 8)).numpy(), want)
     assert mk.mc_apply.launches == 0 and mk.mc_apply_planar.launches == 0
+
+
+# (m, ref address, out address) -> the kernel's mode: the IPP loops' and
+# phase 3c's m = 16 (and m = 4, 8, 32) on aligned frames take the vector
+# mode; m % 4 != 0 or a frame off 16-byte alignment the generic mode
+MODE_CASES = [
+    ((16, 0, 0), "vector"), ((16, 1 << 20, 512), "vector"),
+    ((4, 64, 0), "vector"), ((8, 16, 16), "vector"), ((32, 512, 0), "vector"),
+    ((12, 0, 0), "vector"), ((5, 0, 0), "generic"), ((6, 0, 0), "generic"),
+    ((1, 0, 0), "generic"), ((16, 4, 0), "generic"), ((16, 0, 8), "generic"),
+    ((12, 1028, 0), "generic"),
+]
+
+
+@pytest.mark.parametrize("args,want", MODE_CASES)
+def test_mc_launch_mode_for_main_path_shapes(args, want):
+    """The wrapper's mirror of the C launcher's choice (`vcf_mc_mode`;
+    the card tests hold the two equal)."""
+    assert mk.launch_mode(*args) == want
 
 
 def test_mc_edge_mvs_clamp_as_pallas():

@@ -71,10 +71,42 @@
 //   out[g][c][y][x] = ref[g][c][clampH(y + mv_y)][clampW(x + mv_x)]
 // with (mv_y, mv_x) the vector of the block holding (y, x).  The TPU swept
 // all (2s + 1)^2 displacements with a mask-accumulate because XLA gathers
-// were slow there; on the card it is a gather: one thread per output
-// element, loads and stores coalesced along the row (x, or x * C + c in the
-// channel-last mode).  A copy, so it is bit-exact; memory-bound.
+// were slow there; on the card it is a gather.  A copy, so it is
+// bit-exact.  What bounds it: memory traffic, each reference value read
+// and each output written once (a block's window overlaps its
+// neighbours', which L1 and L2 absorb).
+//
+// Design (mc_vec_kernel, both layouts).  A row is `row` floats: W in the
+// planar layout, W * C in the channel-last one, where block bx's part of a
+// row is the m * C floats from bx * m * C, in source and destination
+// alike, so the channel-last layout is the planar one with C floats a
+// pixel (cl) and one plane a frame.  For m % 4 == 0 a block row is a
+// multiple of 4 floats, so a run of 4 consecutive outputs never crosses a
+// block: a thread takes one run, reads its block's mv once, works out its
+// columns once (the run's pixels, a division by cl each, never one per
+// element, and whether the clamped window leaves the frame) and walks the
+// block's m rows, 4 loads and one 16-byte store a row.  Inside the frame
+// the 4 sources are contiguous from q0 + mv_x * cl: 4 scalar loads off one
+// address, whose neighbours in a warp hit the same lines in L1 (two
+// aligned 16-byte loads and a select by the offset mod 4 were 4-10%
+// slower, and 4 clamped offsets in registers for every run 15%:
+// mc_ab.py's funnel variant, PERF.md); at a frame edge, 4 loads from the
+// clamped columns.  A CTA takes a few warps of runs along the row (spread
+// evenly over the CTAs of a row) times MC_VEC_ROWS rows (whole blocks; m
+// rows for m = 32): 5,712 CTAs of 128 threads at 7 x 3 x 1088 x 1920,
+// 1,632 at the IPP loops' 2 frames, where the first design ran one CTA per
+// 256 elements of a row (183 k CTAs at 7 frames), reloading the mv and
+// dividing by C in every thread, with 4-byte stores.  What is left over
+// the bound is the gather: the kernel as a plain copy (every mv 0) takes
+// 1.22x the bound, and random vertical displacements, which spread a
+// warp's loads over up to 8 rows, most of the rest (mc_ab.py's copy and
+// novy variants).
+// The vector mode needs m % 4 == 0 and 16-byte aligned ref and out
+// (vcf_mc_mode); every other shape (m = 5, 6, a storage offset) takes
+// mc_kernel, the first design, kept as the generic mode: one thread per
+// output element.
 
+#include <algorithm>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -94,7 +126,10 @@ constexpr int SAD_THREAD_LIST = 64;     // a list this long: a thread an item
 constexpr int SAD_MAX_BLOCKS = 32;      // blocks a CTA may take
 constexpr int SAD_SMEM_TARGET = 100 * 1024;   // two CTAs an SM
 constexpr int SAD_OPTIN_SMEM = 227 * 1024;    // one block's CTA at most
-constexpr int MC_THREADS = 256;
+constexpr int MC_THREADS = 256;         // the generic mode's CTA
+constexpr int MC_VEC = 4;               // outputs a run (one float4)
+constexpr int MC_VEC_WARPS = 4;         // most warps of runs a CTA
+constexpr int MC_VEC_ROWS = 16;         // rows a CTA (at least one block)
 
 // The run length for n = 2s + 1 displacements a row: the one whose runs
 // cover n with fewer slots (17 for s = 8, 9 for s = 4).
@@ -573,6 +608,55 @@ mc_kernel(const float* __restrict__ ref, const int* __restrict__ mv,
     out[(plane + y) * row + q] = ref[(plane + sy) * row + sx];
 }
 
+// The vector mode.  ref and out: planes of H rows of cl * W floats (planar:
+// G * C planes, cl = 1, ppg = C planes a frame; channel-last: G planes,
+// cl = C, ppg = 1), 16-byte aligned, m % 4 == 0; mv (G, H / m, W / m, 2).
+// Grid (CTAs along a row, H / rows_cta, planes), rows_cta a multiple of m.
+__global__ void __launch_bounds__(MC_VEC_WARPS * 32)
+mc_vec_kernel(const float* __restrict__ ref, const int* __restrict__ mv,
+              float* __restrict__ out, int cl, int ppg, int H, int W, int m,
+              int rows_cta) {
+  const int row = cl * W;
+  const int q0 = (blockIdx.x * blockDim.x + threadIdx.x) * MC_VEC;
+  if (q0 >= row) return;
+  const int plane = blockIdx.z;
+  const int nby = H / m, nbx = W / m;
+  // the run's first and last pixel; both lie in block bx
+  const int x0 = q0 / cl, x3 = (q0 + MC_VEC - 1) / cl;
+  const int* v_row = mv + 2 * ((size_t)(plane / ppg) * nby * nbx + x0 / m);
+  const float* src = ref + (size_t)plane * H * row;
+  float* dst = out + (size_t)plane * H * row + q0;
+  const int y_end = min((blockIdx.y + 1) * rows_cta, H);
+  for (int y0 = blockIdx.y * rows_cta; y0 < y_end; y0 += m) {
+    const int* v = v_row + 2 * (size_t)(y0 / m) * nbx;
+    const int vy = __ldg(v), vx = __ldg(v + 1);
+    if (x0 + vx >= 0 && x3 + vx < W) {
+      // inside the frame: the 4 sources are contiguous from q0 + vx * cl
+      const int a = q0 + vx * cl;
+#pragma unroll 4
+      for (int y = y0; y < y0 + m; ++y) {
+        const float* s = src + (size_t)min(max(y + vy, 0), H - 1) * row + a;
+        *reinterpret_cast<float4*>(dst + (size_t)y * row) =
+            make_float4(__ldg(s), __ldg(s + 1), __ldg(s + 2), __ldg(s + 3));
+      }
+    } else {
+      // a frame edge: each output's clamped source column
+      int off[MC_VEC];
+#pragma unroll
+      for (int j = 0; j < MC_VEC; ++j) {
+        const int x = (q0 + j) / cl;
+        off[j] = min(max(x + vx, 0), W - 1) * cl + (q0 + j - x * cl);
+      }
+      for (int y = y0; y < y0 + m; ++y) {
+        const float* s = src + (size_t)min(max(y + vy, 0), H - 1) * row;
+        *reinterpret_cast<float4*>(dst + (size_t)y * row) = make_float4(
+            __ldg(s + off[0]), __ldg(s + off[1]), __ldg(s + off[2]),
+            __ldg(s + off[3]));
+      }
+    }
+  }
+}
+
 }  // namespace vcf
 
 namespace {
@@ -703,23 +787,53 @@ int vcf_sad_search(const void* ref, const void* cur, void* mv, void* sad,
   return (int)cudaGetLastError();
 }
 
+// The mode vcf_mc_apply takes, in either layout: 0 the vector mode
+// (m % 4 == 0, so that a row, W or W * C floats with W % m == 0, is a
+// multiple of 4 floats; ref and out 16-byte aligned), 1 the generic mode;
+// -1 for a shape it refuses.
+int vcf_mc_mode(const void* ref, const void* out, int C, int W, int m) {
+  if (C < 1 || m < 1 || W < m || W % m) return -1;
+  return m % vcf::MC_VEC == 0 && (uintptr_t)ref % 16 == 0 &&
+                 (uintptr_t)out % 16 == 0
+             ? 0
+             : 1;
+}
+
 // ref and out (G, C, H, W) f32 (channel_last = 0) or (G, H, W, C)
-// (channel_last = 1); mv (G, H/m, W/m, 2) i32; all on the device.
+// (channel_last = 1); mv (G, H/m, W/m, 2) i32; all on the device.  The
+// mode is vcf_mc_mode's.
 int vcf_mc_apply(const void* ref, const void* mv, void* out, int G, int C,
                  int H, int W, int m, int channel_last, void* stream) {
-  if (G < 1 || C < 1 || m < 1 || H % m || W % m || H < m || W < m ||
-      H > 65535 || (long long)G * C > 65535)
+  const int mode = vcf_mc_mode(ref, out, C, W, m);
+  if (G < 1 || mode < 0 || H % m || H < m || H > 65535 ||
+      (long long)G * C > 65535 || (long long)W * C >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const int row = channel_last ? W * C : W;
-  dim3 grid((row + vcf::MC_THREADS - 1) / vcf::MC_THREADS, H,
-            channel_last ? G : G * C);
+  const int planes = channel_last ? G : G * C;
   cudaStream_t st = (cudaStream_t)stream;
+  const float* r = (const float*)ref;
+  const int* v = (const int*)mv;
+  float* o = (float*)out;
+  if (mode == 0) {
+    // the row's warps of runs spread evenly over the fewest CTAs of at
+    // most MC_VEC_WARPS warps
+    const int warps = (row / vcf::MC_VEC + 31) / 32;
+    const int ctas = (warps + vcf::MC_VEC_WARPS - 1) / vcf::MC_VEC_WARPS;
+    const int threads = 32 * ((warps + ctas - 1) / ctas);
+    const int rows_cta = m * std::max(1, vcf::MC_VEC_ROWS / m);
+    dim3 grid(ctas, (H + rows_cta - 1) / rows_cta, planes);
+    vcf::mc_vec_kernel<<<grid, threads, 0, st>>>(
+        r, v, o, channel_last ? C : 1, channel_last ? 1 : C, H, W, m,
+        rows_cta);
+    return (int)cudaGetLastError();
+  }
+  dim3 grid((row + vcf::MC_THREADS - 1) / vcf::MC_THREADS, H, planes);
   if (channel_last)
-    vcf::mc_kernel<true><<<grid, vcf::MC_THREADS, 0, st>>>(
-        (const float*)ref, (const int*)mv, (float*)out, C, H, W, m);
+    vcf::mc_kernel<true><<<grid, vcf::MC_THREADS, 0, st>>>(r, v, o, C, H, W,
+                                                          m);
   else
-    vcf::mc_kernel<false><<<grid, vcf::MC_THREADS, 0, st>>>(
-        (const float*)ref, (const int*)mv, (float*)out, C, H, W, m);
+    vcf::mc_kernel<false><<<grid, vcf::MC_THREADS, 0, st>>>(r, v, o, C, H,
+                                                           W, m);
   return (int)cudaGetLastError();
 }
 

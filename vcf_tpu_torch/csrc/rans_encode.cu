@@ -80,15 +80,32 @@
 // pallas_encode_grouped_u8 (one output, two TPU input layouts).  Row t
 // of the output holds the words that decode step t reads, in lane order,
 // as a prefix; the rest of the row is left unwritten (the TPU kernels
-// leave it unspecified too), and counts[t] is the prefix length.  The prefix is per
-// row, so one block owns a row and carries its running offset through
-// rounds of blockDim lanes, each ranked by a block scan: no offset
-// crosses blocks, and one launch does it.  The TPU's per-step in-kernel
-// compaction (matmul ranks, carry-hi packing) is not carried over: the
-// per-step prefix across all S lanes is a grid-wide dependency that K1's
-// one-thread-per-lane walk cannot carry, so it stays a second pass.
-// What bounds it: memory traffic, the 4-byte grid read once and the
-// 2-byte words and the counts written once.
+// leave it unspecified too), and counts[t] is the prefix length.  The
+// TPU's per-step in-kernel compaction (matmul ranks, carry-hi packing) is
+// not carried over: the per-step prefix across all S lanes is a grid-wide
+// dependency that K1's one-thread-per-lane walk cannot carry, so it stays
+// a second pass.  What bounds it: memory traffic, the 4-byte grid read
+// once (at S = 65536 about 1% of the entries are words, so the stores are
+// under 1% of the bytes).  The prefix is per row, so one CTA owns a row
+// and carries its running offset through rounds, and one launch does it
+// with no offset crossing CTAs.  The first design ran 1024-thread CTAs, a
+// 4-byte load a thread a round, each round waiting on a block scan (three
+// barriers) before the next load was issued, so no load latency was
+// hidden.  The design (`compact_rows_kernel`): 128-thread CTAs, 8 an SM
+// (765 rows are less than one wave on 132 SMs); a round is 2048 entries
+// of the row, each thread loading ROW_VECS 16-byte vectors (every load of
+// a warp 512 contiguous bytes) and ranking them as K2's one pass does: the
+// per-vector flag counts packed in 16-bit fields of one u64, one warp
+// shuffle scan and a sum over the 4 warps.  The loads of the CTAs an SM
+// holds keep memory busy: loading the next round into registers before
+// ranking this one moved it by 3% or less (rows_ab.py's prefetch variant),
+// and 256-thread CTAs (4 an SM) were 4-8% slower.  The round's words are
+// staged in shared memory in stream order and stored from the running
+// offset as one contiguous run of u16.  Two barriers a round.  S % 4 != 0
+// or a raw grid off 16-byte alignment takes plain 4-byte loads in the same
+// kernel, chosen by shape; a row's ragged last round masks its tail.  A
+// row mode of K2's one pass (a look-back confined to a row) would split a
+// row over CTAs, which 765 rows do not need.
 
 #include <algorithm>
 
@@ -105,7 +122,10 @@ constexpr int CMP_VEC = 4;                           // entries per load
 constexpr int CMP_ROUNDS = 4;                        // loads per thread
 constexpr int CMP_ROUND = CMP_THREADS * CMP_VEC;     // 1024 entries
 constexpr int CMP_TILE = CMP_ROUND * CMP_ROUNDS;     // 4096 entries a tile
-constexpr int ROW_THREADS = 1024;
+constexpr int ROW_THREADS = 128;
+constexpr int ROW_VECS = 4;                          // loads a thread a round
+constexpr int ROW_ROUND = ROW_THREADS * CMP_VEC * ROW_VECS;   // 2048 entries
+constexpr int ROW_MIN_BLOCKS = 8;                    // resident CTAs an SM
 constexpr int STATIC_SMEM_LIMIT = 48 * 1024;
 
 // Stage the symbols of steps [t0 - CTX, t0 + rows) of the block's lanes
@@ -364,21 +384,82 @@ compact_kernel(const int32_t* __restrict__ raw, int n, int S,
     if (s_rows[i]) atomicAdd(&counts[r0 + i], s_rows[i]);
 }
 
-// One block per row t of the (L, S) raw grid.
-__global__ void __launch_bounds__(ROW_THREADS)
+// Round r0 of a row for one thread: entry r0 + k * ROW_THREADS * CMP_VEC +
+// CMP_VEC * threadIdx.x + j is v[CMP_VEC * k + j], 0 past the row's end.
+// vec: 16-byte loads (S % 4 == 0 and an aligned grid).
+__device__ __forceinline__ void rows_load(int32_t (&v)[ROW_VECS * CMP_VEC],
+                                          const int32_t* __restrict__ in,
+                                          int r0, int S, int vec) {
+#pragma unroll
+  for (int k = 0; k < ROW_VECS; ++k) {
+    const int e = r0 + k * ROW_THREADS * CMP_VEC + CMP_VEC * threadIdx.x;
+    if (vec && e + CMP_VEC <= S) {
+      reinterpret_cast<int4*>(v)[k] = __ldcs((const int4*)(in + e));
+    } else {
+#pragma unroll
+      for (int j = 0; j < CMP_VEC; ++j)
+        v[CMP_VEC * k + j] = e + j < S ? in[e + j] : 0;
+    }
+  }
+}
+
+// One CTA per row t of the (L, S) raw grid; rounds of ROW_ROUND entries.
+__global__ void __launch_bounds__(ROW_THREADS, ROW_MIN_BLOCKS)
 compact_rows_kernel(const int32_t* __restrict__ raw, int S,
                     uint16_t* __restrict__ rows,
-                    int32_t* __restrict__ counts) {
-  __shared__ int scratch[33];
-  const size_t base = (size_t)blockIdx.x * S;
+                    int32_t* __restrict__ counts, int vec) {
+  __shared__ uint16_t s_words[ROW_ROUND];
+  __shared__ unsigned long long s_warp[ROW_THREADS / 32];
+  const int32_t* in = raw + (size_t)blockIdx.x * S;
+  uint16_t* out = rows + (size_t)blockIdx.x * S;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   int run = 0;
-  for (int s0 = 0; s0 < S; s0 += blockDim.x) {
-    const int s = s0 + threadIdx.x;
-    const int32_t v = s < S ? raw[base + s] : 0;
-    const int flag = (v >> 16) != 0;
-    int total;
-    const int rank = block_exclusive_scan(flag, &total, scratch);
-    if (flag) rows[base + run + rank] = (uint16_t)(v & 0xFFFF);
+  for (int r0 = 0; r0 < S; r0 += ROW_ROUND) {
+    alignas(16) int32_t cur[ROW_VECS * CMP_VEC];
+    rows_load(cur, in, r0, S, vec);
+    uint32_t flags = 0;
+    unsigned long long packed = 0;  // field k (16 bits): vector k's flags
+#pragma unroll
+    for (int k = 0; k < ROW_VECS; ++k) {
+      uint32_t f = 0;
+#pragma unroll
+      for (int j = 0; j < CMP_VEC; ++j)
+        f |= (((uint32_t)cur[CMP_VEC * k + j] >> 16) != 0u) << j;
+      flags |= f << (CMP_VEC * k);
+      packed |= (unsigned long long)__popc(f) << (16 * k);
+    }
+    // rank: an inclusive warp scan of the packed counts (a field holds at
+    // most ROW_THREADS * CMP_VEC), then the warps before this one
+    unsigned long long incl = packed;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned long long y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    if (lane == 31) s_warp[warp] = incl;
+    __syncthreads();  // the sums visible; the last round's words stored
+    unsigned long long before = incl - packed, sum = 0;
+#pragma unroll
+    for (int w = 0; w < ROW_THREADS / 32; ++w) {
+      const unsigned long long c = s_warp[w];
+      if (w < warp) before += c;
+      sum += c;
+    }
+    int total = 0;
+#pragma unroll
+    for (int k = 0; k < ROW_VECS; ++k) {
+      // vector k's words follow those of the vectors before it
+      int at = total + (int)((before >> (16 * k)) & 0xFFFFu);
+      total += (int)((sum >> (16 * k)) & 0xFFFFu);
+#pragma unroll
+      for (int j = 0; j < CMP_VEC; ++j)
+        if ((flags >> (CMP_VEC * k + j)) & 1u)
+          s_words[at++] = (uint16_t)(cur[CMP_VEC * k + j] & 0xFFFF);
+    }
+    __syncthreads();  // the round's words staged
+    for (int i = threadIdx.x; i < total; i += ROW_THREADS)
+      out[run + i] = s_words[i];
     run += total;
   }
   if (threadIdx.x == 0) counts[blockIdx.x] = run;
@@ -488,8 +569,9 @@ int vcf_rans_compact_tile(void) { return vcf::CMP_TILE; }
 int vcf_rans_compact_rows(const void* raw, int S, int L, void* rows,
                           void* counts, void* stream) {
   if (S < 1 || L < 1) return (int)cudaErrorInvalidValue;
+  const int vec = S % vcf::CMP_VEC == 0 && (uintptr_t)raw % 16 == 0;
   vcf::compact_rows_kernel<<<L, vcf::ROW_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)raw, S, (uint16_t*)rows, (int32_t*)counts);
+      (const int32_t*)raw, S, (uint16_t*)rows, (int32_t*)counts, vec);
   return (int)cudaGetLastError();
 }
 

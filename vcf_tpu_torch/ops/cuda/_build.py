@@ -64,6 +64,7 @@ _SIGNATURES = {
     "vcf_sad_smem": [_I, _I],
     "vcf_sad_mode": [_I, _I],
     "vcf_sad_search": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vcf_mc_mode": [_P, _P, _I, _I, _I],
     "vcf_mc_apply": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
