@@ -94,7 +94,21 @@ kernels from vcf_tpu_torch/csrc on first use.  Phases:
    instance and MC's vector mode launched); rmse, bpp, encode/decode
    times, the GOP-loop encode split by CUDA events into luma, SAD, MC,
    B3/B4 and the rest, and the SAD screen's second sums on the loop's
-   references.
+   references;
+4h. the host entropy codecs and the quantizers on phase 4's frame
+   (test_image(1088, 1920, seed=3)): dct_huffman, ycocg_cbaac,
+   dct_lloydmax_zlib, colorvq_zlib, DCT + cbahc (8 tiles, on the frame's
+   first 272 rows), the entropy-only flow with png and with pnm, DCT +
+   vq, DWT + lloydmax, the quantize-only flow and DCT without a
+   quantizer; each encodes on the card and on the CPU, the two streams
+   are held to their rule (stored indexes: the +-1 rule and equal entropy
+   bytes where they agree; k-means labels: agreement >= 0.999; the
+   entropy-only flow: equal bytes), and both streams decode on both
+   devices (each decode against the CPU's under the pixel rule), with
+   bpp, rmse and warm host-clock ms; then the 11 goldens decode on the
+   card (the count that equals the stored sha256 is printed), and an
+   8-frame Lloyd-Max IIICodec clip (zlib) runs with per-frame and with
+   shared levels, levels and stream equal to the CPU's.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Any failed check raises (non-zero exit, no result).  The last
@@ -135,6 +149,39 @@ DWT_QSS, DWT_GRID = 16, (17, 512, 3060)
 # the IPP closed loop's +-1 rule (ROADMAP C7): a moved index moves the P
 # chain after it, so a larger share than the still codecs'
 MAX_IPP_DIFF_SHARE = 5e-4
+# phase 4h: a codec whose native loop passes 20 s on the full frame is run
+# on the frame's first HOST_ROWS rows (CBAHC rebuilds its Huffman code
+# before every symbol: ~175 s a pass at 1088x1920 on one core)
+HOST_ROWS = 272
+# palette / block VQ labels on the card against the CPU: an argmin over
+# float32 distances whose matmul sums in another order may flip a near-tie
+MIN_LABEL_AGREEMENT = 0.999
+# one stream decoded on the card against the CPU: the inverse transforms'
+# float order may move a pixel across a rounding edge
+MAX_PIXEL_DIFF, MAX_PIXEL_SHARE = 1, 1e-3
+# 4h's configurations: name, CodecConfig fields, the rule of its stored
+# arrays ("index": the +-1 rule, "kmeans": label agreement, "bytes": the
+# whole stream), the rows it runs on (None: all)
+HOST_PHASE = (
+    ("dct_huffman", dict(entropy="huffman"), "index", None),
+    ("ycocg_cbaac", dict(spatial="none", color="ycocg", qss=16,
+                         entropy="cbaac"), "index", None),
+    ("dct_lloydmax_zlib", dict(quantizer="lloydmax", qss=32, entropy="zlib"),
+     "index", None),
+    ("colorvq_zlib", dict(spatial="none", color="none", quantizer="colorvq",
+                          entropy="zlib", seed=1), "kmeans", None),
+    ("dct_cbahc", dict(entropy="cbahc", context_tiles=8), "index", HOST_ROWS),
+    ("entropy_png", dict(spatial="none", color="none", quantizer="none",
+                         entropy="png"), "bytes", None),
+    ("entropy_pnm", dict(spatial="none", color="none", quantizer="none",
+                         entropy="pnm"), "bytes", None),
+    ("dct_vq_zlib", dict(quantizer="vq", entropy="zlib"), "kmeans", None),
+    ("dwt_lloydmax_zlib", dict(spatial="dwt", quantizer="lloydmax",
+                               entropy="zlib"), "index", None),
+    ("quantize_only", dict(spatial="none", color="none", entropy="zlib"),
+     "index", None),
+    ("dct_none", dict(quantizer="none", entropy="zlib"), "index", None),
+)
 # the least time the card could take (H100 SXM at its 700 W limit):
 # bytes over HBM's rate, operations over the float32 peak (the type of
 # every function replaced here).  Integer operations (the rANS kernels)
@@ -305,7 +352,7 @@ def index_planes(codec, frames: np.ndarray) -> torch.Tensor:
     for f in frames:
         x = torch.from_numpy(np.ascontiguousarray(f)).to(codec.device)
         padded = dct_ops.pad_centered(x.to(torch.float32), 8)
-        k = codec._quantize(codec._analyze(padded))
+        k = codec._quantize(codec._analyze(padded))[0]
         out.append(torch.clamp(k + codec.spatial_offset, 0, 255)
                    .to(torch.uint8))
     return torch.stack(out)
@@ -565,7 +612,8 @@ def phase_main_path(dev, frames: np.ndarray, planes: torch.Tensor) -> dict:
     cs = codec.encode(frame)
     blob = cs.to_bytes()
     cs2 = CodeStream.from_bytes(blob)
-    k_dec = codec._load_indexes(cs2, offset=codec.spatial_offset, signed=True)
+    k_dec, _ = codec._load_indexes(cs2, offset=codec.spatial_offset,
+                                   signed=True)
     rec = codec.decode(cs2)
     t_frame = time.perf_counter() - t0
     gcodec = GroupedRANSCodec(device=dev)
@@ -2034,6 +2082,191 @@ def phase_ipp_grid(dev, clip: np.ndarray) -> dict:
     return launches
 
 
+def entropy_arrays(codec, cs) -> list:
+    """The arrays a stream's entropy stage carries (index planes, label
+    maps, pixels): one per DWT subband, else one."""
+    from vcf_tpu_torch.codestream import PAYLOAD
+
+    if codec.config.spatial == "dwt":
+        out = []
+        for name in cs.get_json(PAYLOAD)["subbands"]:
+            side = {n.split(".", 1)[1]: cs[n] for n in cs
+                    if n.startswith(f"{name}.") and ".q_" not in n}
+            out.append(codec.entropy_codec.decode(cs[name], side))
+        return out
+    side = {n: cs[n] for n in cs
+            if n not in (PAYLOAD, "shape", "bopt", "centroids")
+            and not n.startswith("q_")}
+    return [codec.entropy_codec.decode(cs.payload, side)]
+
+
+def hold_streams(name: str, rule: str, codec, cs_g, cs_c) -> dict:
+    """The card's stream against the CPU's under `rule`; raises past it."""
+    same = cs_g.to_bytes() == cs_c.to_bytes()
+    if rule == "bytes":
+        require(same, f"{name}: the card's stream differs from the CPU's")
+        return {"streams_equal": True}
+    a_g, a_c = entropy_arrays(codec, cs_g), entropy_arrays(codec, cs_c)
+    require([a.shape for a in a_g] == [a.shape for a in a_c],
+            f"{name}: stored shapes differ")
+    g = np.concatenate([a.reshape(-1).astype(np.int64) for a in a_g])
+    c = np.concatenate([a.reshape(-1).astype(np.int64) for a in a_c])
+    n_diff = int(np.count_nonzero(g != c))
+    if rule == "kmeans":
+        agree = 1.0 - n_diff / g.size
+        require(agree >= MIN_LABEL_AGREEMENT,
+                f"{name}: labels agree on {agree} of entries")
+        return {"streams_equal": same, "label_agreement": agree}
+    # stored through uint8/uint16 casts that wrap: the distance mod 2^bits
+    mod = 1 << (8 * max(a.dtype.itemsize for a in a_g))
+    d = (g - c) % mod
+    d = np.minimum(d, mod - d)
+    require(int(d.max()) <= MAX_INDEX_DIFF
+            and n_diff <= MAX_DIFF_SHARE * d.size,
+            f"{name}: {n_diff} stored indexes differ, max {int(d.max())}")
+    if n_diff == 0:
+        for seg in cs_g:
+            if ".q_" not in seg and not seg.startswith("q_"):
+                require(cs_g[seg] == cs_c[seg],
+                        f"{name}: equal indexes, but segment {seg} differs")
+    return {"streams_equal": same, "indexes_differ": n_diff,
+            "indexes": int(d.size)}
+
+
+def pixel_rule(a: np.ndarray, b: np.ndarray, what: str) -> int:
+    d = np.abs(a.astype(np.int64) - b.astype(np.int64))
+    n = int(np.count_nonzero(d))
+    require(d.shape == b.shape and int(d.max()) <= MAX_PIXEL_DIFF
+            and n <= MAX_PIXEL_SHARE * d.size,
+            f"{what}: {n} pixels differ, max {int(d.max())}")
+    return n
+
+
+def synced_ms(fn):
+    """(result, host-clock ms) of one synchronized call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_host_codecs(dev, base: np.ndarray) -> None:
+    """4h: the host entropy codecs and the quantizers on phase 4's frame.
+    Each configuration encodes on the card and on the CPU in this process,
+    holds the two streams to its rule, and decodes both streams on both
+    devices (a stream equal to the other decodes once a device); then the
+    11 goldens decode on the card, and an 8-frame Lloyd-Max IIICodec clip
+    runs with per-frame and with shared levels."""
+    from vcf_tpu_torch import Codec, CodecConfig, CodeStream, metrics
+
+    t_phase = time.perf_counter()
+    for name, kw, rule, rows in HOST_PHASE:
+        img = np.ascontiguousarray(base[:rows] if rows else base)
+        cfg = CodecConfig(**kw)
+        gpu, cpu = Codec(cfg, device=dev), Codec(cfg, device="cpu")
+        gpu.decode(gpu.encode(img[:64]))                 # warm-up
+        cs_g, enc_ms = synced_ms(lambda: gpu.encode(img))
+        blob = cs_g.to_bytes()
+        cs_g = CodeStream.from_bytes(blob)
+        t0 = time.perf_counter()
+        cs_c = cpu.encode(img)
+        cpu_enc_ms = (time.perf_counter() - t0) * 1e3
+        held = hold_streams(name, rule, gpu, cs_g, cs_c)
+        rec_g, dec_ms = synced_ms(lambda: gpu.decode(cs_g))
+        t0 = time.perf_counter()
+        rec_c = cpu.decode(cs_g)
+        cpu_dec_ms = (time.perf_counter() - t0) * 1e3
+        n_px = pixel_rule(rec_g, rec_c, f"{name}: the card's stream")
+        if not held["streams_equal"]:
+            n_px = max(n_px, pixel_rule(gpu.decode(cs_c), cpu.decode(cs_c),
+                                        f"{name}: the CPU's stream"))
+        require(rec_g.shape == img.shape and rec_g.dtype == np.uint8,
+                f"{name}: decoded {rec_g.shape} {rec_g.dtype}")
+        report = {"rows": img.shape[0], "bpp": metrics.bpp(cs_g, img.shape),
+                  "rmse": metrics.rmse(img, rec_g), "encode_ms": enc_ms,
+                  "decode_ms": dec_ms, "cpu_encode_ms": cpu_enc_ms,
+                  "cpu_decode_ms": cpu_dec_ms, "pixels_differ": n_px, **held}
+        print(f"host codecs {name}: {json.dumps(report)}")
+    golden_decodes(dev)
+    for shared in (False, True):
+        lloydmax_clip(dev, base, shared)
+    print(f"phase 4h: {time.perf_counter() - t_phase:.1f} s")
+
+
+def golden_decodes(dev) -> None:
+    """The 11 golden streams decoded on the card: how many equal their
+    stored sha256 (the CPU's), and each against the CPU decode."""
+    import hashlib
+    from pathlib import Path
+
+    from vcf_tpu_torch import Codec, CodecConfig, CodeStream
+
+    goldens = {
+        "dct_default_tiff": dict(), "dct_huffman": dict(entropy="huffman"),
+        "dwt_db5_zlib": dict(spatial="dwt", qss=16, dwt_levels=3,
+                             entropy="zlib"),
+        "ycocg_cbaac": dict(spatial="none", color="ycocg", qss=16,
+                            entropy="cbaac"),
+        "colorvq_zlib": dict(spatial="none", color="none",
+                             quantizer="colorvq", entropy="zlib", seed=1),
+        "dwt_sym5_zlib": dict(spatial="dwt", qss=16, dwt_levels=2,
+                              wavelet="sym5", entropy="zlib"),
+        "dwt_bior44_zlib": dict(spatial="dwt", qss=16, dwt_levels=2,
+                                wavelet="bior4.4", entropy="zlib"),
+        "dct_lloydmax_zlib": dict(quantizer="lloydmax", qss=32,
+                                  entropy="zlib"),
+        "dct_grans": dict(entropy="grans"),
+        "dwt_grans": dict(spatial="dwt", qss=16, dwt_levels=3,
+                          entropy="grans"),
+        "dct_cgrans": dict(entropy="cgrans"),
+    }
+    folder = Path(__file__).resolve().parent / "tests" / "golden"
+    equal = []
+    for name, kw in sorted(goldens.items()):
+        cs = CodeStream.from_file(str(folder / f"{name}.vcft"))
+        rec = Codec(CodecConfig(**kw), device=dev).decode(cs)
+        rec_cpu = Codec(CodecConfig(**kw), device="cpu").decode(cs)
+        pixel_rule(rec, rec_cpu, f"golden {name}")
+        want = (folder / f"{name}.sha256").read_text().strip()
+        if hashlib.sha256(rec.tobytes()).hexdigest() == want:
+            equal.append(name)
+    print(f"goldens on the card: {len(equal)} of {len(goldens)} equal their "
+          f"stored sha256; the others: "
+          f"{sorted(set(goldens) - set(equal))}")
+
+
+def lloydmax_clip(dev, base: np.ndarray, shared: bool) -> None:
+    """The 8-frame Lloyd-Max IIICodec clip (zlib, BatchCodec's Lloyd-Max
+    route), per-frame or shared levels, on the card against the CPU."""
+    from vcf_tpu_torch import CodecConfig, CodeStream, metrics, video
+    from vcf_tpu_torch.config import VideoConfig
+
+    frames = np.stack([np.roll(base, (7 * i, 13 * i), (0, 1))
+                       for i in range(FRAMES)])
+    cfg = CodecConfig(quantizer="lloydmax", qss=32, entropy="zlib")
+    vcfg = VideoConfig(n_frames=FRAMES)
+    gpu = video.IIICodec(vcfg, cfg, dev, shared_levels=shared)
+    cpu = video.IIICodec(vcfg, cfg, "cpu", shared_levels=shared)
+    gpu.decode(gpu.encode(frames[:1, :64]))              # warm-up
+    cs_g, enc_ms = synced_ms(lambda: gpu.encode(frames))
+    cs_g = CodeStream.from_bytes(cs_g.to_bytes())
+    cs_c = cpu.encode(frames)
+    levels = gpu._batch.last_qside["levels"]
+    require(levels.shape == ((3, 128) if shared else (FRAMES, 3, 128)),
+            f"lloydmax clip: levels {levels.shape}")
+    require(np.array_equal(levels, cpu._batch.last_qside["levels"]),
+            "lloydmax clip: the card's levels differ from the CPU's")
+    require(cs_g.to_bytes() == cs_c.to_bytes(),
+            "lloydmax clip: the card's stream differs from the CPU's")
+    rec, dec_ms = synced_ms(lambda: gpu.decode(cs_g))
+    n_px = pixel_rule(rec, cpu.decode(cs_g), "lloydmax clip")
+    report = {"shared_levels": shared, "bpp": metrics.bpp(cs_g, frames.shape),
+              "rmse": metrics.rmse(frames, rec), "encode_ms": enc_ms,
+              "decode_ms": dec_ms, "pixels_differ": n_px}
+    print(f"lloydmax clip {FRAMES}x{H}x{W}: {json.dumps(report)}")
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
@@ -2066,6 +2299,7 @@ def main() -> None:
     launches.update(phase_cgrans_clip(dev, frames, planes, ctx_words,
                                       grans_clip))
     ctx_grid_launches, dwt_grid = phase_dwt(dev, base)
+    phase_host_codecs(dev, base)
     grid_launches["rans_decode_ctx_grid"] = \
         ctx_grid_launches["rans_decode_ctx_grid"]
     for row in results:

@@ -276,7 +276,7 @@ def test_codec_on_cuda_matches_cpu(dev):
 
     def indexes(codec):
         x = torch.from_numpy(img).to(codec.device).to(torch.float32)
-        k = codec._quantize(codec._analyze(dct_ops.pad_centered(x, 8)))
+        k = codec._quantize(codec._analyze(dct_ops.pad_centered(x, 8)))[0]
         return k.cpu().numpy().astype(np.int64)
 
     d = np.abs(indexes(gpu) - indexes(cpu))
@@ -1078,3 +1078,48 @@ def test_ctx_grid_decode_rejects_a_bad_grid(dev):
     st_bad = st ^ 1      # every lane's state off by one bit
     with pytest.raises(ValueError, match="emit flags"):
         rc.rans_decode_ctx_grid(raw, st_bad, ft, ct, 8)
+
+
+# ---------------------------------------------------------------------------
+# Quantizers on the card (no kernels: torch ops that must give the CPU's
+# bits, or, for k-means, its labels save near-ties)
+# ---------------------------------------------------------------------------
+
+def test_lloydmax_past_float32_sums_equals_cpu(dev):
+    """Moments far past 2^24 (a 1088x1920x8 frame's counts): the float64
+    sums give the same levels on the card as on the CPU."""
+    from vcf_tpu_torch.ops import quantize as q_ops
+
+    rng = np.random.default_rng(2)
+    hist = torch.from_numpy(rng.integers(0, 2_000_000, (3, 4096)))
+    cpu = q_ops.lloydmax_train_from_hist(hist, 32, -2048, 2047)
+    card = q_ops.lloydmax_train_from_hist(hist.to(dev), 32, -2048, 2047)
+    assert torch.equal(card.cpu(), cpu)
+
+
+@pytest.mark.parametrize("kw", [dict(quantizer="lloydmax", entropy="zlib"),
+                                dict(quantizer="none", entropy="zlib")])
+def test_xla_order_flows_on_cuda_equal_cpu(dev, kw):
+    """The Lloyd-Max and no-quantizer DCT flows run vcf_tpu's CPU float
+    order in float64 ops: the card's stream and frame are the CPU's."""
+    img = make_test_image(1088, 1920, seed=3)
+    x = torch.from_numpy(img).to(torch.float32)
+    np.testing.assert_array_equal(
+        dct_ops.analyze_xla(x.to(dev), 8).cpu().numpy(),
+        dct_ops.analyze_xla(x, 8).numpy())
+    gpu, cpu = Codec(CodecConfig(**kw), dev), Codec(CodecConfig(**kw), "cpu")
+    cs = gpu.encode(img)
+    assert cs.to_bytes() == cpu.encode(img).to_bytes()
+    np.testing.assert_array_equal(gpu.decode(cs), cpu.decode(cs))
+
+
+def test_palette_kmeans_on_cuda_matches_cpu(dev):
+    from vcf_tpu_torch.ops import prng, vq
+
+    px = torch.from_numpy(make_test_image(544, 960, seed=3).reshape(-1, 3)
+                          .astype(np.float32))
+    c_cpu, l_cpu = vq.kmeans(prng.PRNGKey(1), px, 32)
+    c_gpu, l_gpu = vq.kmeans(prng.PRNGKey(1), px.to(dev), 32)
+    agree = (l_gpu.cpu() == l_cpu).double().mean().item()
+    assert agree >= 0.999
+    assert (c_gpu.cpu() - c_cpu).abs().max().item() < 1.0

@@ -302,9 +302,25 @@ def test_golden_decode_and_reencode(name):
     assert codec.encode(make_test_image(96, 112, seed=5)).to_bytes() == blob
 
 
-@pytest.mark.parametrize("kw,item", [(dict(quantizer="lloydmax"), "A11"),
-                                     (dict(quantizer="vq"), "A11"),
-                                     (dict(quantizer="none"), "A17")])
-def test_dwt_unported_quantizers_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        Codec(CodecConfig(spatial="dwt", **kw), device="cpu")
+@pytest.mark.parametrize("quantizer", ["lloydmax", "none", "vq"])
+def test_dwt_quantizers_match_vcf_tpu(quantizer):
+    """The host path with the other quantizers: per-band `q_*` side info,
+    identical streams (VQ: identical label maps; its codebooks' sums are
+    float32 in vcf_tpu, float64 here), and the decoders agree.  vcf_tpu
+    cannot decode DWT + VQ (its 2-D label shape, ROADMAP C11)."""
+    kw = dict(spatial="dwt", quantizer=quantizer, dwt_levels=3,
+              wavelet="sym5", vq_clusters=16, entropy="zlib")
+    img = make_test_image(64, 96, seed=8)
+    jc = vcf_tpu.Codec(vcf_tpu.CodecConfig(**kw))
+    tc = Codec(CodecConfig(**kw), device="cpu")
+    cs_j, cs_t = jc.encode(img), tc.encode(img)
+    if quantizer != "vq":
+        assert cs_t.to_bytes() == cs_j.to_bytes()
+        _cross_decode(jc, tc, cs_j, cs_t)
+        return
+    assert list(cs_t) == list(cs_j)
+    for name in cs_t:
+        if ".q_" not in name:
+            assert cs_t[name] == cs_j[name], name
+    rec = tc.decode(cs_j)
+    assert np.abs(rec.astype(np.int64) - img).mean() < 16

@@ -212,7 +212,7 @@ def test_video_get_returns_ipp_and_unported_loops_raise():
                       IPPCodec)
     with pytest.raises(NotImplementedError, match="A10"):
         video.get(VideoConfig(mode="ipp"), CodecConfig(spatial="dwt"), "cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A10"):
         IPPCodec(VideoConfig(mode="ipp"), CodecConfig(quantizer="lloydmax"),
                  "cpu")
     cs = CodeStream()

@@ -2,8 +2,12 @@
 
 Tolerances, each with its reason:
 * golden fixtures: decoded pixels by sha256 and re-encoded bytes exact —
-  at 96x112 the port's float32 transform gives the same indexes as
-  vcf_tpu's on the CPU (0 of 32,256 differ);
+  at 96x112 the port's float32 transform gives the same deadzone indexes
+  as vcf_tpu's on the CPU (0 of 32,256 differ); the Lloyd-Max flow's DCT
+  takes vcf_tpu's CPU float order (`analyze_xla`, bit-identical: its
+  levels are trained on round(coefficient), where 45 of 32,256
+  coefficients sit on a .5 tie that another order tips), and the palette
+  VQ draws vcf_tpu's k-means++ numbers (ROADMAP C2);
 * transforms: coefficients within 1e-3 absolute (float32 sums of up to
   64 products of magnitude <= 2^11 taken in another order, ~2^11 * 2^-24
   per rounding);
@@ -19,6 +23,7 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -36,8 +41,18 @@ from vcf_tpu_torch.pipeline import check_full_fp32
 
 REPO = Path(__file__).resolve().parents[1]
 GOLDEN = REPO / "tests" / "golden"
-GOLDEN_CONFIGS = {"dct_grans": CodecConfig(entropy="grans"),
-                  "dct_default_tiff": CodecConfig()}
+GOLDEN_CONFIGS = {
+    "dct_grans": CodecConfig(entropy="grans"),
+    "dct_default_tiff": CodecConfig(),
+    "dct_huffman": CodecConfig(entropy="huffman"),
+    "ycocg_cbaac": CodecConfig(spatial="none", color="ycocg", qss=16,
+                               entropy="cbaac"),
+    "colorvq_zlib": CodecConfig(spatial="none", color="none",
+                                quantizer="colorvq", entropy="zlib", seed=1),
+    "dct_lloydmax_zlib": CodecConfig(quantizer="lloydmax", qss=32,
+                                     entropy="zlib"),
+}
+
 MAX_DIFF_SHARE = 1e-4
 
 
@@ -47,7 +62,7 @@ def _indexes(codec, img):
         x = jdct.pad_centered(jnp.asarray(img, jnp.float32), 8)
         return np.asarray(codec._q(codec._analyze(x)))
     x = tdct.pad_centered(torch.from_numpy(img).to(torch.float32), 8)
-    return codec._quantize(codec._analyze(x)).numpy()
+    return codec._quantize(codec._analyze(x))[0].numpy()
 
 
 @pytest.mark.parametrize("name", sorted(GOLDEN_CONFIGS))
@@ -63,6 +78,22 @@ def test_golden_reencodes_to_stored_bytes(name):
     img = make_test_image(96, 112, seed=5)
     cs = Codec(GOLDEN_CONFIGS[name], device="cpu").encode(img)
     assert cs.to_bytes() == (GOLDEN / f"{name}.vcft").read_bytes()
+
+
+@pytest.mark.parametrize("b", [4, 8, 16])
+def test_xla_order_dct_bit_identical(b):
+    """The DCT of the Lloyd-Max, VQ and no-quantizer flows equals
+    vcf_tpu's jitted DCT on the CPU bit for bit, both directions, also
+    with leading frame axes; the einsum of the deadzone flow does not."""
+    x = np.random.default_rng(b).normal(0, 80, (2, 48, 64, 3)).astype(
+        np.float32)
+    fwd = np.asarray(jax.jit(lambda a: jdct.analyze(a, b))(jnp.asarray(x[1])))
+    inv = np.asarray(jax.jit(lambda a: jdct.synthesize(a, b))(
+        jnp.asarray(x[1])))
+    xt = torch.from_numpy(x)
+    np.testing.assert_array_equal(tdct.analyze_xla(xt, b)[1].numpy(), fwd)
+    np.testing.assert_array_equal(tdct.synthesize_xla(xt, b)[1].numpy(), inv)
+    assert not np.array_equal(tdct.analyze(xt[1], b).numpy(), fwd)
 
 
 @pytest.mark.parametrize("h,w,seed", [(256, 256, 1), (200, 170, 6)])
@@ -156,14 +187,14 @@ def test_stage_timings_recorded():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(spatial="dwt", quantizer="lloydmax"), "A11"),
+    (dict(spatial="klt"), "A12"),
     (dict(spatial="mdct"), "A12"),
-    (dict(quantizer="lloydmax"), "A11"),
-    (dict(quantizer="colorvq"), "A11"),
+    (dict(spatial="lbt", quantizer="lloydmax"), "A12"),
+    (dict(quantizer="colorvq", filter="nlm"), "A13"),
     (dict(filter="gaussian"), "A13"),
-    (dict(quantizer="none"), "A17"),
-    (dict(spatial="none"), "A17"),
-    (dict(entropy="huffman"), "A7"),
+    (dict(spatial="dwt", filter="bm3d"), "A13"),
+    (dict(spatial="none", entropy="srans"), "A6"),
+    (dict(entropy="ihuff"), "A8"),
 ])
 def test_unported_flows_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -187,12 +218,26 @@ def test_full_fp32_is_enforced():
 
 
 def test_import_does_not_load_jax():
+    """Importing every module, and running the native coder, Lloyd-Max
+    and the palette VQ, loads neither jax nor vcf_tpu."""
     code = ("import sys, vcf_tpu_torch, vcf_tpu_torch.io, "
             "vcf_tpu_torch.video.ipp, vcf_tpu_torch.ops.motion, "
             "vcf_tpu_torch.ops.cuda.sad_kernel, "
             "vcf_tpu_torch.ops.cuda.mc_kernel, vcf_tpu_torch.ops.dwt, "
             "vcf_tpu_torch.entropy.dwt_device, "
-            "vcf_tpu_torch.ops.cuda.rans_ctx; "
+            "vcf_tpu_torch.ops.cuda.rans_ctx, vcf_tpu_torch.native, "
+            "vcf_tpu_torch.entropy.huffman, vcf_tpu_torch.entropy.cbahc, "
+            "vcf_tpu_torch.entropy.cbaac, vcf_tpu_torch.entropy.png, "
+            "vcf_tpu_torch.entropy.pnm, vcf_tpu_torch.ops.prng, "
+            "vcf_tpu_torch.ops.vq, vcf_tpu_torch.ops.quantize, "
+            "vcf_tpu_torch.parallel.mesh; "
+            "from vcf_tpu_torch import Codec, CodecConfig; "
+            "from vcf_tpu_torch.io import test_image; "
+            "img = test_image(24, 32, seed=1); "
+            "[Codec(CodecConfig(**kw), 'cpu').encode(img) for kw in ("
+            "dict(entropy='cbahc', quantizer='lloydmax'), "
+            "dict(spatial='none', color='none', quantizer='colorvq', "
+            "entropy='huffman'))]; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'vcf_tpu' not in sys.modules, 'vcf_tpu imported'")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -214,6 +259,46 @@ def test_no_module_names_jax_or_vcf_tpu():
                 root = name.split(".")[0]
                 assert root not in ("jax", "jaxlib", "vcf_tpu"), \
                     f"{path.relative_to(pkg)} imports {name}"
+
+
+def _code_strings(tree):
+    """String constants of a module that are not docstrings."""
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(
+                    first.value, ast.Constant):
+                docs.add(id(first.value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+def test_no_file_reads_the_jax_package():
+    """The port reads no file under vcf_tpu/: no string in its code names
+    a path in that package or the package directory itself (docstrings may
+    cite the original's lines), no C/C++/CUDA source includes from it, and
+    the native coder is built from the port's own copy of entropy.cpp."""
+    import re
+    from vcf_tpu_torch import native
+
+    pkg = Path(vcf_tpu_torch.__file__).parent
+    word = re.compile(r"\bvcf_tpu[/\\]")
+    for path in pkg.rglob("*.py"):
+        for text in _code_strings(ast.parse(path.read_text())):
+            assert not word.search(text) and text.strip("/") != "vcf_tpu", \
+                f"{path.relative_to(pkg)} names a vcf_tpu path: {text!r}"
+    sources = [p for ext in ("*.cpp", "*.cu", "*.cuh", "*.h")
+               for p in pkg.rglob(ext)]
+    assert pkg / "native" / "entropy.cpp" in sources
+    for path in sources:
+        for line in path.read_text().splitlines():
+            if line.lstrip().startswith("#include"):
+                assert not word.search(line), f"{path.name}: {line}"
+    assert native.SRC.resolve().parent == (pkg / "native").resolve()
+    assert native.BUILD_DIR.resolve() == (pkg / "_build").resolve()
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -6,11 +6,12 @@ the same bytes as vcf_tpu's codec of the same name:
     payload, side = codec.encode(arr)      # arr: np.uint8 | np.uint16
     arr = codec.decode(payload, side)
 
-`tiff` and `zlib` are host numpy.  `rans`, `grans` and `cgrans` run on
-a torch device that the caller names; on CUDA they launch the rANS
-kernels.
-Every other vcf_tpu codec name raises NotImplementedError naming its
-ROADMAP queue-A item.
+`tiff`, `zlib`, `pnm` and `png` are host numpy; `huffman`, `cbahc` and
+`cbaac` run their loops in the port's native host coder
+(`vcf_tpu_torch.native`, built with g++ on first use; a failed build
+raises).  `rans`, `grans` and `cgrans` run on a torch device that the
+caller names; on CUDA they launch the rANS kernels.  `ihuff` and
+`srans` raise NotImplementedError naming their ROADMAP queue-A item.
 """
 
 from __future__ import annotations
@@ -18,18 +19,22 @@ from __future__ import annotations
 import torch
 
 from vcf_tpu_torch.entropy.base import EntropyCodec
+from vcf_tpu_torch.entropy.cbaac import CBAACCodec
+from vcf_tpu_torch.entropy.cbahc import CBAHCCodec
+from vcf_tpu_torch.entropy.huffman import HuffmanCodec
+from vcf_tpu_torch.entropy.png import PNGCodec
+from vcf_tpu_torch.entropy.pnm import PNMCodec
 from vcf_tpu_torch.entropy.rans import (CtxRANSCodec, GroupedRANSCodec,
                                         RANSCodec)
 from vcf_tpu_torch.entropy.tiff import TIFFCodec
 from vcf_tpu_torch.entropy.zlib_codec import ZlibCodec
 
-_HOST = {"zlib": ZlibCodec, "tiff": TIFFCodec}
+_HOST = {"zlib": ZlibCodec, "tiff": TIFFCodec, "pnm": PNMCodec,
+         "png": PNGCodec, "huffman": HuffmanCodec, "cbahc": CBAHCCodec,
+         "cbaac": CBAACCodec}
 _ON_DEVICE = {"rans": RANSCodec, "grans": GroupedRANSCodec,
               "cgrans": CtxRANSCodec}
-_NOT_PORTED = {
-    "pnm": "A7", "png": "A7", "huffman": "A7", "cbahc": "A7", "cbaac": "A7",
-    "ihuff": "A8", "srans": "A6",
-}
+_NOT_PORTED = {"ihuff": "A8", "srans": "A6"}
 
 
 def get(name: str, config=None, device=None) -> EntropyCodec:
@@ -48,5 +53,6 @@ def get(name: str, config=None, device=None) -> EntropyCodec:
     raise KeyError(f"unknown entropy codec {name!r}")
 
 
-__all__ = ["EntropyCodec", "get", "CtxRANSCodec", "GroupedRANSCodec",
-           "RANSCodec", "TIFFCodec", "ZlibCodec"]
+__all__ = ["EntropyCodec", "get", "CBAACCodec", "CBAHCCodec",
+           "CtxRANSCodec", "GroupedRANSCodec", "HuffmanCodec", "PNGCodec",
+           "PNMCodec", "RANSCodec", "TIFFCodec", "ZlibCodec"]

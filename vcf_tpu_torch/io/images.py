@@ -2,11 +2,11 @@
 
 Capability parity with the reference's read/write layer
 (src/entropy_image_coding.py:51-79: cv2.imread file-or-URL + RGB
-conversion, imageio write).  Here: PIL/imageio-backed read, RGB
-channel-last uint8 output; the self-contained PNG fallback and the
-PNG writer raise NotImplementedError until `entropy/png.py` is ported
-(ROADMAP A7).  Plus a deterministic synthetic test image so no network
-is needed (the reference downloads pajarillo_512x512.png; this
+conversion, imageio write).  Here: imageio-backed read with the
+self-contained PNG reader (`vcf_tpu_torch.entropy.png`) where imageio
+is missing or refuses the file, RGB channel-last uint8 output; PNGs are
+written by that container.  Plus a deterministic synthetic test image
+so no network is needed (the reference downloads pajarillo_512x512.png; this
 environment has no egress).
 """
 
@@ -32,17 +32,20 @@ def read_image(path: str) -> np.ndarray:
             import imageio.v2 as iio
 
             img = np.asarray(iio.imread(_io.BytesIO(blob)))
-        except Exception as e:
-            raise NotImplementedError(
-                "PNG fallback reader not ported yet (ROADMAP A7)") from e
+        except Exception:
+            from vcf_tpu_torch.entropy.png import read_png
+
+            img = read_png(blob)
         return _normalize(img)
     try:
         import imageio.v2 as iio
 
         img = np.asarray(iio.imread(path))
-    except Exception as e:
-        raise NotImplementedError(
-            "PNG fallback reader not ported yet (ROADMAP A7)") from e
+    except Exception:
+        from vcf_tpu_torch.entropy.png import read_png
+
+        with open(path, "rb") as f:
+            img = read_png(f.read())
     return _normalize(img)
 
 
@@ -60,7 +63,12 @@ def write_image(path: str, img: np.ndarray) -> int:
     """Write (H, W[, C]) uint8 to an image file; returns bytes written."""
     ext = os.path.splitext(path)[1].lower()
     if ext == ".png":
-        raise NotImplementedError("PNG writer not ported yet (ROADMAP A7)")
+        from vcf_tpu_torch.entropy.png import write_png
+
+        blob = write_png(np.asarray(img, dtype=np.uint8))
+        with open(path, "wb") as f:
+            f.write(blob)
+        return len(blob)
     import imageio.v2 as iio
 
     iio.imwrite(path, np.asarray(img, dtype=np.uint8))

@@ -8,6 +8,10 @@ permutation that gathers coefficient (u, v) of every block into subband
 XLA outside any kernel; here it is torch's matmul, in full float32 on
 CUDA (the `Codec` refuses TF32).
 
+`analyze_xla` / `synthesize_xla` compute the same transform in the
+float order of vcf_tpu's jitted DCT on the CPU, for the flows whose
+result rides on a rounding tie (Lloyd-Max, VQ and no quantizer).
+
 Layout conventions (channel-last images `(..., H, W, C)` with any
 leading frame axes, H and W already multiples of the block size B):
 
@@ -61,6 +65,62 @@ def synthesize(coeff: torch.Tensor, b: int) -> torch.Tensor:
     x = torch.einsum("ur,...yuxvc->...yrxvc", d, y)
     x = torch.einsum("vs,...yrxvc->...yrxsc", d, x)
     return _from_blocks(x)
+
+
+def dot_rows(x: torch.Tensor, m: np.ndarray) -> torch.Tensor:
+    """x (..., K) contracted with the rows of the float32 matrix m (J, K)
+    -> (..., J), in the order of XLA's CPU dot when the contraction is the
+    minor dimension of both operands (each pass of vcf_tpu's jitted block
+    DCT): 4 lanes, lane i the fused multiply-add chain over the terms
+    i, i + 4, ..., then (lane0 + lane1) + (lane2 + lane3) in float32.
+    Each FMA runs in float64 (the product is exact there) and rounds once
+    to float32, which is the true FMA but on a float64 sum that rounds
+    onto a float32 midpoint (a chance of about 2^-29 a term, as
+    `ops.color.fma_rows`); on every device the same bits."""
+    m64 = torch.from_numpy(np.asarray(m, np.float32).astype(np.float64)).to(
+        x.device)
+    x64 = x.to(torch.float64)
+    k = x.shape[-1]
+    lanes = []
+    for i in range(min(4, k)):
+        acc = (x64[..., i, None] * m64[:, i]).to(torch.float32)
+        for j in range(i + 4, k, 4):
+            acc = (x64[..., j, None] * m64[:, j]
+                   + acc.to(torch.float64)).to(torch.float32)
+        lanes.append(acc)
+    out = lanes[0] + lanes[1] if len(lanes) > 1 else lanes[0]
+    if len(lanes) > 2:
+        out = out + (lanes[2] + lanes[3] if len(lanes) > 3 else lanes[2])
+    return out
+
+
+def _xla_pass(blocks: torch.Tensor, m: np.ndarray, axis: int) -> torch.Tensor:
+    """Contract the block axis `axis` (-4: rows, -2: columns) of a
+    (..., y, B, x, B, c) blocks view with the rows of m, in place."""
+    n = blocks.dim()
+    lead = tuple(range(n - 5))
+    a = n + axis
+    rest = [i for i in range(n - 5, n) if i != a]
+    t = dot_rows(blocks.permute(*lead, *rest, a), m)   # the axis minor
+    # put the new axis back where the contracted one was
+    order = list(range(n - 5, n - 1))
+    order.insert(a - (n - 5), n - 1)
+    return t.permute(*lead, *order)
+
+
+def analyze_xla(img: torch.Tensor, b: int) -> torch.Tensor:
+    """`analyze` in vcf_tpu's CPU float order: each pass a `dot_rows`."""
+    d = dct_matrix(b)
+    x = _to_blocks(img.to(torch.float32), b)
+    return _from_blocks(_xla_pass(_xla_pass(x, d, -4), d, -2))
+
+
+def synthesize_xla(coeff: torch.Tensor, b: int) -> torch.Tensor:
+    """`synthesize` in vcf_tpu's CPU float order: each pass a `dot_rows`
+    with the transposed DCT matrix."""
+    dt = dct_matrix(b).T
+    y = _to_blocks(coeff.to(torch.float32), b)
+    return _from_blocks(_xla_pass(_xla_pass(y, dt, -4), dt, -2))
 
 
 def to_subbands(coeff: torch.Tensor, b: int) -> torch.Tensor:

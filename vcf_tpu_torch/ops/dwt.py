@@ -4,7 +4,8 @@ Multilevel per-channel dyadic decomposition with `levels` levels and a
 named wavelet (default db5), per-subband quantization, and the DWT flow
 of `pipeline.Codec` (src/2D-DWT.py): on the host path each subband is
 its own entropy stream, LL stored as uint16 and the detail subbands as
-uint8, both +128 (src/2D-DWT.py:162-200); with the deadzone quantizer
+uint8, both +128 (src/2D-DWT.py:162-200), with its trained quantizer
+side info as `<band>.q_<name>` arrays; with the deadzone quantizer
 and a device entropy codec (`rans`, `grans`, `cgrans`) every subband is
 one group of one grouped-rANS grid (`entropy.dwt_device`).
 
@@ -526,7 +527,8 @@ def synthesize(decomp: list, wavelet: str) -> torch.Tensor:
 #: outweighs the order-1 stream saving; cgrans stays order-0
 CTX_MIN_SYMBOLS = 2_000_000
 
-#: entropy codecs whose DWT flow is the one-grid device path
+#: entropy codecs whose DWT flow with the deadzone quantizer is the
+#: one-grid device path (every other quantizer takes the host path)
 DEVICE_ENTROPY = ("grans", "rans", "cgrans")
 
 
@@ -604,26 +606,29 @@ class DWT:
     # ------------------------------------------------------------------
     def encode(self, codec, img: np.ndarray) -> CodeStream:
         cfg = codec.config
-        if cfg.entropy in DEVICE_ENTROPY:
+        if cfg.entropy in DEVICE_ENTROPY and cfg.quantizer == "deadzone":
             return self.encode_device(codec, img)
         t = codec.last_timings
         with timed_stage(t, "device:analyze+quantize"):
-            stored = []
+            stored, qsides = [], []
             for i, band in enumerate(self._analysis(codec, img)):
-                k = codec._quantize(band).cpu().numpy()
+                k, qside = codec._quantize(band)
                 # LL as uint16, details as uint8, both +128, wrapping as
                 # the reference's casts (src/2D-DWT.py:162-200)
-                stored.append((k + 128).astype(np.uint16 if i == 0
-                                               else np.uint8))
+                stored.append((k.cpu().numpy() + 128).astype(
+                    np.uint16 if i == 0 else np.uint8))
+                qsides.append(qside)
         names = self.subband_names()
         cs = CodeStream()
         cs.put_shape(img.shape)
         with timed_stage(t, "entropy"):
-            for name, arr in zip(names, stored):
+            for name, arr, qside in zip(names, stored, qsides):
                 payload, side = codec.entropy_codec.encode(arr)
                 cs[name] = payload
                 for sname, blob in side.items():
                     cs[f"{name}.{sname}"] = blob
+                for sname, arr_q in qside.items():
+                    cs.put_array(f"{name}.q_{sname}", arr_q)
         cs.put_json(PAYLOAD, {
             "subbands": names, "levels": self.levels, "wavelet": self.wavelet,
         })
@@ -635,7 +640,7 @@ class DWT:
             return self.decode_device(codec, cs)
         shape = cs.get_shape()
         t = codec.last_timings
-        ks = []
+        ks, qsides = [], []
         with timed_stage(t, "entropy"):
             for name in meta["subbands"]:
                 side = {
@@ -645,14 +650,25 @@ class DWT:
                     and not sname.split(".", 1)[1].startswith("q_")
                 }
                 stored = codec.entropy_codec.decode(cs[name], side)
+                qsides.append({
+                    sname.split(".q_", 1)[1]: cs.get_array(sname)
+                    for sname in cs if sname.startswith(f"{name}.q_")})
                 k = stored.astype(np.int32)
                 if stored.dtype == np.uint16:
                     # undo the uint16 wrap of negative LL indexes
                     k = np.where(k >= 32768, k - 65536, k)
-                ks.append(k - 128)
+                k = k - 128
+                if codec.config.quantizer == "vq" and stored.dtype == np.uint8:
+                    # a detail band's labels wrapped through uint8 (+128):
+                    # recover them, where vcf_tpu's decode raises on the
+                    # label map's 2-D shape (ROADMAP C11)
+                    k = k % 256
+                ks.append(k)
         with timed_stage(t, "device:dequantize+synthesize"):
-            flat = [codec._dequantize(torch.from_numpy(k).to(codec.device))
-                    for k in ks]
+            flat = [codec._dequantize(torch.from_numpy(k).to(codec.device),
+                                      qside, band_shape)
+                    for k, qside, band_shape in zip(
+                        ks, qsides, self._band_shapes(shape))]
             return self._synthesis(codec, flat, shape)
 
     # ------------------------------------------------------------------
@@ -665,7 +681,7 @@ class DWT:
         low), each detail band's index + 128 wrapped to a byte."""
         bands = []
         for i, band in enumerate(self._analysis(codec, img)):
-            k = codec._quantize(band) + 128
+            k = codec._quantize(band)[0] + 128
             if i == 0:
                 v = k & 0xFFFF
                 bands.append(((v >> 8) & 0xFF).to(torch.uint8))

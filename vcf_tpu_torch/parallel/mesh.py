@@ -1,11 +1,11 @@
 """Batch codec on one torch device (port of vcf_tpu/parallel/mesh.py,
-`BatchCodec`, deadzone flow).
+`BatchCodec`).
 
 vcf_tpu vmaps the per-frame device work over the frame axis and shards
 the frames over a mesh with shard_map.  Here the frame axis is a tensor
 batch dimension on one device, and one kernel launch covers the clip.
 The mesh, `make_mesh`/`shard_batch` and the multi-device split wait for
-ROADMAP A15; the Lloyd-Max flow and `shared_levels` for A11.
+ROADMAP A15.
 
 Routes, chosen once from the config as vcf_tpu's `_build` chooses them:
 
@@ -16,7 +16,13 @@ Routes, chosen once from the config as vcf_tpu's `_build` chooses them:
   transform in torch around `fused_dct_quantize` /
   `fused_dequantize_idct` (B1/B2);
 * ``use_pallas=False``: the unfused torch route, the counterpart of
-  vcf_tpu's XLA branch.
+  vcf_tpu's XLA branch;
+* the Lloyd-Max quantizer: the per-frame `Codec`'s own torch transform
+  and quantizer, frame by frame (vcf_tpu vmaps the same plain XLA
+  functions, mesh.py:237-249; no fused kernel quantizes to trained
+  levels), so per-frame levels and indexes equal the per-frame `Codec`'s
+  bit for bit.  ``shared_levels=True`` trains one level set from the
+  batch's summed raw histogram instead (vcf_tpu psums it over the mesh).
 
 On a CPU device the kernel routes run the kernels' plain torch versions;
 on CUDA they launch the kernels.  The TPU's shape gates (`supports`,
@@ -40,7 +46,8 @@ from vcf_tpu_torch.ops import color as color_ops
 from vcf_tpu_torch.ops import dct as dct_ops
 from vcf_tpu_torch.ops import quantize as q_ops
 from vcf_tpu_torch.ops.cuda import dct_kernel as dk
-from vcf_tpu_torch.pipeline import check_full_fp32
+from vcf_tpu_torch.pipeline import Codec, check_full_fp32
+
 
 def _on_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """uint8 array -> tensor on `device`, keeping numpy's strides: a
@@ -65,26 +72,31 @@ class BatchCodec:
     whole batch at once; entropy coding of the index planes is the
     caller's (see `vcf_tpu_torch.video.IIICodec`)."""
 
-    def __init__(self, config: CodecConfig, device):
+    def __init__(self, config: CodecConfig, device,
+                 shared_levels: bool = False):
         if (config.spatial != "dct"
                 or config.quantizer not in ("deadzone", "lloydmax")):
             raise NotImplementedError(
                 "BatchCodec supports the dct+deadzone/lloydmax flows; "
                 "use vcf_tpu_torch.Codec per frame for other compositions")
-        if config.quantizer == "lloydmax":
-            raise NotImplementedError(
-                "the Lloyd-Max BatchCodec is not ported yet (ROADMAP "
-                "queue A, item A11)")
         self.config = config
         self.device = torch.device(device)
         if self.device.type == "cuda":
             check_full_fp32()
-        #: side info of the last encode (Lloyd-Max levels; empty here)
+        #: lloydmax only: train ONE level set from the batch's summed raw
+        #: histogram (the reference's one-table-per-source semantics,
+        #: src/LloydMax.py:107-112); False trains per-frame levels, equal
+        #: to the per-frame `Codec`'s
+        self.shared_levels = bool(shared_levels)
+        #: side info of the last encode: {"levels": (N, C, L) or (C, L)}
         self.last_qside: dict = {}
         cname = "ycocg" if config.color == "ycocg_r" else config.color
         self._fwd, self._inv = color_ops.get(cname)
         mats = None if config.perceptual else color_ops.MATRICES.get(cname)
-        if not config.use_pallas:
+        if config.quantizer == "lloydmax":
+            self.route = "lloydmax"
+            self._still = Codec(config, self.device)
+        elif not config.use_pallas:
             self.route = "torch"
         elif mats is not None:
             self.route = "cdct"
@@ -144,21 +156,66 @@ class BatchCodec:
         return torch.clamp(torch.round(y), 0, 255).to(torch.uint8)
 
     # ------------------------------------------------------------------
+    def _encode_lloydmax(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, 3) uint8 -> uint8 Lloyd-Max indexes (wrapping through
+        uint8 as vcf_tpu's cast, ROADMAP C4); sets `last_qside`."""
+        cfg, still = self.config, self._still
+        coeff = torch.stack([still._analyze(f.to(torch.float32)) for f in x])
+        n, c = coeff.shape[0], coeff.shape[-1]
+        # per frame: the frames' channels as the rows of one (N * C, V)
+        # histogram, trained row by row as the per-frame Codec trains
+        per_frame = coeff.permute(1, 2, 0, 3).reshape(-1, n * c)
+        hist = q_ops.lloydmax_histogram(
+            torch.round(per_frame).to(torch.int32), cfg.q_min, cfg.q_max)
+        if self.shared_levels:
+            hist = hist.reshape(n, c, -1).sum(dim=0)
+            levels = q_ops.lloydmax_train_from_hist(hist, cfg.qss, cfg.q_min,
+                                                    cfg.q_max)
+            k = q_ops.lloydmax_quantize(coeff, levels)
+        else:
+            levels = q_ops.lloydmax_train_from_hist(hist, cfg.qss, cfg.q_min,
+                                                    cfg.q_max)
+            k = q_ops.lloydmax_quantize(per_frame, levels)
+            k = k.reshape(coeff.shape[1], coeff.shape[2], n, c).permute(
+                2, 0, 1, 3)
+            levels = levels.reshape(n, c, -1)
+        self.last_qside = {"levels": levels.cpu().numpy()}
+        return k.to(torch.uint8)
+
+    def _decode_lloydmax(self, k_u8: torch.Tensor, levels) -> torch.Tensor:
+        """uint8 Lloyd-Max indexes + (N, C, L) or shared (C, L) levels ->
+        uint8 frames, frame by frame as the per-frame Codec decodes."""
+        lv = torch.from_numpy(np.asarray(levels, np.float32)).to(self.device)
+        out = []
+        for i, k in enumerate(k_u8):
+            coeff = q_ops.lloydmax_dequantize(k.to(torch.int32),
+                                              lv[i] if lv.dim() == 3 else lv)
+            y = self._still._synthesize(coeff)
+            out.append(torch.clamp(torch.round(y), 0, 255).to(torch.uint8))
+        return torch.stack(out)
+
     def encode_planes(self, frames: np.ndarray) -> np.ndarray:
         """(N, H, W, 3) uint8 -> (N, Hp, Wp, 3) uint8 index planes."""
         b = self.config.block_size
         x = _on_device(frames, self.device)
         if x.shape[1] % b or x.shape[2] % b:
             x = torch.stack([dct_ops.pad_centered(f, b) for f in x])
+        if self.route == "lloydmax":
+            return self._encode_lloydmax(x).cpu().numpy()
         return self._encode(x).cpu().numpy()
 
     def decode_planes(self, planes: np.ndarray, original_hw=None,
                       qside=None) -> np.ndarray:
         """(N, Hp, Wp, 3) uint8 index planes -> (N, H, W, 3) uint8 frames,
         cropped (centered) to `original_hw` when given.  `qside` is the
-        Lloyd-Max side info of vcf_tpu's signature, unused by deadzone."""
+        Lloyd-Max side info (default: the last encode's), unused by
+        deadzone."""
         k = _on_device(planes, self.device)
-        frames = self._decode(k)
+        if self.route == "lloydmax":
+            side = qside if qside is not None else self.last_qside
+            frames = self._decode_lloydmax(k, side["levels"])
+        else:
+            frames = self._decode(k)
         if original_hw is not None and tuple(frames.shape[1:3]) != tuple(
                 original_hw):
             h, w = original_hw

@@ -2,7 +2,7 @@
 
 Every frame coded independently by the configured still-image codec
 (src/III.py).  When the still config matches the batch path (dct +
-deadzone), all frames are coded in one device dispatch through
+deadzone or Lloyd-Max), all frames are coded in one device dispatch through
 `parallel.BatchCodec`; with a device entropy codec the whole clip's
 index planes are then coded in one call (one "clip.*" segment group),
 and with a host codec per frame.  Other compositions fall back to
@@ -10,7 +10,11 @@ per-frame coding through `Codec`.  The streams are vcf_tpu's: on equal
 index planes the bytes are identical.
 
 vcf_tpu's `mesh` argument goes; the port runs on one named device
-(multi-device sharding waits for ROADMAP A15).
+(multi-device sharding waits for ROADMAP A15).  `shared_levels` passes
+through to `BatchCodec` (Lloyd-Max: one level set for the clip); with a
+host entropy codec each frame's segment group then carries that one set,
+where vcf_tpu's per-frame loop indexes the (C, L) array by frame and
+fails past the third frame (ROADMAP C11).
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ BATCHED_ENTROPY = ("rans", "grans", "srans", "cgrans")
 
 class IIICodec:
     def __init__(self, video_config: VideoConfig, codec_config: CodecConfig,
-                 device):
+                 device, shared_levels: bool = False):
         self.vcfg = video_config
         self.ccfg = codec_config
         self.device = torch.device(device)
@@ -43,7 +47,8 @@ class IIICodec:
         ):
             from vcf_tpu_torch.parallel.mesh import BatchCodec
 
-            self._batch = BatchCodec(codec_config, self.device)
+            self._batch = BatchCodec(codec_config, self.device,
+                                     shared_levels=shared_levels)
 
     def encode(self, frames: np.ndarray) -> CodeStream:
         frames = np.asarray(frames)[: self.vcfg.n_frames]
@@ -76,8 +81,8 @@ class IIICodec:
                     if levels is not None:
                         # per-frame trained Lloyd-Max levels (reference
                         # law: one table per source, LloydMax.py:107-112)
-                        cs.put_array(f"f{i:04d}.q_levels",
-                                     np.asarray(levels[i]))
+                        lv = levels[i] if levels.ndim == 3 else levels
+                        cs.put_array(f"f{i:04d}.q_levels", np.asarray(lv))
         else:
             for i, frame in enumerate(frames):
                 sub = self.still.encode(frame)

@@ -40,7 +40,7 @@ planar one: the FMA chain on round(ref), with no clip and no u8 cast.
 
 Not ported here: the generic closed loop through the still `Codec`
 (vcf_tpu ipp.py:601-667, for non dct+deadzone compositions) raises,
-naming ROADMAP A10/A11; the mesh (vcf_tpu's `_shard_gops`) waits for
+naming ROADMAP A10; the mesh (vcf_tpu's `_shard_gops`) waits for
 A15: the padded GOPs are stacked on the one device.
 """
 
@@ -81,7 +81,7 @@ class IPPCodec:
                  device):
         if codec_config.spatial != "dct" or codec_config.quantizer != "deadzone":
             missing = _not_ported(codec_config)
-            item = missing[1] if missing else "A10/A11"
+            item = missing[1] if missing else "A10"
             raise NotImplementedError(
                 "the generic IPP closed loop (through the still Codec, for "
                 f"spatial={codec_config.spatial!r}, quantizer="
@@ -419,7 +419,7 @@ class IPPCodec:
         if meta.get("generic"):
             raise NotImplementedError(
                 "the stream was written by the generic IPP closed loop, "
-                "which is not ported yet (ROADMAP queue A, items A10/A11)")
+                "which is not ported yet (ROADMAP queue A, item A10)")
         n = meta["n_frames"]
         kinds = meta["kinds"]
         m = meta["me_block"]
