@@ -108,7 +108,21 @@ kernels from vcf_tpu_torch/csrc on first use.  Phases:
    bpp, rmse and warm host-clock ms; then the 11 goldens decode on the
    card (the count that equals the stored sha256 is printed), and an
    8-frame Lloyd-Max IIICodec clip (zlib) runs with per-frame and with
-   shared levels, levels and stream equal to the CPU's.
+   shared levels, levels and stream equal to the CPU's;
+4i. the codec compositions on phase 4's frame: KLT, MDCT and LBT (zlib,
+   qss 16; LBT's default 1000 epochs), DCT with srans and with ihuff, and
+   DCT (qss 64, zlib) with the gaussian, NLM and BM3D decode filters:
+   each encodes and decodes the full frame on the card (bpp, rmse, warm
+   host-clock ms) and is held against the port's CPU run: "index" streams
+   by the +-1 rule and equal entropy bytes (srans's K1-K3 must launch),
+   "trained" ones (KLT, LBT) by their weights, bpp and rmse, every stream
+   decoding on both devices under the pixel rule; the filters by the
+   filter rule on a crop of the card's unfiltered decode.  The CPU
+   references' crops: LBT trains on its first 136x240 (on both devices),
+   NLM runs on 544x960 and BM3D on 272x480.  Then the generic IPP closed
+   loop (4 frames of the 4c clip, gop 4, me_block 16, search range 8,
+   the DWT grans still codec) against its CPU run under C7's rule; SAD's
+   m=16 instance, MC's vector mode and K1-K3 must launch.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Any failed check raises (non-zero exit, no result).  The last
@@ -182,6 +196,44 @@ HOST_PHASE = (
      "index", None),
     ("dct_none", dict(quantizer="none", entropy="zlib"), "index", None),
 )
+# phase 4i (the codec compositions): name, CodecConfig fields, the rule of
+# its stored arrays ("index": the +-1 rule, and equal entropy bytes where
+# the indexes agree; "trained": weights, bpp and rmse within tolerances),
+# the crop (rows, cols) that the CPU reference runs on (None: the frame)
+LBT_CROP, NLM_CROP, BM3D_CROP = (136, 240), (544, 960), (272, 480)
+FLOW_PHASE = (
+    ("klt_zlib", dict(spatial="klt", qss=16, entropy="zlib"), "trained",
+     None),
+    ("mdct_zlib", dict(spatial="mdct", qss=16, entropy="zlib"), "index",
+     None),
+    ("lbt_zlib", dict(spatial="lbt", qss=16, entropy="zlib"), "trained",
+     LBT_CROP),
+    ("dct_srans", dict(entropy="srans"), "index", None),
+    ("dct_ihuff", dict(entropy="ihuff"), "index", None),
+    ("dct_gaussian", dict(qss=64, entropy="zlib", filter="gaussian"),
+     "index", None),
+    ("dct_nlm", dict(qss=64, entropy="zlib", filter="nlm"), "index",
+     NLM_CROP),
+    ("dct_bm3d", dict(qss=64, entropy="zlib", filter="bm3d"), "index",
+     BM3D_CROP),
+)
+# the "trained" rule.  KLT: a row whose eigenvalue stands KLT_SEPARATED of
+# the channel's largest apart from its neighbours moves by the covariance's
+# rounding over that gap, so such rows agree within KLT_ROW_TOL (up to
+# sign); the other rows are arbitrary within their near-equal group
+# (ROADMAP C3) and are reported.  LBT: float32 Adam from the DCT basis
+# moves its weights by up to ~0.02 under another float order (the port's
+# float32 against float64 training on the LBT crop, CPU), so card and CPU
+# within LBT_WEIGHT_TOL.  Both: bpp and rmse within TRAINED_RTOL (relative)
+KLT_SEPARATED, KLT_ROW_TOL = 1e-3, 1e-3
+LBT_WEIGHT_TOL = 0.1
+TRAINED_RTOL = 0.05
+# the filter rule (tests/test_torch_filters.py): the card's filter against
+# the CPU's on one u8 frame, |d| <= 1 but on at most FILTER_SHARE of the
+# pixels, never past FILTER_MAX_DIFF
+FILTER_MAX_DIFF, FILTER_SHARE = 2, 1e-3
+# 4i's IPP row: the generic loop over the first frames of the 4c clip
+GENERIC_FRAMES = 4
 # the least time the card could take (H100 SXM at its 700 W limit):
 # bytes over HBM's rate, operations over the float32 peak (the type of
 # every function replaced here).  Integer operations (the rANS kernels)
@@ -2267,6 +2319,253 @@ def lloydmax_clip(dev, base: np.ndarray, shared: bool) -> None:
     print(f"lloydmax clip {FRAMES}x{H}x{W}: {json.dumps(report)}")
 
 
+def flow_weights_rule(name: str, cs_g, cs_c, frame: np.ndarray, cfg) -> dict:
+    """The "trained" rule's weights: KLT's rows whose eigenvalue stands
+    apart from its neighbours (gap >= KLT_SEPARATED of the channel's
+    largest, from the CPU's float64 covariance) within KLT_ROW_TOL up to
+    sign, every other row reported (ROADMAP C3: near-equal eigenvalues
+    make their eigenvectors arbitrary); LBT's decoder weights and block
+    mean within LBT_WEIGHT_TOL."""
+    from vcf_tpu_torch.ops import color as color_ops
+    from vcf_tpu_torch.ops import dct as dct_ops
+    from vcf_tpu_torch.ops import klt
+
+    w_g = torch.from_numpy(cs_g.get_array("weights")).double()
+    w_c = torch.from_numpy(cs_c.get_array("weights")).double()
+    require(w_g.shape == w_c.shape, f"{name}: weights {tuple(w_g.shape)} vs "
+            f"{tuple(w_c.shape)}")
+    if cfg.spatial == "lbt":
+        gap = float((w_g - w_c).abs().max())
+        mean_gap = float(np.abs(cs_g.get_array("mean").astype(np.float64)
+                                - cs_c.get_array("mean")).max())
+        require(gap <= LBT_WEIGHT_TOL and mean_gap <= LBT_WEIGHT_TOL,
+                f"{name}: decoder weights differ by {gap}, mean by "
+                f"{mean_gap}")
+        return {"weight_gap": gap, "mean_gap": mean_gap}
+    # the blocks the KLT trains on, in float64
+    x = torch.from_numpy(frame).double()
+    padded = dct_ops.pad_centered(x, cfg.block_size) - (
+        128.0 if cfg.quantizer == "deadzone" else 0.0)
+    m = torch.from_numpy(color_ops.MATRICES[cfg.color][0]).double()
+    blocks = klt.channel_blocks(padded @ m.T, cfg.block_size)
+    c = blocks - blocks.mean(1, keepdim=True)
+    ev = torch.linalg.eigvalsh(
+        torch.einsum("cnd,cne->cde", c, c) / c.shape[1]).flip(-1)
+    gap = torch.full_like(ev, float("inf"))
+    gap[:, :-1] = torch.minimum(gap[:, :-1], ev[:, :-1] - ev[:, 1:])
+    gap[:, 1:] = torch.minimum(gap[:, 1:], ev[:, :-1] - ev[:, 1:])
+    apart = gap / ev[:, :1] >= KLT_SEPARATED
+    d = torch.minimum((w_g - w_c).abs().amax(2), (w_g + w_c).abs().amax(2))
+    sep_gap = float(d[apart].max())
+    require(sep_gap <= KLT_ROW_TOL,
+            f"{name}: {int(apart.sum())} separated rows differ by {sep_gap}")
+    return {"separated_rows": int(apart.sum()), "rows": int(d.numel()),
+            "separated_row_gap": sep_gap, "weight_gap": float(d.max()),
+            "rows_over_1e-3": int((d > 1e-3).sum())}
+
+
+def near(a: float, b: float, rtol: float) -> bool:
+    return abs(a - b) <= rtol * max(abs(a), abs(b))
+
+
+def flow_case(dev, name: str, kw: dict, rule: str, crop, base: np.ndarray,
+              kernels: dict) -> dict:
+    """One configuration of 4i on the full frame on the card, against the
+    port's CPU run; -> the launches of the card's encode and decode."""
+    from vcf_tpu_torch import Codec, CodecConfig, CodeStream, metrics
+    from vcf_tpu_torch.ops import filters
+
+    cfg = CodecConfig(**kw)
+    gpu, cpu = Codec(cfg, device=dev), Codec(cfg, device="cpu")
+    gpu.decode(gpu.encode(base[:64]))                    # warm-up
+    zero_counts(kernels)
+    cs_g, enc_ms = synced_ms(lambda: gpu.encode(base))
+    cs_g = CodeStream.from_bytes(cs_g.to_bytes())
+    rec_g, dec_ms = synced_ms(lambda: gpu.decode(cs_g))
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    require(rec_g.shape == base.shape and rec_g.dtype == np.uint8,
+            f"{name}: decoded {rec_g.shape} {rec_g.dtype}")
+    report = {"bpp": metrics.bpp(cs_g, base.shape),
+              "rmse": metrics.rmse(base, rec_g), "encode_ms": enc_ms,
+              "decode_ms": dec_ms}
+    if rule == "trained" and crop is not None:
+        # the CPU trains on a crop; the card trains on it too, to compare
+        img = np.ascontiguousarray(base[:crop[0], :crop[1]])
+        report["cpu_crop"] = list(crop)
+        pixel_rule(cpu.decode(cs_g), rec_g, f"{name}: the card's frame on "
+                   "the CPU")
+        cs_gc = CodeStream.from_bytes(gpu.encode(img).to_bytes())
+    else:
+        img, cs_gc = base, cs_g
+    t0 = time.perf_counter()
+    cs_c = cpu.encode(img)
+    report["cpu_encode_ms"] = (time.perf_counter() - t0) * 1e3
+    if rule == "trained":
+        report.update(flow_weights_rule(name, cs_gc, cs_c, img, cfg))
+        rec_gc = gpu.decode(cs_gc)
+        t0 = time.perf_counter()
+        rec_cc = cpu.decode(cs_c)
+        report["cpu_decode_ms"] = (time.perf_counter() - t0) * 1e3
+        n_px = pixel_rule(cpu.decode(cs_gc), rec_gc, f"{name}: the card's "
+                          "stream")
+        n_px += pixel_rule(gpu.decode(cs_c), rec_cc, f"{name}: the CPU's "
+                           "stream")
+        bpp = (metrics.bpp(cs_gc, img.shape), metrics.bpp(cs_c, img.shape))
+        rmse = (metrics.rmse(img, rec_gc), metrics.rmse(img, rec_cc))
+        require(near(*bpp, TRAINED_RTOL) and near(*rmse, TRAINED_RTOL),
+                f"{name}: bpp {bpp}, rmse {rmse} (card, CPU)")
+        report.update({"streams_equal": cs_gc.to_bytes() == cs_c.to_bytes(),
+                       "bpp_card_cpu": bpp, "rmse_card_cpu": rmse,
+                       "pixels_differ": n_px})
+        return report, launches
+    report.update(hold_streams(name, "index", gpu, cs_g, cs_c))
+    if cfg.filter == "none":
+        t0 = time.perf_counter()
+        rec_c = cpu.decode(cs_g)
+        report["cpu_decode_ms"] = (time.perf_counter() - t0) * 1e3
+        report["pixels_differ"] = pixel_rule(rec_g, rec_c, f"{name}: the "
+                                             "card's stream")
+        if not report["streams_equal"]:
+            report["pixels_differ"] += pixel_rule(
+                gpu.decode(cs_c), cpu.decode(cs_c), f"{name}: the CPU's "
+                "stream")
+        return report, launches
+    # the filter rule: the unfiltered frame decodes alike on both devices,
+    # and the filter on the card against the CPU's, on the crop
+    plain = CodecConfig(**{**kw, "filter": "none"})
+    unf = Codec(plain, device=dev).decode(cs_g)
+    n_px = pixel_rule(unf, Codec(plain, device="cpu").decode(cs_g),
+                      f"{name}: the unfiltered frame")
+    part = np.ascontiguousarray(unf[:crop[0], :crop[1]] if crop else unf)
+    out_g = filters.get(cfg, dev)(part)
+    t0 = time.perf_counter()
+    out_c = filters.get(cfg, "cpu")(part)
+    report["cpu_filter_ms"] = (time.perf_counter() - t0) * 1e3
+    d = np.abs(out_g.astype(np.int64) - out_c)
+    n_over = int(np.count_nonzero(d > 1))
+    require(int(d.max()) <= FILTER_MAX_DIFF and n_over <= FILTER_SHARE * d.size,
+            f"{name}: the card's filter against the CPU's: max {int(d.max())}, "
+            f"{n_over} pixels past 1")
+    require(np.array_equal(filters.get(cfg, dev)(unf), rec_g),
+            f"{name}: the decode is not the filtered frame")
+    report.update({"filter_rows": part.shape[0], "filter_cols": part.shape[1],
+                   "filter_pixels_differ": int(np.count_nonzero(d)),
+                   "filter_pixels_past_1": n_over,
+                   "filter_max_diff": int(d.max()),
+                   "unfiltered_pixels_differ": n_px})
+    return report, launches
+
+
+def ipp_generic_case(dev, clip: np.ndarray, kernels: dict) -> dict:
+    """4i's IPP row: the generic closed loop over 4 frames of the 4c clip
+    with the DWT grans still codec, on the card against the CPU under
+    C7's rule; -> its launches."""
+    from vcf_tpu_torch import CodecConfig, CodeStream, metrics, video
+    from vcf_tpu_torch.config import VideoConfig
+    from vcf_tpu_torch.entropy import dwt_device as dd
+
+    frames = clip[:GENERIC_FRAMES]
+    vcfg = VideoConfig(mode="ipp", n_frames=GENERIC_FRAMES, gop_size=GOP,
+                       me_block=ME_BLOCK, search_range=SEARCH)
+    ccfg = CodecConfig(spatial="dwt", entropy="grans")
+    ipp = video.get(vcfg, ccfg, dev)
+    require(not ipp.fused and ipp._make_search(H, W).kind == "sad_search",
+            "IPP generic: not the generic loop with the SAD kernel")
+    ipp.decode(ipp.encode(frames[:2, :64]))              # warm-up
+    zero_counts(kernels)
+    cs, enc_ms = synced_ms(lambda: ipp.encode(frames))
+    cs = CodeStream.from_bytes(cs.to_bytes())
+    rec, dec_ms = synced_ms(lambda: ipp.decode(cs))
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    print(f"ipp generic path: launches {launches}")
+    for k, count in launches.items():
+        require(count > 0, f"kernel {k} was not launched on the generic "
+                "IPP path")
+    require_ipp_modes("IPP generic path")
+    require(np.array_equal(rec, ipp.last_recon.cpu().numpy()),
+            "IPP generic: the decoder differs from the encoder's loop")
+    cpu = video.get(vcfg, ccfg, "cpu")
+    t0 = time.perf_counter()
+    cs_c = cpu.encode(frames)
+    cpu_s = time.perf_counter() - t0
+    require(list(cs) == list(cs_c), "IPP generic: other segments")
+    mv_names = [k for k in cs if k.startswith("mv_")]
+    mv_diff = sum(int((cs.get_array(k) != cs_c.get_array(k)).any(-1).sum())
+                  for k in mv_names)
+    # C7's rule on the frames' lane grids, decoded on the card
+    idx_diff = n_idx = 0
+    for i in range(GENERIC_FRAMES):
+        grids = []
+        for s in (cs, cs_c):
+            g, sg, l, n_words, _, st, cnt, fg, cg, _ = dd.unpack_model(
+                s[f"f{i:04d}.gdwt_model"])
+            words = np.frombuffer(s[f"f{i:04d}.gdwt_words"], "<u2")[:n_words]
+            grids.append(dd.decode_grid(words, st, cnt, fg, cg, l, dev))
+        d = (grids[0].to(torch.int64) - grids[1].to(torch.int64)).abs()
+        require(bool(((d <= MAX_INDEX_DIFF) | (d == 255)).all()),
+                f"IPP generic frame {i}: a grid index moved by more than 1")
+        idx_diff += int((d != 0).sum())
+        n_idx += d.numel()
+    require(idx_diff <= MAX_IPP_DIFF_SHARE * n_idx,
+            f"IPP generic: {idx_diff} grid indexes differ from the CPU")
+    same = cs.to_bytes() == cs_c.to_bytes()
+    if mv_diff == 0 and idx_diff == 0:
+        require(same, "IPP generic: equal mvs and indexes, other streams")
+    rec_cpu = cpu.last_recon.to(torch.uint8).numpy()
+    rmse, rmse_cpu = metrics.rmse(frames, rec), metrics.rmse(frames, rec_cpu)
+    require(abs(rmse - rmse_cpu) <= MAX_IPP_RMSE_DIFF,
+            f"IPP generic rmse {rmse} vs CPU {rmse_cpu}")
+    if not same:
+        pixel_rule(ipp.decode(cs_c), cpu.decode(cs_c), "IPP generic: the "
+                   "CPU's stream")
+    report = {"rmse": rmse, "rmse_cpu": rmse_cpu,
+              "bpp": metrics.bpp(cs, frames.shape), "encode_ms": enc_ms,
+              "decode_ms": dec_ms, "cpu_encode_ms": cpu_s * 1e3,
+              "mv_blocks_differing_from_cpu": mv_diff,
+              "grid_indexes_differing_from_cpu": idx_diff,
+              "streams_equal": same}
+    print(f"codec compositions ipp_generic {GENERIC_FRAMES}x{H}x{W} dwt "
+          f"grans: {json.dumps(report)}")
+    return launches
+
+
+def phase_compositions(dev, base: np.ndarray, clip: np.ndarray) -> dict:
+    """4i: the compositions of the last slice at 1088x1920 on the card
+    (KLT, MDCT and LBT, `srans`, `ihuff`, the three decode filters, and
+    the generic IPP loop), each against the port's CPU run.  The card
+    always runs the full frame; the CPU references of LBT's training and
+    of the NLM and BM3D filters run on crops of it (LBT_CROP, NLM_CROP,
+    BM3D_CROP): LBT trains on the crop on both devices, the filters run
+    on the crop of the card's unfiltered decode on both.  -> the launches
+    of K1-K3 (dct_srans and the IPP loop's DWT grans still codec) and of
+    SAD and MC (the IPP loop), summed."""
+    from vcf_tpu_torch.ops.cuda import mc_kernel as mk
+    from vcf_tpu_torch.ops.cuda import rans_decode as rd
+    from vcf_tpu_torch.ops.cuda import rans_encode as re_
+    from vcf_tpu_torch.ops.cuda import sad_kernel as sk
+
+    rans_k = {"rans_encode_grouped": re_.rans_encode_grouped,
+              "rans_compact": re_.rans_compact,
+              "rans_decode_grouped": rd.rans_decode_grouped}
+    t_phase = time.perf_counter()
+    total: dict = {}
+    for name, kw, rule, crop in FLOW_PHASE:
+        report, launches = flow_case(dev, name, kw, rule, crop, base, rans_k)
+        if name == "dct_srans":
+            for k, count in launches.items():
+                require(count > 0, f"kernel {k} was not launched by srans")
+            for k, count in launches.items():
+                total[k] = total.get(k, 0) + count
+            report["launches"] = launches
+        print(f"codec compositions {name}: {json.dumps(report)}")
+    ipp_k = {**rans_k, "sad_search": sk.sad_search,
+             "mc_apply_planar": mk.mc_apply_planar}
+    for k, count in ipp_generic_case(dev, clip, ipp_k).items():
+        total[k] = total.get(k, 0) + count
+    print(f"phase 4i: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
@@ -2300,6 +2599,10 @@ def main() -> None:
                                       grans_clip))
     ctx_grid_launches, dwt_grid = phase_dwt(dev, base)
     phase_host_codecs(dev, base)
+    # 4i's launches add to the paths' counts: srans and the generic IPP
+    # loop's DWT grans still codec launch K1-K3, its P frames SAD and MC
+    for name, count in phase_compositions(dev, base, clip).items():
+        launches[name] += count
     grid_launches["rans_decode_ctx_grid"] = \
         ctx_grid_launches["rans_decode_ctx_grid"]
     for row in results:

@@ -59,6 +59,7 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
 
 
@@ -1123,3 +1124,75 @@ def test_palette_kmeans_on_cuda_matches_cpu(dev):
     agree = (l_gpu.cpu() == l_cpu).double().mean().item()
     assert agree >= 0.999
     assert (c_gpu.cpu() - c_cpu).abs().max().item() < 1.0
+
+
+@pytest.mark.parametrize("name", ["srans", "ihuff"])
+@pytest.mark.parametrize("dtype,sparsity", [(np.uint8, 0.9), (np.uint8, 0.5),
+                                            (np.uint16, 0.99)])
+def test_device_entropy_bytes_on_cuda_equal_cpu(dev, name, dtype, sparsity):
+    """srans (K1, K2 and K3 with one table) and ihuff (torch ops) write the
+    CPU's bytes on the card and decode each other's streams."""
+    rng = np.random.default_rng(7)
+    hi = 256 if dtype == np.uint8 else 65536
+    arr = rng.integers(0, hi, (136, 240, 3)).astype(dtype)
+    arr[rng.random(arr.shape) < sparsity] = 128
+    gpu, cpu = entropy.get(name, device=dev), entropy.get(name, device="cpu")
+    counts = (re_.rans_encode_grouped, re_.rans_compact,
+              rd.rans_decode_grouped)
+    before = [f.launches for f in counts]
+    payload, side = gpu.encode(arr)
+    assert (payload, side) == cpu.encode(arr)
+    np.testing.assert_array_equal(gpu.decode(payload, side), arr)
+    launched = [f.launches - b for f, b in zip(counts, before)]
+    if name == "srans":
+        assert all(n > 0 for n in launched), launched
+    else:
+        assert launched == [0, 0, 0]
+
+
+def test_full_fp32_refuses_cudnn_tf32_on_cuda(dev):
+    """ROADMAP rule 3 for convolutions: a CUDA Codec refuses cuDNN TF32,
+    and NLM's conv then runs in full float32 (the card equals the CPU
+    within float32 sum order)."""
+    from vcf_tpu_torch.ops import filters
+    from vcf_tpu_torch.pipeline import check_full_fp32
+
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="cudnn.allow_tf32"):
+            Codec(CodecConfig(filter="nlm"), dev)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    check_full_fp32()
+    img = make_test_image(64, 96, seed=2)
+    out_gpu = filters.nlm(torch.from_numpy(img).to(dev), 10.0, 7, 7).cpu()
+    out_cpu = filters.nlm(torch.from_numpy(img), 10.0, 7, 7)
+    assert (out_gpu - out_cpu).abs().max().item() < 1e-3
+
+
+@pytest.mark.parametrize("kw", [
+    dict(spatial="mdct", entropy="zlib"),
+    dict(spatial="klt", entropy="zlib"),
+    dict(spatial="lbt", lbt_epochs=50, entropy="zlib"),
+    dict(qss=64, entropy="zlib", filter="gaussian"),
+    dict(qss=64, entropy="zlib", filter="bm3d")])
+def test_new_flows_on_cuda_decode_like_cpu(dev, kw):
+    """KLT, MDCT, LBT and the filters on the card: each stream decodes on
+    both devices under the pixel rule (the filters under the filter rule
+    of tests/test_torch_filters.py: a BM3D coefficient on its threshold
+    may flip, |d| <= 2 on at most 0.1% of pixels, else <= 1), and the
+    card's decode is deterministic."""
+    img = make_test_image(136, 240, seed=3)
+    gpu, cpu = Codec(CodecConfig(**kw), dev), Codec(CodecConfig(**kw), "cpu")
+    cs = CodeStream.from_bytes(gpu.encode(img).to_bytes())
+    rec_g, rec_c = gpu.decode(cs), cpu.decode(cs)
+    for rec in (rec_g, rec_c):
+        assert rec.shape == img.shape and rec.dtype == np.uint8
+    np.testing.assert_array_equal(gpu.decode(cs), rec_g)
+    d = np.abs(rec_g.astype(np.int64) - rec_c)
+    if "filter" in kw:
+        assert d.max() <= 2 and np.count_nonzero(d > 1) <= 1e-3 * d.size
+    else:
+        assert d.max() <= 1 and np.count_nonzero(d) <= 1e-3 * d.size
+    assert abs(metrics.rmse(img, gpu.decode(cs))
+               - metrics.rmse(img, cpu.decode(cpu.encode(img)))) < 0.5

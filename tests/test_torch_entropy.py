@@ -168,6 +168,10 @@ def test_registry():
         tentropy.get("grans")
     assert isinstance(tentropy.get("huffman"), tentropy.HuffmanCodec)
     assert isinstance(tentropy.get("png"), tentropy.PNGCodec)
-    for name in ("srans", "ihuff"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tentropy.get(name, device=CPU)
+    # srans (ROADMAP A6) and ihuff (A8), which raised until they were
+    # ported, are device codecs: they need a device and return the codec
+    for name, cls in (("srans", tentropy.SparseRANSCodec),
+                      ("ihuff", tentropy.InterleavedHuffmanCodec)):
+        with pytest.raises(ValueError, match="device"):
+            tentropy.get(name)
+        assert isinstance(tentropy.get(name, device=CPU), cls)

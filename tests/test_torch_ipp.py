@@ -208,20 +208,87 @@ def test_ipp_routes():
 
 
 def test_video_get_returns_ipp_and_unported_loops_raise():
-    assert isinstance(video.get(VideoConfig(mode="ipp"), CodecConfig(), "cpu"),
-                      IPPCodec)
-    with pytest.raises(NotImplementedError, match="A10"):
-        video.get(VideoConfig(mode="ipp"), CodecConfig(spatial="dwt"), "cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        IPPCodec(VideoConfig(mode="ipp"), CodecConfig(quantizer="lloydmax"),
-                 "cpu")
-    cs = CodeStream()
-    cs.put_json("payload", {"mode": "ipp", "generic": True})
-    with pytest.raises(NotImplementedError, match="A10"):
-        IPPCodec(VideoConfig(mode="ipp"), CodecConfig(), "cpu").decode(cs)
+    """Every composition builds an IPPCodec: dct + deadzone takes the
+    fused GOP loop, every other the generic closed loop through the still
+    Codec, and a generic stream decodes.  (Until the generic loop was
+    ported these compositions and streams raised, naming ROADMAP A10.)"""
+    fused = video.get(VideoConfig(mode="ipp"), CodecConfig(), "cpu")
+    assert isinstance(fused, IPPCodec) and fused.fused and fused.still is None
+    for kw in (dict(spatial="dwt"), dict(quantizer="lloydmax")):
+        codec = video.get(VideoConfig(mode="ipp"), CodecConfig(**kw), "cpu")
+        assert isinstance(codec, IPPCodec) and not codec.fused
+        assert codec.still.config == CodecConfig(**kw)
+        assert codec._gop_encode_grid_batch is None
+    frames = make_test_video(2, 32, 48)
+    vcfg = VideoConfig(mode="ipp", n_frames=2, gop_size=2, search_range=2)
+    generic = IPPCodec(vcfg, CodecConfig(spatial="dwt", dwt_levels=2,
+                                         entropy="zlib"), "cpu")
+    cs = CodeStream.from_bytes(generic.encode(frames).to_bytes())
+    assert cs.get_json("payload")["generic"] is True
+    rec = generic.decode(cs)
+    assert rec.shape == frames.shape and rec.dtype == np.uint8
+    np.testing.assert_array_equal(rec, generic.last_recon.numpy())
     with pytest.raises(ValueError, match="ME block"):
         IPPCodec(VideoConfig(mode="ipp", n_frames=2), CodecConfig(),
                  "cpu").encode(np.zeros((2, 40, 48, 3), np.uint8))
+
+
+# id -> codec kw of the generic closed loop (vcf_tpu's tests/test_video.py
+# TestIPPGeneric: 4 frames, gop 2, search range 4)
+GENERIC = {
+    "dwt": dict(spatial="dwt", qss=16, dwt_levels=2, entropy="zlib"),
+    "lloydmax-dct": dict(quantizer="lloydmax", entropy="zlib"),
+    "klt": dict(spatial="klt", qss=16, entropy="zlib"),
+}
+
+
+@pytest.mark.parametrize("name", list(GENERIC))
+def test_generic_ipp_matches_vcf_tpu(name):
+    """The generic loop's container against vcf_tpu's under C7's rule:
+    the same segments, payload and mvs; the bytes equal where no index
+    differs (DWT and Lloyd-Max: observed equal).  KLT trains its weights
+    per frame, which may differ in float order (ROADMAP C3), so its
+    stream may differ; each package decodes the other's stream to the
+    frames the other's decoder gives, bit for bit."""
+    frames = make_test_video(4, 96, 112)
+    vkw = dict(mode="ipp", n_frames=4, gop_size=2, search_range=4)
+    jc = jvideo.get(vcf_tpu.config.VideoConfig(**vkw),
+                    vcf_tpu.CodecConfig(**GENERIC[name]))
+    tc = video.get(VideoConfig(**vkw), CodecConfig(**GENERIC[name]), "cpu")
+    assert not tc.fused and tc._make_search(96, 112).kind == "sad_search"
+    cs_j = jc.encode(frames)
+    cs_t = CodeStream.from_bytes(tc.encode(frames).to_bytes())
+    assert list(cs_t) == list(cs_j)
+    assert cs_t.get_json("payload") == cs_j.get_json("payload")
+    for seg in cs_j:
+        if seg.startswith("mv_"):
+            a, b = cs_t.get_array(seg), cs_j.get_array(seg)
+            assert a.dtype == b.dtype == np.int32
+            np.testing.assert_array_equal(a, b, err_msg=seg)
+    if name != "klt":
+        assert cs_t.to_bytes() == cs_j.to_bytes()
+    rec_t = tc.decode(cs_t)
+    np.testing.assert_array_equal(rec_t, tc.last_recon.numpy())
+    np.testing.assert_array_equal(tc.decode(cs_j), np.asarray(jc.decode(cs_j)))
+    np.testing.assert_array_equal(np.asarray(jc.decode(cs_t)), rec_t)
+    assert metrics.rmse(frames, rec_t) < 12.0
+
+
+def test_generic_ipp_search_range_past_the_sad_gate():
+    """The generic loop searches through `_make_search`, so it routes by
+    `sad_kernel.fits` as the fused loop does: past the CPU gate (m = 16,
+    s = 31) the full search, with vcf_tpu's mvs and stream."""
+    frames = make_test_video(2, 64, 64, seed=2)
+    vkw = dict(mode="ipp", n_frames=2, gop_size=2, search_range=31)
+    ckw = dict(spatial="dwt", qss=16, dwt_levels=2, entropy="zlib")
+    tc = video.get(VideoConfig(**vkw), CodecConfig(**ckw), "cpu")
+    assert not sk.fits(16, 31, "cpu")
+    assert tc._make_search(64, 64).kind == "full_search"
+    jc = jvideo.get(vcf_tpu.config.VideoConfig(**vkw),
+                    vcf_tpu.CodecConfig(**ckw))
+    cs_t = tc.encode(frames)
+    assert cs_t.to_bytes() == jc.encode(frames).to_bytes()
+    np.testing.assert_array_equal(tc.decode(cs_t), tc.last_recon.numpy())
 
 
 def test_ipp_gop_batch_equals_single_gops():

@@ -197,8 +197,23 @@ def test_stage_timings_recorded():
     (dict(entropy="ihuff"), "A8"),
 ])
 def test_unported_flows_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        Codec(CodecConfig(**kw), device="cpu")
+    """The flows of ROADMAP A6, A8, A12 and A13, which raised until they
+    were ported: each now builds its flow object, filter and entropy codec
+    and round-trips a frame (parity with vcf_tpu: test_torch_transforms,
+    test_torch_filters, test_torch_device_entropy)."""
+    img = make_test_image(32, 48, seed=3)
+    codec = Codec(CodecConfig(**kw), device="cpu")
+    if item == "A12":
+        assert codec._ext is not None
+    if item == "A13":
+        assert callable(codec._filter)
+    if item in ("A6", "A8"):
+        assert type(codec.entropy_codec).__name__ == {
+            "A6": "SparseRANSCodec", "A8": "InterleavedHuffmanCodec"}[item]
+    cs = codec.encode(img)
+    rec = codec.decode(CodeStream.from_bytes(cs.to_bytes()))
+    assert rec.shape == img.shape and rec.dtype == np.uint8
+    assert metrics.rmse(img, rec) < 40.0
 
 
 def test_device_is_required():
@@ -207,14 +222,33 @@ def test_device_is_required():
 
 
 def test_full_fp32_is_enforced():
-    check_full_fp32()
-    old = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = True
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    # cuDNN's TF32 flag is True by default: a CUDA user turns it off too
+    torch.backends.cudnn.allow_tf32 = False
     try:
+        check_full_fp32()
+        torch.backends.cuda.matmul.allow_tf32 = True
         with pytest.raises(RuntimeError, match="allow_tf32"):
             check_full_fp32()
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = old
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
+
+
+def test_full_fp32_refuses_cudnn_tf32():
+    """ROADMAP rule 3 covers convolutions too (NLM's box filter is a
+    cuDNN conv on the card): TF32 in cuDNN is refused."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="cudnn.allow_tf32"):
+            check_full_fp32()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
 
 
 def test_import_does_not_load_jax():
@@ -230,14 +264,19 @@ def test_import_does_not_load_jax():
             "vcf_tpu_torch.entropy.cbaac, vcf_tpu_torch.entropy.png, "
             "vcf_tpu_torch.entropy.pnm, vcf_tpu_torch.ops.prng, "
             "vcf_tpu_torch.ops.vq, vcf_tpu_torch.ops.quantize, "
-            "vcf_tpu_torch.parallel.mesh; "
+            "vcf_tpu_torch.parallel.mesh, vcf_tpu_torch.ops.klt, "
+            "vcf_tpu_torch.ops.mdct, vcf_tpu_torch.ops.lbt, "
+            "vcf_tpu_torch.ops.filters, vcf_tpu_torch.entropy.interleaved; "
             "from vcf_tpu_torch import Codec, CodecConfig; "
             "from vcf_tpu_torch.io import test_image; "
             "img = test_image(24, 32, seed=1); "
             "[Codec(CodecConfig(**kw), 'cpu').encode(img) for kw in ("
             "dict(entropy='cbahc', quantizer='lloydmax'), "
             "dict(spatial='none', color='none', quantizer='colorvq', "
-            "entropy='huffman'))]; "
+            "entropy='huffman'), dict(spatial='lbt', lbt_epochs=2, "
+            "entropy='srans', filter='nlm', nlm_search=3), "
+            "dict(spatial='mdct', entropy='ihuff', filter='bm3d'), "
+            "dict(spatial='klt', filter='gaussian'))]; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'vcf_tpu' not in sys.modules, 'vcf_tpu imported'")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

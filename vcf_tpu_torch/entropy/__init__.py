@@ -9,9 +9,9 @@ the same bytes as vcf_tpu's codec of the same name:
 `tiff`, `zlib`, `pnm` and `png` are host numpy; `huffman`, `cbahc` and
 `cbaac` run their loops in the port's native host coder
 (`vcf_tpu_torch.native`, built with g++ on first use; a failed build
-raises).  `rans`, `grans` and `cgrans` run on a torch device that the
-caller names; on CUDA they launch the rANS kernels.  `ihuff` and
-`srans` raise NotImplementedError naming their ROADMAP queue-A item.
+raises).  `rans`, `grans`, `cgrans` and `srans` run on a torch device
+that the caller names; on CUDA they launch the rANS kernels.  `ihuff`
+runs as torch ops on the named device.
 """
 
 from __future__ import annotations
@@ -22,10 +22,11 @@ from vcf_tpu_torch.entropy.base import EntropyCodec
 from vcf_tpu_torch.entropy.cbaac import CBAACCodec
 from vcf_tpu_torch.entropy.cbahc import CBAHCCodec
 from vcf_tpu_torch.entropy.huffman import HuffmanCodec
+from vcf_tpu_torch.entropy.interleaved import InterleavedHuffmanCodec
 from vcf_tpu_torch.entropy.png import PNGCodec
 from vcf_tpu_torch.entropy.pnm import PNMCodec
 from vcf_tpu_torch.entropy.rans import (CtxRANSCodec, GroupedRANSCodec,
-                                        RANSCodec)
+                                        RANSCodec, SparseRANSCodec)
 from vcf_tpu_torch.entropy.tiff import TIFFCodec
 from vcf_tpu_torch.entropy.zlib_codec import ZlibCodec
 
@@ -33,8 +34,8 @@ _HOST = {"zlib": ZlibCodec, "tiff": TIFFCodec, "pnm": PNMCodec,
          "png": PNGCodec, "huffman": HuffmanCodec, "cbahc": CBAHCCodec,
          "cbaac": CBAACCodec}
 _ON_DEVICE = {"rans": RANSCodec, "grans": GroupedRANSCodec,
-              "cgrans": CtxRANSCodec}
-_NOT_PORTED = {"ihuff": "A8", "srans": "A6"}
+              "cgrans": CtxRANSCodec, "srans": SparseRANSCodec,
+              "ihuff": InterleavedHuffmanCodec}
 
 
 def get(name: str, config=None, device=None) -> EntropyCodec:
@@ -46,13 +47,10 @@ def get(name: str, config=None, device=None) -> EntropyCodec:
         if device is None:
             raise ValueError(f"entropy codec {name!r} needs a torch device")
         return _ON_DEVICE[name].from_config(config, device=torch.device(device))
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"entropy codec {name!r} is not ported yet "
-            f"(ROADMAP queue A, item {_NOT_PORTED[name]})")
     raise KeyError(f"unknown entropy codec {name!r}")
 
 
 __all__ = ["EntropyCodec", "get", "CBAACCodec", "CBAHCCodec",
-           "CtxRANSCodec", "GroupedRANSCodec", "HuffmanCodec", "PNGCodec",
-           "PNMCodec", "RANSCodec", "TIFFCodec", "ZlibCodec"]
+           "CtxRANSCodec", "GroupedRANSCodec", "HuffmanCodec",
+           "InterleavedHuffmanCodec", "PNGCodec", "PNMCodec", "RANSCodec",
+           "SparseRANSCodec", "TIFFCodec", "ZlibCodec"]

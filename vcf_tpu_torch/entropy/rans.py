@@ -1,5 +1,5 @@
-"""Interleaved rANS (port of vcf_tpu/entropy/rans.py, the `rans`,
-`grans` and `cgrans` part).
+"""Interleaved rANS (port of vcf_tpu/entropy/rans.py: `rans`, `grans`,
+`cgrans` and `srans`).
 
 S streams share ONE word stream: the decoder's renormalization schedule
 is state-driven, so at each step the renormalizing streams consume the
@@ -47,7 +47,7 @@ __all__ = ["K_PROB", "RANS_L", "MASK", "quantize_freqs", "np_encode_grouped",
            "subband_lanes_ctx", "subband_unlanes_ctx", "ctx_class",
            "ctx_class_n", "np_encode_ctx", "ctx_group_histograms",
            "ctx_cums", "ctx_freqs_from_counts", "RANSCodec", "GroupedRANSCodec",
-           "CtxRANSCodec"]
+           "CtxRANSCodec", "pack_flags", "unpack_flags", "SparseRANSCodec"]
 
 
 # ---------------------------------------------------------------------------
@@ -709,3 +709,152 @@ class CtxRANSCodec(EntropyCodec):
         full = (1,) + tuple(shape) if ndim == 3 else tuple(shape)
         out = subband_unlanes_ctx(lanes, self.b, full).cpu().numpy()
         return out.reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# Sparse rANS ("srans"): zero-flag bitplane + compacted nonzeros
+# ---------------------------------------------------------------------------
+
+#: np.packbits bit order: the first flag of a byte is its top bit
+_BIT_SHIFTS = (7, 6, 5, 4, 3, 2, 1, 0)
+
+
+def pack_flags(flags: torch.Tensor) -> torch.Tensor:
+    """(8m,) bool -> (m,) uint8, in np.packbits bit order."""
+    shifts = torch.tensor(_BIT_SHIFTS, dtype=torch.int32, device=flags.device)
+    bits = flags.reshape(-1, 8).to(torch.int32) << shifts
+    return bits.sum(dim=1, dtype=torch.int32).to(torch.uint8)
+
+
+def unpack_flags(packed: torch.Tensor) -> torch.Tensor:
+    """(m,) uint8 -> (8m,) bool, the inverse of pack_flags."""
+    shifts = torch.tensor(_BIT_SHIFTS, dtype=torch.int32, device=packed.device)
+    return ((packed.to(torch.int32)[:, None] >> shifts) & 1).reshape(-1).bool()
+
+
+class SparseRANSCodec(EntropyCodec):
+    """Sparse interleaved rANS (``srans``) for quantized planes where one
+    symbol dominates.  The plane is split into (a) a flag bitplane, 8
+    flags a byte, flagging every symbol that is not the most frequent
+    one, and (b) the flagged symbols in order (`masked_select`), padded
+    with the most frequent of them up to a bucket of the plane size
+    (`_bucket`: vcf_tpu's static shapes, kept for its bytes).  Both byte
+    streams go through the dense codec's lane path: on CUDA K1, K2 and
+    K3 with one table each.  Decode scatters the prefix back to the
+    flagged positions by the flags' running count.  The format is
+    vcf_tpu's byte for byte (`srans_model`: struct "<QQIBBIIII", the
+    states, a reserved word and zlib level 9 of both tables)."""
+
+    file_extension = ".srans"
+
+    def __init__(self, n_streams: int = 65536, *, device):
+        self.n_streams = n_streams
+        self.device = torch.device(device)
+
+    @classmethod
+    def from_config(cls, config=None, *, device):
+        return cls(device=device)
+
+    @staticmethod
+    def _bucket(n_nz: int, n: int, multiple: int) -> int:
+        """Round n_nz up to a multiple of max(n/32, 4096, `multiple`)
+        (itself rounded up to a multiple of `multiple`)."""
+        step = max(4096, n // 32, multiple)
+        step = -(-step // multiple) * multiple
+        return max(step, -(-n_nz // step) * step)
+
+    @staticmethod
+    def _freqs(counts: np.ndarray):
+        f = quantize_freqs(counts, min_all=True)
+        return f.astype(np.uint32), _cums(f)
+
+    def _encode_u8(self, flat: np.ndarray) -> Tuple[bytes, bytes]:
+        n = flat.size
+        pick = RANSCodec._pick_streams
+        s_flags = pick(max(n // 8, 1), self.n_streams)
+        pad = (-n) % (8 * s_flags)
+        n8 = n + pad
+        fj = torch.zeros(n8, dtype=torch.uint8, device=self.device)
+        fj[:n] = torch.from_numpy(flat).to(self.device)
+        counts = torch.bincount(fj.to(torch.int64), minlength=256).cpu(
+            ).numpy().astype(np.int64)
+        zero_sym = int(np.argmax(counts))
+        counts[zero_sym] -= pad                 # as vcf_tpu counts the padding
+        n_nz = int(n - counts[zero_sym])        # == the flags set in fj
+        nz_counts = counts.copy()
+        nz_counts[zero_sym] = 0
+        fill = int(np.argmax(nz_counts)) if n_nz else (zero_sym + 1) % 256
+        # s_nz | 8*s_flags (powers of two) => s_nz | n8, so cap <= n8
+        s_nz = min(pick(max(n_nz, 1), self.n_streams), 8 * s_flags)
+        cap = min(self._bucket(max(n_nz, 1), n8, s_nz), n8)
+        nz_counts[fill] += cap - n_nz           # the padding fill symbols
+        nz_f, nz_c = self._freqs(nz_counts)
+        flags = fj != zero_sym
+        flag_bytes = pack_flags(flags)
+        flag_f, flag_c = self._freqs(torch.bincount(
+            flag_bytes.to(torch.int64), minlength=256).cpu().numpy())
+        nz = torch.full((cap,), fill, dtype=torch.uint8, device=self.device)
+        nz[:n_nz] = torch.masked_select(fj, flags)
+        p_flags, fnw, _, fst = _encode_lanes(
+            flag_bytes.reshape(-1, s_flags).t(), flag_f[None], flag_c[None])
+        p_nz, znw, _, zst = _encode_lanes(
+            nz.reshape(-1, s_nz).t(), nz_f[None], nz_c[None])
+        side = struct.pack("<QQIBBIIII", n, n_nz, cap, zero_sym, fill,
+                           s_flags, s_nz, fnw, znw)
+        side += fst.astype("<u4").tobytes()
+        side += zst.astype("<u4").tobytes()
+        side += struct.pack("<I", 0)            # reserved
+        side += zlib.compress(
+            flag_f.astype("<u2").tobytes() + nz_f.astype("<u2").tobytes(), 9)
+        return p_flags + p_nz, side
+
+    def _decode_u8(self, payload: bytes, blob: bytes) -> np.ndarray:
+        n, n_nz, cap, zero_sym, fill, s_flags, s_nz, fnw, znw = \
+            struct.unpack_from("<QQIBBIIII", blob, 0)
+        off = 38
+        fst = np.frombuffer(blob, "<u4", s_flags, off).astype(np.uint32)
+        off += 4 * s_flags
+        zst = np.frombuffer(blob, "<u4", s_nz, off).astype(np.uint32)
+        off += 4 * s_nz + 4
+        tabs = np.frombuffer(zlib.decompress(blob[off:]), "<u2")
+        flag_f = tabs[:256].astype(np.uint32)
+        nz_f = tabs[256:].astype(np.uint32)
+        n8 = n + ((-n) % (8 * s_flags))
+        fb = _decode_lanes(_wire_words(payload, fnw), fst, flag_f[None],
+                           _cums(flag_f)[None], n8 // 8 // s_flags, None,
+                           self.device)
+        flags = unpack_flags(fb.t().reshape(-1))
+        nz = _decode_lanes(_wire_words(payload[2 * fnw:], znw), zst,
+                           nz_f[None], _cums(nz_f)[None], cap // s_nz, None,
+                           self.device).t().reshape(-1)
+        # the k-th flagged position takes the k-th symbol of the prefix
+        rank = torch.cumsum(flags.to(torch.int64), 0) - 1
+        out = torch.where(flags, nz[rank.clamp_(0, cap - 1)],
+                          torch.tensor(zero_sym, dtype=torch.uint8,
+                                       device=self.device))
+        return out[:n].cpu().numpy()
+
+    def encode(self, arr: np.ndarray) -> Tuple[bytes, Dict[str, bytes]]:
+        arr = self.check_dtype(arr)
+        if arr.dtype != np.uint8:
+            flat = arr.reshape(-1)
+            lo, s1 = self._encode_u8((flat & 0xFF).astype(np.uint8))
+            hi, s2 = self._encode_u8((flat >> 8).astype(np.uint8))
+            head = struct.pack(f"<BIIB{arr.ndim}I", 1, len(lo), len(s1),
+                               arr.ndim, *arr.shape)
+            return lo + hi, {"srans_model": head + s1 + s2}
+        payload, side = self._encode_u8(arr.reshape(-1))
+        head = struct.pack(f"<BIIB{arr.ndim}I", 0, len(payload), len(side),
+                           arr.ndim, *arr.shape)
+        return payload, {"srans_model": head + side}
+
+    def decode(self, payload: bytes, side: Dict[str, bytes]) -> np.ndarray:
+        blob = side["srans_model"]
+        mode, split, s1_len, ndim = struct.unpack_from("<BIIB", blob, 0)
+        shape = struct.unpack_from(f"<{ndim}I", blob, 10)
+        body = blob[10 + 4 * ndim:]
+        if mode == 0:
+            return self._decode_u8(payload, body).reshape(shape)
+        lo = self._decode_u8(payload[:split], body[:s1_len])
+        hi = self._decode_u8(payload[split:], body[s1_len:])
+        return ((hi.astype(np.uint16) << 8) | lo).reshape(shape)

@@ -11,10 +11,12 @@ Its flows mirror the reference's layer entry points:
   quantizer -> entropy
 * DWT                   (`ops.dwt.DWT`; src/2D-DWT.py)
 * palette VQ            (src/color-VQ.py)
+* KLT, MDCT, LBT        (`ops.klt`, `ops.mdct.MDCT`, `ops.lbt`;
+                         src/2D-KLT.py, src/2D-MDCT.py, src/2D-LBT.py)
 
-with the quantizers deadzone, Lloyd-Max, block VQ and none.  The KLT,
-MDCT and LBT flows (ROADMAP A12) and the decode filters (A13) raise
-NotImplementedError when the `Codec` is built.
+with the quantizers deadzone, Lloyd-Max, block VQ and none.  Decode ends
+with the decode-side filter (`ops.filters`: gaussian, NLM, BM3D;
+src/2D-DCT.py:461), run on the Codec's device.
 
 The pixel math runs on the device as torch ops; the entropy codec gets
 the index planes and runs on the same device where it can (`rans`,
@@ -37,25 +39,23 @@ from vcf_tpu_torch.config import CodecConfig
 from vcf_tpu_torch.ops import color as color_ops
 from vcf_tpu_torch.ops import dct as dct_ops
 from vcf_tpu_torch.ops import dwt as dwt_ops
+from vcf_tpu_torch.ops import filters as filter_ops
+from vcf_tpu_torch.ops import klt as klt_ops
+from vcf_tpu_torch.ops import lbt as lbt_ops
+from vcf_tpu_torch.ops import mdct as mdct_ops
 from vcf_tpu_torch.ops import prng
 from vcf_tpu_torch.ops import quantize as q_ops
 from vcf_tpu_torch.ops import vq as vq_ops
 from vcf_tpu_torch.utils.timing import StageTimer, timed_stage
 
 
-def _not_ported(cfg: CodecConfig):
-    """(what, ROADMAP item) of the first unported part of `cfg`, or None."""
-    if cfg.filter != "none":
-        return f"the {cfg.filter} decode filter", "A13"
-    if cfg.spatial in ("klt", "mdct", "lbt"):
-        return f"the {cfg.spatial} flow", "A12"
-    return None
-
-
 def check_full_fp32() -> None:
-    """Raise unless CUDA float32 matmuls run in full float32 (no TF32)."""
+    """Raise unless CUDA float32 matmuls and cuDNN convolutions run in
+    full float32 (no TF32)."""
     if torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 must be False")
+    if torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("torch.backends.cudnn.allow_tf32 must be False")
     if torch.get_float32_matmul_precision() != "highest":
         raise RuntimeError('torch.get_float32_matmul_precision() must be '
                            '"highest"')
@@ -68,12 +68,9 @@ def _to_u8(y: torch.Tensor) -> np.ndarray:
 class Codec:
     """Still-image codec for one `CodecConfig` on one torch device."""
 
+    _to_u8 = staticmethod(_to_u8)
+
     def __init__(self, config: CodecConfig, device):
-        missing = _not_ported(config)
-        if missing is not None:
-            raise NotImplementedError(
-                f"{missing[0]} is not ported yet (ROADMAP queue A, item "
-                f"{missing[1]})")
         self.config = config
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -99,8 +96,17 @@ class Codec:
             self._dct, self._idct = dct_ops.analyze, dct_ops.synthesize
         else:
             self._dct, self._idct = dct_ops.analyze_xla, dct_ops.synthesize_xla
-        self._dwt = (dwt_ops.DWT(config.wavelet, config.dwt_levels)
-                     if config.spatial == "dwt" else None)
+        #: the flow of the DWT, KLT, MDCT and LBT transforms, with its
+        #: encode(codec, img) and decode(codec, cs); None for the others
+        self._ext = {"klt": klt_ops, "lbt": lbt_ops}.get(config.spatial)
+        self._dwt = None
+        if config.spatial == "dwt":
+            self._ext = self._dwt = dwt_ops.DWT(config.wavelet,
+                                                config.dwt_levels)
+        elif config.spatial == "mdct":
+            self._ext = mdct_ops.MDCT(config.block_size)
+        self._filter = (filter_ops.get(config, self.device)
+                        if config.filter != "none" else None)
 
     def _upload(self, img: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
@@ -187,8 +193,8 @@ class Codec:
             return self._encode_colorvq(img)
         if cfg.spatial == "dct":
             return self._encode_spatial(img)
-        if cfg.spatial == "dwt":
-            return self._dwt.encode(self, img)
+        if self._ext is not None:
+            return self._ext.encode(self, img)
         if cfg.color != "none":
             return self._encode_color(img)
         if cfg.quantizer != "none":
@@ -199,16 +205,21 @@ class Codec:
         cfg = self.config
         self.last_timings = StageTimer(self.device)
         if cfg.quantizer == "colorvq":
-            return self._decode_colorvq(cs)
-        if cfg.spatial == "dct":
-            return self._decode_spatial(cs)
-        if cfg.spatial == "dwt":
-            return self._dwt.decode(self, cs)
-        if cfg.color != "none":
-            return self._decode_color(cs)
-        if cfg.quantizer != "none":
-            return self._decode_quant(cs)
-        return self._decode_entropy_only(cs)
+            out = self._decode_colorvq(cs)
+        elif cfg.spatial == "dct":
+            out = self._decode_spatial(cs)
+        elif self._ext is not None:
+            out = self._ext.decode(self, cs)
+        elif cfg.color != "none":
+            out = self._decode_color(cs)
+        elif cfg.quantizer != "none":
+            out = self._decode_quant(cs)
+        else:
+            out = self._decode_entropy_only(cs)
+        if self._filter is None:
+            return out
+        with timed_stage(self.last_timings, "device:filter"):
+            return self._filter(out)
 
     # ------------------------------------------------------------------
     # Flow: entropy only (src/PNG.py / src/TIFF.py encode/decode)

@@ -38,10 +38,20 @@ planes feed `entropy.rans.grid_lanes_lmajor` with plain reshapes.  For
 every other color both are None, as in vcf_tpu.  Its luma is vcf_tpu's
 planar one: the FMA chain on round(ref), with no clip and no u8 cast.
 
-Not ported here: the generic closed loop through the still `Codec`
-(vcf_tpu ipp.py:601-667, for non dct+deadzone compositions) raises,
-naming ROADMAP A10; the mesh (vcf_tpu's `_shard_gops`) waits for
-A15: the padded GOPs are stacked on the one device.
+Every other composition (not dct + deadzone) takes vcf_tpu's generic
+closed loop through the still `Codec` (vcf_tpu ipp.py:601-667; the
+reference's encode_decode_proxy, IPP_DCT.py:595-626, without its temp
+files): frame by frame, an I frame coded by the still codec, a P frame's
+residual clip(cur - pred + 128) truncated to u8 and coded by it, the
+reconstruction its decode added back to the prediction.  The frames go
+to the still codec as numpy arrays, as in vcf_tpu; the P frames' search
+and prediction are `_make_search` and `_compensate` (the SAD and MC
+kernels on CUDA).  The stream holds `f%04d.<segment>` sub-streams,
+`mv_%04d` arrays and the payload JSON with `"generic": true`.  The still
+codec's decode filter, if any, runs inside the loop, as in vcf_tpu.
+
+The mesh (vcf_tpu's `_shard_gops`) waits for ROADMAP A15: the padded
+GOPs are stacked on the one device.
 """
 
 from __future__ import annotations
@@ -63,7 +73,7 @@ from vcf_tpu_torch.ops.cuda import dct_kernel as dk
 from vcf_tpu_torch.ops.cuda import mc_kernel
 from vcf_tpu_torch.ops.cuda import sad_kernel
 from vcf_tpu_torch.parallel.mesh import _on_device
-from vcf_tpu_torch.pipeline import _not_ported, check_full_fp32
+from vcf_tpu_torch.pipeline import Codec, check_full_fp32
 from vcf_tpu_torch.video.iii import BATCHED_ENTROPY
 
 # residuals and indexes are shifted by 128 (src/IPP_DCT.py:550-560)
@@ -75,18 +85,12 @@ def _clip(x: torch.Tensor) -> torch.Tensor:
 
 
 class IPPCodec:
-    """IPP on one torch device for the dct + deadzone compositions."""
+    """IPP on one torch device: the fused GOP loop for the dct + deadzone
+    compositions, the generic closed loop through the still `Codec` for
+    every other one."""
 
     def __init__(self, video_config: VideoConfig, codec_config: CodecConfig,
                  device):
-        if codec_config.spatial != "dct" or codec_config.quantizer != "deadzone":
-            missing = _not_ported(codec_config)
-            item = missing[1] if missing else "A10"
-            raise NotImplementedError(
-                "the generic IPP closed loop (through the still Codec, for "
-                f"spatial={codec_config.spatial!r}, quantizer="
-                f"{codec_config.quantizer!r}) is not ported yet (ROADMAP "
-                f"queue A, item {item})")
         self.vcfg = video_config
         self.ccfg = codec_config
         self.device = torch.device(device)
@@ -94,12 +98,16 @@ class IPPCodec:
             check_full_fp32()
         self.entropy_codec = entropy.get(codec_config.entropy, codec_config,
                                          self.device)
+        #: the fused GOP loop (vcf_tpu ipp.py:56-62), else the generic one
+        self.fused = (codec_config.spatial == "dct"
+                      and codec_config.quantizer == "deadzone")
+        self.still = None if self.fused else Codec(codec_config, self.device)
         cname = "ycocg" if codec_config.color == "ycocg_r" else codec_config.color
         self._mats = color_ops.MATRICES.get(cname)       # None: color "none"
-        #: the planar subband-grid loop (ycocg only: deadzone is the only
-        #: quantizer this class takes), else None as in vcf_tpu
+        #: the planar subband-grid loop (fused and ycocg), else None as in
+        #: vcf_tpu
         self._gop_encode_grid_batch = self._gop_decode_grid_batch = None
-        if codec_config.color == "ycocg":
+        if self.fused and codec_config.color == "ycocg":
             (self._gop_encode_grid_batch,
              self._gop_decode_grid_batch) = self._build_planar_gop()
         #: the encoder's reconstruction (G, T, 3, H, W) float32 of the last
@@ -141,9 +149,12 @@ class IPPCodec:
         return tagged("full_search",
                       lambda r, c: motion.full_search(r, c, m, s))
 
-    def _compensate(self, ref: torch.Tensor, mv: torch.Tensor) -> torch.Tensor:
-        """(G, 3, H, W) reference -> prediction for (G, nby, nbx, 2) mvs."""
-        m, s = self.vcfg.me_block, self.vcfg.search_range
+    def _compensate(self, ref: torch.Tensor, mv: torch.Tensor, m=None,
+                    s=None) -> torch.Tensor:
+        """(G, 3, H, W) reference -> prediction for (G, nby, nbx, 2) mvs of
+        block m and range s (default: the codec's)."""
+        m = self.vcfg.me_block if m is None else m
+        s = self.vcfg.search_range if s is None else s
         if self.ccfg.use_pallas:
             return mc_kernel.mc_apply_planar(ref, mv, m)
         return motion.compensate(ref.movedim(-3, -1), mv, m,
@@ -360,6 +371,8 @@ class IPPCodec:
         m = vcfg.me_block
         if h % m or w % m:
             raise ValueError(f"frame size must be a multiple of ME block {m}")
+        if not self.fused:
+            return self._encode_generic(frames)
 
         t = vcfg.gop_size
         n_pad = (-n) % t
@@ -417,9 +430,7 @@ class IPPCodec:
     def decode(self, cs: CodeStream) -> np.ndarray:
         meta = cs.get_json(PAYLOAD)
         if meta.get("generic"):
-            raise NotImplementedError(
-                "the stream was written by the generic IPP closed loop, "
-                "which is not ported yet (ROADMAP queue A, item A10)")
+            return self._decode_generic(cs)
         n = meta["n_frames"]
         kinds = meta["kinds"]
         m = meta["me_block"]
@@ -469,3 +480,82 @@ class IPPCodec:
         recs = self._gop_decode(planes_t, mvs_t, modes_t)
         recs = recs.movedim(-3, -1).reshape(-1, h, w, 3)[:n]
         return recs.to(torch.uint8).cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # Generic closed loop through the still Codec (vcf_tpu ipp.py:601-667)
+    # ------------------------------------------------------------------
+    def _upload(self, frame: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(frame)).to(self.device)
+
+    def _predict(self, ref: torch.Tensor, mv: torch.Tensor, m: int, s: int
+                 ) -> torch.Tensor:
+        """(H, W, 3) uint8 reference, (nby, nbx, 2) mvs -> the (H, W, 3)
+        float32 prediction (`_compensate` on a batch of one)."""
+        planar = ref.to(torch.float32).permute(2, 0, 1)[None].contiguous()
+        return self._compensate(planar, mv[None], m, s)[0].permute(1, 2, 0)
+
+    def _encode_generic(self, frames: np.ndarray) -> CodeStream:
+        vcfg = self.vcfg
+        m, s = vcfg.me_block, vcfg.search_range
+        n, h, w, _ = frames.shape
+        search = self._make_search(h, w)
+        cs = CodeStream()
+        kinds: List[str] = []
+        recons = []
+        ref = None
+        for i in range(n):
+            if i % vcfg.gop_size == 0:
+                sub = self.still.encode(frames[i])
+                recon = self.still.decode(sub)
+                kinds.append("I")
+            else:
+                cur = self._upload(frames[i])
+                ref_t = self._upload(ref)
+                mv, _ = search(motion.to_luma(ref_t), motion.to_luma(cur))
+                pred = self._predict(ref_t, mv, m, s)
+                # clip, then truncate to u8 (vcf_tpu ipp.py:623)
+                residual = _clip(cur.to(torch.float32) - pred + 128.0).to(
+                    torch.uint8).cpu().numpy()
+                sub = self.still.encode(residual)
+                res_rec = self._upload(self.still.decode(sub)).to(
+                    torch.float32) - 128.0
+                recon = _clip(pred + res_rec).to(torch.uint8).cpu().numpy()
+                cs.put_array(f"mv_{i:04d}", mv.cpu().numpy().astype(np.int32))
+                kinds.append("P")
+            for name, blob in sub.items():
+                cs[f"f{i:04d}.{name}"] = blob
+            recons.append(recon)
+            ref = recon
+        cs.put_json(PAYLOAD, {
+            "mode": "ipp", "generic": True, "n_frames": int(n), "kinds": kinds,
+            "frame_shape": [int(v) for v in frames.shape[1:]],
+            "gop": vcfg.gop_size, "me_block": m, "search_range": s,
+            "rdo": 0,
+        })
+        self.last_planes = None
+        self.last_recon = self._upload(np.stack(recons)).to(torch.float32)
+        return cs
+
+    def _decode_generic(self, cs: CodeStream) -> np.ndarray:
+        meta = cs.get_json(PAYLOAD)
+        kinds = meta["kinds"]
+        m, s = meta["me_block"], meta["search_range"]
+        out = []
+        ref = None
+        for i in range(meta["n_frames"]):
+            prefix = f"f{i:04d}."
+            sub = CodeStream()
+            for name in cs:
+                if name.startswith(prefix):
+                    sub[name[len(prefix):]] = cs[name]
+            dec = self.still.decode(sub)
+            if kinds[i] == "I":
+                recon = dec
+            else:
+                mv = self._upload(cs.get_array(f"mv_{i:04d}"))
+                pred = self._predict(self._upload(ref), mv, m, s)
+                recon = _clip(pred + self._upload(dec).to(torch.float32)
+                              - 128.0).to(torch.uint8).cpu().numpy()
+            out.append(recon)
+            ref = recon
+        return np.stack(out)
