@@ -122,7 +122,22 @@ kernels from vcf_tpu_torch/csrc on first use.  Phases:
    NLM runs on 544x960 and BM3D on 272x480.  Then the generic IPP closed
    loop (4 frames of the 4c clip, gop 4, me_block 16, search range 8,
    the DWT grans still codec) against its CPU run under C7's rule; SAD's
-   m=16 instance, MC's vector mode and K1-K3 must launch.
+   m=16 instance, MC's vector mode and K1-K3 must launch.  BM3D is also
+   held to ROADMAP C13's rule (no pixel past 1, at most 0.05% by 1), and
+   its steps on the card against the CPU on the crop, each fed the CPU's
+   input, are printed (`bm3d_stage_shares`);
+4j. the entry points at full width: phase 4's frame as a PNG and the 4c
+   clip as a Y4M (`io.video.write_y4m`) through `vcf_tpu_torch.cli.main`
+   in this process with no --device (the card): encode, decode and rde
+   with `grans`, encode and decode with DWT `cgrans`, video-encode and
+   video-decode with III `grans` and with 4c's IPP configuration (-x: no
+   subbands), the III decode with --preview; every file equal to the
+   in-process codec's stream or decode byte for byte (IPP: 4c's own), the
+   kernels each path reaches launched; the IPP decode inside
+   `utils.profiling.trace` (trace size, peak allocated bytes printed);
+   then `python -m vcf_tpu_torch encode ... -c grans` as a subprocess with
+   no --device, its file equal to this process's, neither jax nor vcf_tpu
+   imported.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Any failed check raises (non-zero exit, no result).  The last
@@ -232,6 +247,10 @@ TRAINED_RTOL = 0.05
 # the CPU's on one u8 frame, |d| <= 1 but on at most FILTER_SHARE of the
 # pixels, never past FILTER_MAX_DIFF
 FILTER_MAX_DIFF, FILTER_SHARE = 2, 1e-3
+# ROADMAP C13's target for BM3D on the card against the CPU (its block
+# distances and Wiener weights in one order on every device): no pixel
+# past 1, at most BM3D_SHARE of them off by 1
+BM3D_SHARE = 5e-4
 # 4i's IPP row: the generic loop over the first frames of the 4c clip
 GENERIC_FRAMES = 4
 # the least time the card could take (H100 SXM at its 700 W limit):
@@ -1068,7 +1087,7 @@ def ipp_split(ipp, clip: np.ndarray) -> dict:
     return out
 
 
-def phase_ipp(dev, clip: np.ndarray) -> dict:
+def phase_ipp(dev, clip: np.ndarray) -> tuple:
     from vcf_tpu_torch import CodecConfig, CodeStream, metrics, video
     from vcf_tpu_torch.config import VideoConfig
     from vcf_tpu_torch.ops.cuda import dct_kernel as dk
@@ -1144,7 +1163,7 @@ def phase_ipp(dev, clip: np.ndarray) -> dict:
           f"{json.dumps(report)}")
     print(f"ipp warm split (ms, host clock, synchronized): {json.dumps(split)}")
     return {"sad_search": launches["sad_search"],
-            "mc_apply_planar": launches["mc_apply_planar"]}
+            "mc_apply_planar": launches["mc_apply_planar"]}, (blob, rec)
 
 
 def phase_ctx_kernels(dev, planes: torch.Tensor) -> tuple:
@@ -2368,6 +2387,94 @@ def near(a: float, b: float, rtol: float) -> bool:
     return abs(a - b) <= rtol * max(abs(a), abs(b))
 
 
+def bm3d_stage_shares(dev, part: np.ndarray, sigma: float = 25.0) -> dict:
+    """ROADMAP C13: BM3D's steps on the card against the CPU on one u8
+    frame (H, W % 8 == 0), phase (0, 0) of each stage, each step fed the
+    CPU's input to it: the share of elements that differ (bitwise) at the
+    luma, the block distances, the group selection (blocks; also from the
+    card's own distances: the cascade), the 2-D and 3-D coefficients, the
+    stage-1 keep mask at 2.7 sigma, the stage-2 Wiener spectrum and block
+    weights, and each stage's whole estimate (float, and u8 after the round;
+    stage 2 guided by the CPU's stage-1 estimate on both devices)."""
+    from vcf_tpu_torch.ops import color as color_ops
+    from vcf_tpu_torch.ops import dct as dct_ops
+    from vcf_tpu_torch.ops import filters
+
+    b, n_group, s = 8, 8, 8
+    x = torch.from_numpy(part).to(torch.float32)
+    h, w, c = x.shape
+    disps = filters.displacements(s)
+    disp_t = torch.from_numpy(disps)
+    d1 = torch.from_numpy(dct_ops.dct_matrix(n_group))
+    rows, cols = torch.arange(h)[:, None], torch.arange(w)[None, :]
+
+    def share(g: torch.Tensor, ref: torch.Tensor) -> float:
+        return float((g.cpu() != ref).double().mean())
+
+    def on(dv, fn, *args):
+        return fn(*[a.to(dv) if torch.is_tensor(a) else a for a in args])
+
+    def coeffs(img, sel):
+        dsel = disp_t.to(sel.device)[sel]
+        dy = filters._px(dsel[..., 0], b)
+        dx = filters._px(dsel[..., 1], b)
+        r, q = rows.to(sel.device), cols.to(sel.device)
+        src = torch.remainder(r + dy, h) * w + torch.remainder(q + dx, w)
+        grp = torch.stack([img.reshape(-1, c)[i] for i in src])
+        c2 = dct_ops.analyze(grp, b)
+        return c2, torch.einsum("mn,nhwc->mhwc", d1.to(sel.device), c2)
+
+    def u8(t):
+        return torch.clamp(torch.round(t), 0, 255).to(torch.int64).cpu()
+
+    def luma(g):
+        return color_ops.fma_rows(g, filters.LUMA_WEIGHTS[None]).squeeze(-1)
+
+    def dist(lm):
+        return filters.block_distances(lm, disps, b)
+
+    out, guide_c = {}, x
+    for stage in ("hard", "wiener"):
+        luma_c = luma(guide_c)
+        out[f"{stage}.luma"] = share(on(dev, luma, guide_c), luma_c)
+        dv_c = dist(luma_c)
+        dv_g = on(dev, dist, luma_c)
+        out[f"{stage}.distances"] = share(dv_g, dv_c)
+        sel_c = filters.select_group(dv_c, n_group)
+        out[f"{stage}.selection"] = float(
+            (on(dev, filters.select_group, dv_c, n_group).cpu() != sel_c)
+            .any(0).double().mean())
+        out[f"{stage}.selection_cascade"] = float(
+            (filters.select_group(dv_g, n_group).cpu() != sel_c)
+            .any(0).double().mean())
+        c2_c, c3_c = coeffs(x, sel_c)
+        c2_g, c3_g = coeffs(x.to(dev), sel_c.to(dev))
+        out[f"{stage}.coeff2"] = share(c2_g, c2_c)
+        out[f"{stage}.coeff3"] = share(c3_g, c3_c)
+        out[f"{stage}.coeff3_max_abs"] = float((c3_g.cpu() - c3_c).abs().max())
+        if stage == "hard":
+            thresh = 2.7 * sigma
+            out["hard.keep"] = share(c3_g.abs() >= thresh, c3_c.abs() >= thresh)
+            est = lambda xx: filters._bm3d_stage(xx, xx, sigma, b, n_group, s,
+                                                 2, wiener=False)
+            est_c, est_g = est(x), on(dev, est, x)
+        else:
+            _, cg3_c = coeffs(guide_c, sel_c)
+            wsh_c, wgt_c = filters.wiener_weights(cg3_c, sigma, b)
+            wsh_g, wgt_g = filters.wiener_weights(cg3_c.to(dev), sigma, b)
+            out["wiener.spectrum"] = share(wsh_g, wsh_c)
+            out["wiener.weight"] = share(wgt_g, wgt_c)
+            est = lambda xx, gg: filters._bm3d_stage(xx, gg, sigma, b, n_group,
+                                                     s, 2, wiener=True)
+            est_c, est_g = est(x, guide_c), on(dev, est, x, guide_c)
+        out[f"{stage}.estimate"] = share(est_g, est_c)
+        d = (u8(est_g) - u8(est_c)).abs()
+        out[f"{stage}.estimate_u8"] = float((d != 0).double().mean())
+        out[f"{stage}.estimate_u8_max"] = int(d.max())
+        guide_c = est_c
+    return out
+
+
 def flow_case(dev, name: str, kw: dict, rule: str, crop, base: np.ndarray,
               kernels: dict) -> dict:
     """One configuration of 4i on the full frame on the card, against the
@@ -2446,6 +2553,11 @@ def flow_case(dev, name: str, kw: dict, rule: str, crop, base: np.ndarray,
     require(int(d.max()) <= FILTER_MAX_DIFF and n_over <= FILTER_SHARE * d.size,
             f"{name}: the card's filter against the CPU's: max {int(d.max())}, "
             f"{n_over} pixels past 1")
+    if cfg.filter == "bm3d":
+        require(n_over == 0 and np.count_nonzero(d) <= BM3D_SHARE * d.size,
+                f"{name}: C13's rule: {np.count_nonzero(d)} pixels differ, "
+                f"{n_over} past 1")
+        report["bm3d_stages"] = bm3d_stage_shares(dev, part)
     require(np.array_equal(filters.get(cfg, dev)(unf), rec_g),
             f"{name}: the decode is not the filtered frame")
     report.update({"filter_rows": part.shape[0], "filter_cols": part.shape[1],
@@ -2566,6 +2678,199 @@ def phase_compositions(dev, base: np.ndarray, clip: np.ndarray) -> dict:
     return total
 
 
+def cli_run(kernels: dict, argv: list, expect=()) -> dict:
+    """One in-process `vcf_tpu_torch.cli.main(argv)` with the launch counts
+    of `kernels` set to 0 before it; -> its launches (each of `expect`
+    must be > 0)."""
+    from vcf_tpu_torch import cli
+
+    zero_counts(kernels)
+    require(cli.main(argv) == 0, f"cli {' '.join(argv[:1])} failed")
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    for k in expect:
+        require(launches[k] > 0, f"kernel {k} was not launched by the CLI "
+                f"({' '.join(argv)})")
+    return launches
+
+
+def file_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+# the subprocess of 4j: `python -m vcf_tpu_torch` through runpy, then the
+# probe of tests/test_torch_cli.py on what it imported
+MODULE_PROBE = """
+import runpy, sys
+sys.argv = ["vcf_tpu_torch"] + sys.argv[1:]
+try:
+    runpy.run_module("vcf_tpu_torch", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+assert "jax" not in sys.modules, "jax imported"
+assert "vcf_tpu" not in sys.modules, "vcf_tpu imported"
+"""
+
+
+def phase_entry_points(dev, base: np.ndarray, clip: np.ndarray,
+                       ipp_run: tuple) -> dict:
+    """4j: the entry points on the card at full width.  `vcf_tpu_torch.cli
+    .main` in this process with no --device (so on the card): encode,
+    decode and rde of phase 4's frame with `grans` and encode/decode with
+    DWT `cgrans`, each file equal to the in-process Codec's stream and
+    decode; video-encode/decode of the 4c clip as a Y4M with III `grans`
+    and with 4c's IPP configuration, each stream equal to the in-process
+    clip codec's (IPP: 4c's own stream and decode, `ipp_run`), the III
+    decode with --preview too; the IPP decode inside
+    `utils.profiling.trace`; then `python -m vcf_tpu_torch encode` as a
+    subprocess with no --device, its file equal to this process's, no jax
+    or vcf_tpu imported.  -> the CLI's launches, summed."""
+    import contextlib
+    import io
+    import tempfile
+
+    from vcf_tpu_torch import Codec, CodecConfig, CodeStream, cli, video
+    from vcf_tpu_torch.config import VideoConfig
+    from vcf_tpu_torch.io import read_image, write_image
+    from vcf_tpu_torch.io.video import read_y4m, write_y4m
+    from vcf_tpu_torch.ops.cuda import dct_kernel as dk
+    from vcf_tpu_torch.ops.cuda import mc_kernel as mk
+    from vcf_tpu_torch.ops.cuda import rans_ctx as rc
+    from vcf_tpu_torch.ops.cuda import rans_decode as rd
+    from vcf_tpu_torch.ops.cuda import rans_encode as re_
+    from vcf_tpu_torch.ops.cuda import sad_kernel as sk
+    from vcf_tpu_torch.utils import profiling
+
+    kernels = {"rans_encode_grouped": re_.rans_encode_grouped,
+               "rans_compact": re_.rans_compact,
+               "rans_decode_grouped": rd.rans_decode_grouped,
+               "rans_encode_ctx": rc.rans_encode_ctx,
+               "rans_decode_ctx": rc.rans_decode_ctx,
+               "fused_dct_quantize": dk.fused_dct_quantize,
+               "fused_dequantize_idct": dk.fused_dequantize_idct,
+               "fused_cdct_quantize": dk.fused_cdct_quantize,
+               "fused_dequantize_cdct": dk.fused_dequantize_cdct,
+               "sad_search": sk.sad_search,
+               "mc_apply_planar": mk.mc_apply_planar}
+    k_enc = ("rans_encode_grouped", "rans_compact")
+    k_dec = ("rans_decode_grouped",)
+    t_phase = time.perf_counter()
+    total: dict = {}
+    report: dict = {}
+
+    def add(launches):
+        for k, count in launches.items():
+            total[k] = total.get(k, 0) + count
+
+    with tempfile.TemporaryDirectory(prefix="vcf_cli_") as d:
+        png, y4m = os.path.join(d, "base.png"), os.path.join(d, "clip.y4m")
+        write_image(png, base)
+        write_y4m(y4m, clip)
+        require(np.array_equal(read_y4m(y4m), clip), "the Y4M clip differs")
+
+        # still images
+        for name, flags, cfg, expect in (
+                ("grans", ["-c", "grans"], CodecConfig(entropy="grans"),
+                 (k_enc, k_dec)),
+                ("dwt_cgrans", ["-T", "2D-DWT", "-c", "cgrans"],
+                 CodecConfig(spatial="dwt", entropy="cgrans"),
+                 (("rans_encode_ctx", "rans_compact"), ("rans_decode_ctx",)))):
+            enc, dec = os.path.join(d, name), os.path.join(d, f"dec_{name}.png")
+            add(cli_run(kernels, ["encode", "-o", png, "-e", enc] + flags,
+                        expect[0]))
+            add(cli_run(kernels, ["decode", "-e", enc, "-d", dec] + flags,
+                        expect[1]))
+            codec = Codec(cfg, device=dev)
+            blob = codec.encode(base).to_bytes()
+            require(file_bytes(enc) == blob, f"4j {name}: the CLI's file "
+                    "differs from the in-process stream")
+            require(np.array_equal(read_image(dec),
+                                   codec.decode(CodeStream.from_bytes(blob))),
+                    f"4j {name}: the CLI's PNG differs from the in-process "
+                    "decode")
+            report[f"{name}_bytes"] = len(blob)
+            if name == "grans":
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    require(cli.main(["rde", "-o", png, "-e", enc, "-d", dec])
+                            == 0, "4j rde failed")
+                report["rde_grans"] = json.loads(out.getvalue().strip())
+                print(f"entry points rde grans: {out.getvalue().strip()}")
+                grans_file = enc
+
+        # video: III grans (encoded in process here), IPP as phase 4c
+        ipp_blob, ipp_rec = ipp_run
+        n = str(len(clip))
+        for name, flags, ref in (
+                ("iii", ["-T", "III", "-c", "grans", "-N", n], None),
+                ("ipp", ["-T", "IPP", "-c", "grans", "-x", "-N", n, "-G",
+                         str(GOP), "-M", str(ME_BLOCK), "-S", str(SEARCH)],
+                 (ipp_blob, ipp_rec))):
+            enc, dec = os.path.join(d, name), os.path.join(d, f"dec_{name}.y4m")
+            if name == "iii":
+                expect = (("fused_cdct_quantize",) + k_enc,
+                          ("fused_dequantize_cdct",) + k_dec)
+                iii = video.get(VideoConfig(mode="iii", n_frames=len(clip)),
+                                CodecConfig(entropy="grans"), dev)
+                blob = iii.encode(clip).to_bytes()
+                ref = (blob, iii.decode(CodeStream.from_bytes(blob)))
+            else:
+                expect = (("sad_search", "mc_apply_planar", "fused_dct_quantize",
+                           "fused_dequantize_idct") + k_enc,
+                          ("mc_apply_planar", "fused_dequantize_idct") + k_dec)
+            add(cli_run(kernels, ["video-encode", "-o", y4m, "-e", enc] + flags,
+                        expect[0]))
+            if name == "ipp":
+                require_ipp_modes("4j IPP encode")
+                trace_dir = os.path.join(d, "trace")
+                torch.cuda.reset_peak_memory_stats()
+                with profiling.trace(trace_dir):
+                    add(cli_run(kernels, ["video-decode", "-e", enc, "-d", dec]
+                                + flags, expect[1]))
+                trace = os.path.join(trace_dir, "trace.json")
+                peak = max(s["allocated_bytes.all.peak"]
+                           for s in profiling.device_memory_stats().values())
+                report["ipp_decode_trace_bytes"] = os.path.getsize(trace)
+                report["peak_allocated_bytes"] = peak
+                print(f"entry points profiler: the IPP CLI decode's trace "
+                      f"{os.path.getsize(trace)} bytes, its peak allocated "
+                      f"{peak} bytes")
+            else:
+                prefix = os.path.join(d, "preview")
+                add(cli_run(kernels, ["video-decode", "-e", enc, "-d", dec,
+                                      "--preview", prefix] + flags, expect[1]))
+                for i in range(len(clip)):
+                    require(np.array_equal(read_image(f"{prefix}_{i:04d}.png"),
+                                           ref[1][i]),
+                            f"4j preview frame {i} differs from the decode")
+                require(os.path.exists(prefix + ".y4m")
+                        or os.path.exists(prefix + ".mp4"),
+                        "4j --preview wrote no preview clip")
+            require(file_bytes(enc) == ref[0], f"4j {name}: the CLI's stream "
+                    "differs from the in-process stream")
+            require(np.array_equal(read_y4m(dec), ref[1]), f"4j {name}: the "
+                    "CLI's Y4M differs from the in-process decode")
+            report[f"{name}_bytes"] = len(ref[0])
+
+        # the module entry point in a fresh process, default device
+        out = os.path.join(d, "module_grans")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", MODULE_PROBE, "encode", "-o", png, "-e",
+             out, "-c", "grans"], cwd=os.path.dirname(os.path.abspath(
+                 __file__)), capture_output=True, text=True, timeout=300)
+        report["module_s"] = time.perf_counter() - t0
+        require(proc.returncode == 0, f"python -m vcf_tpu_torch: {proc.stderr}")
+        require(file_bytes(out) == file_bytes(grans_file),
+                "python -m vcf_tpu_torch wrote another stream")
+    report["launches"] = total
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"entry points: {json.dumps(report)}")
+    print(f"phase 4j: {report['seconds']:.1f} s")
+    return total
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
@@ -2594,7 +2899,8 @@ def main() -> None:
                    phase_ipp_grid(dev, clip)):
         for name, count in counts.items():
             grid_launches[name] = grid_launches.get(name, 0) + count
-    launches.update(phase_ipp(dev, clip))
+    ipp_launches, ipp_run = phase_ipp(dev, clip)
+    launches.update(ipp_launches)
     launches.update(phase_cgrans_clip(dev, frames, planes, ctx_words,
                                       grans_clip))
     ctx_grid_launches, dwt_grid = phase_dwt(dev, base)
@@ -2602,6 +2908,9 @@ def main() -> None:
     # 4i's launches add to the paths' counts: srans and the generic IPP
     # loop's DWT grans still codec launch K1-K3, its P frames SAD and MC
     for name, count in phase_compositions(dev, base, clip).items():
+        launches[name] += count
+    # 4j's CLI runs add to the counts of the kernels their paths reach
+    for name, count in phase_entry_points(dev, base, clip, ipp_run).items():
         launches[name] += count
     grid_launches["rans_decode_ctx_grid"] = \
         ctx_grid_launches["rans_decode_ctx_grid"]

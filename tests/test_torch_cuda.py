@@ -1196,3 +1196,84 @@ def test_new_flows_on_cuda_decode_like_cpu(dev, kw):
         assert d.max() <= 1 and np.count_nonzero(d) <= 1e-3 * d.size
     assert abs(metrics.rmse(img, gpu.decode(cs))
                - metrics.rmse(img, cpu.decode(cpu.encode(img)))) < 0.5
+
+
+def test_bm3d_on_cuda_holds_the_c13_rule(dev):
+    """ROADMAP C13: BM3D's block distances and Wiener weights take one
+    order on every device, so the card's filter equals the CPU's but for
+    the float32 matmuls of the 3-D transforms: on a decoded crop |d| <= 1
+    on at most 0.05% of pixels, none past 1; the distances and the weights
+    themselves bit for bit."""
+    from vcf_tpu_torch.ops import filters
+
+    img = make_test_image(136, 240, seed=3)
+    plain = Codec(CodecConfig(qss=64, entropy="zlib"), "cpu")
+    part = plain.decode(plain.encode(img))
+    x = torch.from_numpy(part).to(torch.float32)
+    luma = color_ops.fma_rows(x, filters.LUMA_WEIGHTS[None]).squeeze(-1)
+    disps = filters.displacements(8)
+    assert torch.equal(filters.block_distances(luma.to(dev), disps, 8).cpu(),
+                       filters.block_distances(luma, disps, 8))
+    cg3 = torch.from_numpy(np.random.default_rng(1).normal(
+        0, 40, (8, 136, 240, 3)).astype(np.float32))
+    for a, b in zip(filters.wiener_weights(cg3.to(dev), 25.0, 8),
+                    filters.wiener_weights(cg3, 25.0, 8)):
+        assert torch.equal(a.cpu(), b)
+    cfg = CodecConfig(qss=64, entropy="zlib", filter="bm3d")
+    out_g = filters.get(cfg, dev)(part)
+    d = np.abs(out_g.astype(np.int64) - filters.get(cfg, "cpu")(part))
+    assert d.max() <= 1 and np.count_nonzero(d) <= 5e-4 * d.size
+    np.testing.assert_array_equal(filters.get(cfg, dev)(part), out_g)
+
+
+def test_cli_default_device_writes_the_codec_stream(dev, tmp_path):
+    """`vcf_tpu_torch.cli.main` with no --device runs on the card: its file
+    is the stream of Codec(..., device="cuda"), and its decode that
+    Codec's decode."""
+    from vcf_tpu_torch.cli import main
+    from vcf_tpu_torch.io import read_image, write_image
+
+    img = make_test_image(64, 96, seed=2)
+    png, enc, dec = (str(tmp_path / n) for n in ("o.png", "enc", "dec.png"))
+    write_image(png, img)
+    assert main(["encode", "-o", png, "-e", enc, "-c", "grans"]) == 0
+    codec = Codec(CodecConfig(entropy="grans"), "cuda")
+    cs = codec.encode(img)
+    with open(enc, "rb") as f:
+        assert f.read() == cs.to_bytes()
+    assert main(["decode", "-e", enc, "-d", dec, "-c", "grans"]) == 0
+    np.testing.assert_array_equal(read_image(dec), codec.decode(cs))
+
+
+def test_cli_turns_tf32_off_before_building_a_codec(dev, tmp_path,
+                                                    monkeypatch):
+    """The CLI owns its process: on the card it turns TF32 off in matmuls
+    and cuDNN and sets the "highest" matmul precision before it builds a
+    codec, which would refuse CUDA otherwise."""
+    from vcf_tpu_torch import cli, pipeline
+    from vcf_tpu_torch.io import write_image
+
+    seen = []
+    init = pipeline.Codec.__init__
+
+    def spy(self, *args, **kwargs):
+        seen.append((torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32,
+                     torch.get_float32_matmul_precision()))
+        init(self, *args, **kwargs)
+
+    monkeypatch.setattr(pipeline.Codec, "__init__", spy)
+    png = str(tmp_path / "o.png")
+    write_image(png, make_test_image(32, 48, seed=1))
+    old = torch.get_float32_matmul_precision()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        assert cli.main(["encode", "-o", png, "-e", str(tmp_path / "e"),
+                         "-c", "zlib"]) == 0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.set_float32_matmul_precision(old)
+    assert seen == [(False, False, "highest")]

@@ -8,8 +8,9 @@ after the round |d| <= 1 on at least 99.9% of pixels and never more than
 2 (a float32 value on a .5 edge rounds either way; a BM3D coefficient on
 the 2.7-sigma threshold may flip; observed: at most 1 pixel of 9,216
 differs, by 1).  BM3D's block matching is reported: the share of blocks
-whose selected displacements differ from vcf_tpu's N-pass argmin (its
-distances are float32 sums in another order); on a frame of flat patches
+whose selected displacements differ from vcf_tpu's N-pass argmin.  Its
+distances are vcf_tpu's FMA chain bit for bit (ROADMAP C13, pinned
+here), so the share is 0 on these frames; on a frame of flat patches
 the distances tie exactly, and the stable sort must pick as argmin does.
 """
 
@@ -122,6 +123,60 @@ def test_bm3d_matches_vcf_tpu(stages, h, w):
     print(f"bm3d {h}x{w}: {share:.4f} of blocks select other displacements")
     assert (sel_t[0] == 0).all()                 # the block itself first
     assert share <= 0.05
+
+
+@jax.jit
+def _jax_distances(img, b=8, s=8):
+    """vcf_tpu's block distances of the first phase of stage 1 (its
+    code, vcf_tpu/ops/filters.py:159-167): (D, nby, nbx) float32."""
+    x = img.astype(jnp.float32)
+    h, w, _ = x.shape
+    luma = jnp.einsum("hwc,c->hw", x,
+                      jnp.asarray([0.299, 0.587, 0.114], jnp.float32))
+
+    def dist_body(_, d):
+        shifted = jnp.roll(luma, (-d[0], -d[1]), (0, 1))
+        return 0, ((luma - shifted) ** 2).reshape(
+            h // b, b, w // b, b).sum((1, 3))
+
+    disps = jnp.asarray(tfilters.displacements(s).astype(np.int32))
+    return jax.lax.scan(dist_body, 0, disps)[1]
+
+
+@pytest.mark.parametrize("chunk", [1 << 25, 48 * 64 * 5])
+def test_bm3d_distances_are_one_fma_chain(monkeypatch, chunk):
+    """ROADMAP C13: the block distances are the FMA chain over each
+    block's pixels in row-major order, vcf_tpu's own sum bit for bit, the
+    same for any chunking of the displacements (5 a chunk: the last one
+    ragged), and within the chain's rounding of a float64 sum."""
+    monkeypatch.setattr(tfilters, "DIST_CHUNK", chunk)
+    img = _noisy(48, 64, seed=13)
+    x = torch.from_numpy(img.astype(np.float32))
+    luma = tfilters.color_ops.fma_rows(
+        x, tfilters.LUMA_WEIGHTS[None]).squeeze(-1)
+    got = tfilters.block_distances(luma, tfilters.displacements(8), 8)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(_jax_distances(jnp.asarray(img))))
+    lm = luma.numpy()
+    want = np.stack([((lm - np.roll(lm, (-dy, -dx), (0, 1))).astype(np.float64)
+                      ** 2).reshape(6, 8, 8, 8).sum((1, 3))
+                     for dy, dx in tfilters.displacements(8)])
+    np.testing.assert_allclose(got.numpy(), want, rtol=64 * 2.0 ** -24, atol=0)
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 1536])
+def test_fixed_sum_is_pairwise_halving(n):
+    """The Wiener weights' sum: zeros pad the axis to a power of two and
+    halves add elementwise, one order on every device (C13)."""
+    x = np.random.default_rng(n).random((3, 5, n), np.float32)
+    want = np.concatenate(
+        [x, np.zeros((3, 5, (1 << (n - 1).bit_length()) - n), np.float32)], -1)
+    while want.shape[-1] > 1:
+        half = want.shape[-1] // 2
+        want = want[..., :half] + want[..., half:]
+    got = tfilters.fixed_sum(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want[..., 0])
+    np.testing.assert_allclose(got, x.astype(np.float64).sum(-1), rtol=1e-6)
 
 
 @jax.jit

@@ -266,7 +266,9 @@ def test_import_does_not_load_jax():
             "vcf_tpu_torch.ops.vq, vcf_tpu_torch.ops.quantize, "
             "vcf_tpu_torch.parallel.mesh, vcf_tpu_torch.ops.klt, "
             "vcf_tpu_torch.ops.mdct, vcf_tpu_torch.ops.lbt, "
-            "vcf_tpu_torch.ops.filters, vcf_tpu_torch.entropy.interleaved; "
+            "vcf_tpu_torch.ops.filters, vcf_tpu_torch.entropy.interleaved, "
+            "vcf_tpu_torch.cli, vcf_tpu_torch.io.video, "
+            "vcf_tpu_torch.utils.profiling; "
             "from vcf_tpu_torch import Codec, CodecConfig; "
             "from vcf_tpu_torch.io import test_image; "
             "img = test_image(24, 32, seed=1); "

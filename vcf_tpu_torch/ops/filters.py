@@ -21,7 +21,11 @@ first-minimum argmin pick.  The group is an index gather and the
 aggregation `ordered_add` over the selected displacements, in the
 displacement order of vcf_tpu's sweep: every pixel's sum is taken in
 that one order on every device, so the filter is deterministic on CUDA
-too.  `bm3d_approx` (superseded in vcf_tpu) is not ported.
+too.  So are the block distances, vcf_tpu's float32 FMA chain bit for
+bit (`block_distances`), and the Wiener stage's block weights
+(`fixed_sum`): one order on every device, so the card's filter equals
+the CPU's but for float32 matmul sums (ROADMAP C13).  `bm3d_approx`
+(superseded in vcf_tpu) is not ported.
 
 Every function takes a (H, W, C) tensor and runs on its device; `get`
 returns the host-callable filter of a `CodecConfig` on a named device.
@@ -38,6 +42,8 @@ from vcf_tpu_torch.ops import dct as dct_ops
 
 #: BT.601 luma weights of BM3D's block matching
 LUMA_WEIGHTS = np.array([0.299, 0.587, 0.114], np.float32)
+#: block_distances' squares held at once (elements; 1 GiB of float64)
+DIST_CHUNK = 1 << 27
 
 
 def gaussian_kernel_1d(size: int, sigma: float = 0.0) -> np.ndarray:
@@ -121,14 +127,44 @@ def block_distances(luma: torch.Tensor, disps: np.ndarray, b: int
                     ) -> torch.Tensor:
     """(h, w) luma -> (D, nby, nbx): per block the sum of squared
     differences against the luma displaced by each d, wrapping round the
-    frame edges."""
+    frame edges.  The sum is taken as vcf_tpu's jitted reduction takes it
+    on the CPU: the block's b * b float32 differences in row-major order,
+    the first squared and rounded to float32, then one float32 fused
+    multiply-add per later difference.  The squares are exact in float64
+    and each FMA rounds its float64 sum once to float32 (the true FMA but
+    on a float64 sum that rounds onto a float32 midpoint, a chance of
+    about 2^-29 a term, as `ops.color.fma_rows`), so every device gives
+    the same bits: ROADMAP C13, where a float32 `.sum` reduced in another
+    order on CUDA and tipped the selection's near-ties.  The
+    displacements run in chunks of at most DIST_CHUNK squares."""
     h, w = luma.shape
+    chunk = max(1, DIST_CHUNK // (h * w))
     out = []
-    for dy, dx in disps:
-        shifted = torch.roll(luma, (-int(dy), -int(dx)), (0, 1))
-        out.append(((luma - shifted) ** 2).reshape(
-            h // b, b, w // b, b).sum((1, 3)))
-    return torch.stack(out)
+    for k in range(0, len(disps), chunk):
+        diff = torch.stack([
+            luma - torch.roll(luma, (-int(dy), -int(dx)), (0, 1))
+            for dy, dx in disps[k:k + chunk]])
+        # (b * b, D, nby, nbx): the k-th pixel of every block, row-major
+        sq = (diff.reshape(-1, h // b, b, w // b, b).permute(2, 4, 0, 1, 3)
+              .reshape(b * b, -1, h // b, w // b).to(torch.float64) ** 2)
+        del diff
+        acc = sq[0].to(torch.float32)
+        for k in range(1, b * b):
+            acc = (sq[k] + acc.to(torch.float64)).to(torch.float32)
+        out.append(acc)
+    return torch.cat(out)
+
+
+def fixed_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in one fixed order on every device: zeros
+    pad it to a power of two, then halves are added elementwise until one
+    term is left (a float32 `.sum` reduces in another order on CUDA)."""
+    n = x.shape[-1]
+    x = F.pad(x, (0, (1 << max(n - 1, 0).bit_length()) - n))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
 
 
 def select_group(dvol: torch.Tensor, n_group: int) -> torch.Tensor:
@@ -169,6 +205,25 @@ def _px(blocks: torch.Tensor, b: int) -> torch.Tensor:
     return blocks.repeat_interleave(b, -2).repeat_interleave(b, -1)
 
 
+def wiener_weights(cg3: torch.Tensor, sigma: float, b: int) -> tuple:
+    """(wsh, wgt) of BM3D's Wiener stage from the guide's 3-D coefficients
+    (N, h, w, c): the shrinkage spectrum W = C^2 / (C^2 + sigma^2), and
+    each block's aggregation weight ~ 1 / sum(W^2) per group, its sum
+    over the group's N * b * b * c terms taken by `fixed_sum` and divided
+    by their count as the IEEE quotient (ROADMAP C13: the same bits on
+    every device)."""
+    n_group, h, w, c = cg3.shape
+    nby, nbx = h // b, w // b
+    wsh = cg3 * cg3 / (cg3 * cg3 + sigma * sigma)
+    wsum = fixed_sum(wsh.reshape(n_group, nby, b, nbx, b, c).permute(
+        1, 3, 0, 2, 4, 5).reshape(nby, nbx, -1)) ** 2
+    # a device tensor: CUDA divides by a Python scalar through its
+    # reciprocal (ROADMAP C9)
+    terms = torch.tensor(float(n_group * b * b * c), dtype=torch.float32,
+                         device=cg3.device)
+    return wsh, 1.0 / (1e-2 + wsum / terms)
+
+
 def _bm3d_stage(noisy, guide, sigma, b, n_group, s, step_phases,
                 wiener: bool):
     """One BM3D stage: matching and, for the Wiener stage, the shrinkage
@@ -184,7 +239,6 @@ def _bm3d_stage(noisy, guide, sigma, b, n_group, s, step_phases,
     disps = displacements(s)
     disp_t = torch.from_numpy(disps).to(dev)
     thresh = 2.7 * sigma
-    sig2 = sigma * sigma
     d1 = torch.from_numpy(dct_ops.dct_matrix(n_group)).to(dev)
     rows = torch.arange(h, device=dev)[:, None]
     cols = torch.arange(w, device=dev)[None, :]
@@ -212,12 +266,8 @@ def _bm3d_stage(noisy, guide, sigma, b, n_group, s, step_phases,
             cg3 = torch.einsum("mn,nhwc->mhwc", d1,
                                dct_ops.analyze(grp_g, b))
             del grp_g
-            wsh = cg3 * cg3 / (cg3 * cg3 + sig2)            # Wiener spectrum
+            wsh, wgt = wiener_weights(cg3, sigma, b)
             coeff3 = coeff3 * wsh
-            # aggregation weight ~ 1 / sum(W^2) per group
-            wsum = wsh.reshape(n_group, nby, b, nbx, b, c).sum(
-                (0, 2, 4, 5)) ** 2
-            wgt = 1.0 / (1e-2 + wsum / (n_group * b * b * c))
             del cg3, wsh
         else:
             keep = coeff3.abs() >= thresh

@@ -1,4 +1,5 @@
-"""Cross-cutting utilities: timing."""
+"""Cross-cutting utilities: timing (and, in `utils.profiling`, the
+profiler hooks)."""
 
 from vcf_tpu_torch.utils.timing import StageTimer, timed_stage
 
