@@ -137,7 +137,26 @@ kernels from vcf_tpu_torch/csrc on first use.  Phases:
    `utils.profiling.trace` (trace size, peak allocated bytes printed);
    then `python -m vcf_tpu_torch encode ... -c grans` as a subprocess with
    no --device, its file equal to this process's, neither jax nor vcf_tpu
-   imported.
+   imported;
+4k. the distribution layer (`vcf_tpu_torch.parallel`): meshes that name
+   cuda:0 several times (their shards run one after another there): the
+   8-frame grans IIICodec clip on 4 shards (stream and decode equal to
+   4b's; B3/B4 once a shard and K1-K3 launched), timed in turns against
+   the one-device clip; the shared-levels Lloyd-Max BatchCodec on 4 shards
+   (levels and planes equal to one device's); the 4c IPP clip on 2 shards
+   (stream and decode equal to 4c's; SAD's m=16 instance and MC's vector
+   mode); the row-sharded DWT level of phase 4's frame in 4 slabs of 272
+   rows (haar, db5, bior4.4), bit for bit `analyze_level`; the sharded
+   k-means on 4h's DCT + vq blocks against `kmeans` from the same init
+   (centres within 1e-3, labels by agreement); one LBT step over 4 shards
+   of the frame's blocks within rtol 1e-5 of the same step on the CPU;
+   a world of one over NCCL (`allreduce_histogram`, `replicate` and the
+   4-shard shared-levels BatchCodec through it, equal to the in-process
+   results, and its start-up time); two processes of
+   tests/_torch_dist_worker.py over Gloo, each coding on cuda:0 (NCCL
+   refuses two ranks on one card), whose gathered streams, shared levels
+   and planes equal this process's.  The card is one: no run crosses two
+   cards.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Any failed check raises (non-zero exit, no result).  The last
@@ -848,7 +867,7 @@ def phase_clip(dev, frames: np.ndarray, planes_codec: torch.Tensor) -> dict:
             "fused_dequantize_cdct": launches["fused_dequantize_cdct"],
             "fused_dct_quantize": launches_p["fused_dct_quantize"],
             "fused_dequantize_idct": launches_p["fused_dequantize_idct"]}, \
-        (rec, planes, grans["bpp"]), rec_p
+        (rec, planes, grans["bpp"], cs.to_bytes()), rec_p
 
 
 def phase_motion_kernels(dev, clip: np.ndarray) -> list:
@@ -1290,7 +1309,7 @@ def phase_cgrans_clip(dev, frames: np.ndarray, planes_k: torch.Tensor,
     side = cs["clip.cgrans_model"]
     require(side[0] == 2 and side[1] == 4, "the clip did not take the "
             "4-class context path")
-    grans_rec, grans_planes, grans_bpp = grans_clip
+    grans_rec, grans_planes, grans_bpp = grans_clip[:3]
     require(np.array_equal(planes, grans_planes),
             "the cgrans and grans clips coded different planes")
     if np.array_equal(planes, planes_k.cpu().numpy()):
@@ -2871,6 +2890,310 @@ def phase_entry_points(dev, base: np.ndarray, clip: np.ndarray,
     return total
 
 
+# phase 4k (distribution): the in-process meshes' shard counts, the
+# wavelets of the row-sharded DWT, the tolerances of the sharded k-means
+# (centres; labels by agreement) and of LBT's step, the seeded noise on
+# the DCT basis where LBT's step starts (at the basis itself the decoder's
+# MSE gradient is rounding noise, whose sign Adam's first step turns into
+# a full step), and the two Gloo workers' time limit
+DIST_SHARDS, IPP_SHARDS = 4, 2
+DIST_WAVELETS = ("haar", "db5", "bior4.4")
+KMEANS_CENTRE_ATOL = 1e-3
+LBT_RTOL, LBT_INIT_NOISE = 1e-5, 1e-2
+WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "_torch_dist_worker.py")
+WORKER_TIMEOUT_S = 300
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_workers(port: int) -> list:
+    """The two Gloo ranks of tests/_torch_dist_worker.py, each coding on
+    cuda:0 at full width (NCCL refuses two ranks on one card)."""
+    return [subprocess.Popen(
+        [sys.executable, WORKER, f"127.0.0.1:{port}", "2", str(rank), "cuda",
+         str(H), str(W)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for rank in range(2)]
+
+
+def stop_workers(procs: list) -> None:
+    """Kill any worker still running (after a failure or a timeout)."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+
+
+def finish_workers(procs: list) -> dict:
+    """Wait for the workers (bounded); any failure or timeout raises, and
+    no worker outlives the call.  -> rank 0's report."""
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=WORKER_TIMEOUT_S)
+            outs.append((p.returncode, out, err))
+    finally:
+        stop_workers(procs)
+    for rank, (rc, _, err) in enumerate(outs):
+        require(rc == 0, f"gloo worker {rank} failed (rc {rc}):\n"
+                f"{err[-3000:]}")
+    lines = [ln for ln in outs[0][1].splitlines() if ln.startswith("{")]
+    require(bool(lines), "gloo worker 0 printed no report")
+    return json.loads(lines[-1])
+
+
+def sha256(blob: bytes) -> str:
+    import hashlib
+
+    return hashlib.sha256(blob).hexdigest()
+
+
+def phase_distribution(dev, base: np.ndarray, frames: np.ndarray,
+                       clip: np.ndarray, iii_run: tuple, ipp_run: tuple
+                       ) -> dict:
+    """4k: the distribution layer on the card.  In-process meshes on
+    cuda:0 (their shards run one after another there): the 8-frame `grans`
+    IIICodec clip on 4 shards (stream equal to 4b's, B3/B4 and K1-K3
+    launched, once a shard for the transforms), timed in turns against the
+    one-device clip; the shared-levels Lloyd-Max BatchCodec on 4 shards
+    (levels and planes equal to one device's); 4c's IPP clip on 2 shards
+    (stream and decode equal to 4c's, SAD's m=16 instance and MC's vector
+    mode); the row-sharded DWT level of phase 4's frame in 4 slabs of 272
+    rows (haar, db5, bior4.4; bit for bit `analyze_level`); the sharded
+    k-means on 4h's DCT + `vq` blocks against `kmeans` from the same init;
+    one LBT step over 4 shards of the frame's blocks against the same step
+    on the CPU.  Then `torch.distributed`: a world of one over NCCL
+    (`allreduce_histogram` and `replicate` through NCCL, and the
+    shared-levels BatchCodec on a 4-shard mesh with that group, equal to
+    the in-process results), and two Gloo worker processes, each coding on
+    cuda:0 (streams gathered in frame order, equal to this process's
+    encodes; shared Lloyd-Max levels and planes equal to one process's).
+    -> the in-process paths' launches, summed."""
+    import torch.distributed as tdist
+
+    from vcf_tpu_torch import Codec, CodecConfig, CodeStream, video
+    from vcf_tpu_torch.config import VideoConfig
+    from vcf_tpu_torch.ops import dct as dct_ops
+    from vcf_tpu_torch.ops import dwt, lbt, prng, vq
+    from vcf_tpu_torch.ops.cuda import dct_kernel as dk
+    from vcf_tpu_torch.ops.cuda import mc_kernel as mk
+    from vcf_tpu_torch.ops.cuda import rans_decode as rd
+    from vcf_tpu_torch.ops.cuda import rans_encode as re_
+    from vcf_tpu_torch.ops.cuda import sad_kernel as sk
+    from vcf_tpu_torch.parallel import BatchCodec, Mesh, dist, make_mesh
+
+    t_phase = time.perf_counter()
+    kernels = {"rans_encode_grouped": re_.rans_encode_grouped,
+               "rans_compact": re_.rans_compact,
+               "rans_decode_grouped": rd.rans_decode_grouped,
+               "fused_dct_quantize": dk.fused_dct_quantize,
+               "fused_dequantize_idct": dk.fused_dequantize_idct,
+               "fused_cdct_quantize": dk.fused_cdct_quantize,
+               "fused_dequantize_cdct": dk.fused_dequantize_cdct,
+               "sad_search": sk.sad_search,
+               "mc_apply_planar": mk.mc_apply_planar}
+    total: dict = {}
+
+    def count(what: str, required) -> dict:
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        print(f"distribution {what}: launches {launches}")
+        for name in required:
+            require(launches[name] > 0,
+                    f"kernel {name} was not launched on the {what} path")
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        return launches
+
+    report = {"device_count": torch.cuda.device_count(),
+              "make_mesh_size": make_mesh().size}
+    print(f"distribution: {torch.cuda.device_count()} card(s) visible, "
+          f"make_mesh() has {report['make_mesh_size']} device(s)")
+    mesh = Mesh((dev,) * DIST_SHARDS)
+
+    # the III clip on 4 shards against 4b's one-device stream
+    iii_rec, iii_blob = iii_run
+    vcfg, ccfg = VideoConfig(n_frames=FRAMES), CodecConfig(entropy="grans")
+    sharded = video.IIICodec(vcfg, ccfg, dev, mesh=mesh)
+    zero_counts(kernels)
+    blob = sharded.encode(frames).to_bytes()
+    rec = sharded.decode(CodeStream.from_bytes(blob))
+    torch.cuda.synchronize()
+    launches = count("III clip on 4 shards",
+                     ("rans_encode_grouped", "rans_compact",
+                      "rans_decode_grouped", "fused_cdct_quantize",
+                      "fused_dequantize_cdct"))
+    require(launches["fused_cdct_quantize"] == DIST_SHARDS
+            and launches["fused_dequantize_cdct"] == DIST_SHARDS,
+            "the sharded clip's transforms did not launch once a shard")
+    require(blob == iii_blob, "the 4-shard clip's stream differs from 4b's")
+    require(np.array_equal(rec, iii_rec),
+            "the 4-shard clip's decode differs from 4b's")
+    one = video.IIICodec(vcfg, ccfg, dev)
+    turns = {"one device": [], "4 shards": []}
+    for name, codec in (("one device", one), ("4 shards", sharded),
+                        ("4 shards", sharded), ("one device", one)):
+        cs, enc_ms = synced_ms(lambda: codec.encode(frames))
+        _, dec_ms = synced_ms(lambda: codec.decode(cs))
+        turns[name].append([enc_ms, dec_ms])
+    report["iii_clip_ms_in_turns"] = turns
+    # the Gloo workers run beside the rest of the phase (phase 2 built the
+    # kernel library, so they only load it)
+    procs = start_workers(free_port())
+    try:
+        # shared Lloyd-Max levels on 4 shards
+        lm_cfg = CodecConfig(quantizer="lloydmax", qss=32, entropy="zlib")
+        lm_one = BatchCodec(lm_cfg, dev, shared_levels=True)
+        lm_planes = lm_one.encode_planes(frames)
+        lm_levels = lm_one.last_qside["levels"]
+        lm = BatchCodec(lm_cfg, dev, mesh=mesh, shared_levels=True)
+        require(np.array_equal(lm.encode_planes(frames), lm_planes)
+                and np.array_equal(lm.last_qside["levels"], lm_levels),
+                "the 4-shard shared Lloyd-Max levels or planes differ")
+
+        # 4c's IPP clip on 2 shards
+        ipp_blob, ipp_rec = ipp_run
+        ipp = video.IPPCodec(
+            VideoConfig(mode="ipp", n_frames=len(clip), gop_size=GOP,
+                        me_block=ME_BLOCK, search_range=SEARCH),
+            CodecConfig(entropy="grans", subbands=False), dev,
+            mesh=Mesh((dev,) * IPP_SHARDS))
+        zero_counts(kernels)
+        blob = ipp.encode(clip).to_bytes()
+        rec = ipp.decode(CodeStream.from_bytes(blob))
+        torch.cuda.synchronize()
+        count("IPP clip on 2 shards", ("sad_search", "mc_apply_planar",
+                                       "fused_dct_quantize",
+                                       "fused_dequantize_idct"))
+        require_ipp_modes("the 2-shard IPP path")
+        require(blob == ipp_blob, "the 2-shard IPP stream differs from 4c's")
+        require(np.array_equal(rec, ipp_rec),
+                "the 2-shard IPP decode differs from 4c's")
+
+        # the row-sharded DWT level
+        x = torch.from_numpy(base.astype(np.float32)).to(dev) - 128.0
+        slabs = list(x.chunk(DIST_SHARDS))
+        for name in DIST_WAVELETS:
+            bank = dwt.get_bank(name)
+            ll, det = dwt.analyze_level_rows_sharded(slabs, bank, mesh)
+            ref_ll, ref_det = dwt.analyze_level(x, bank)
+            require(all(torch.equal(torch.cat(got), ref) for got, ref
+                        in zip([ll, *det], [ref_ll, *ref_det])),
+                    f"the row-sharded {name} level differs from analyze_level")
+
+        # the sharded k-means on the DCT + vq flow's blocks
+        vq_cfg = CodecConfig(quantizer="vq", entropy="zlib")
+        vq_codec = Codec(vq_cfg, dev)
+        coeff = vq_codec._analyze(dct_ops.pad_centered(
+            vq_codec._upload(base).to(torch.float32), vq_cfg.block_size))
+        blocks = vq.image_to_blocks(
+            dct_ops.pad_centered(coeff, vq_cfg.vq_block_size),
+            vq_cfg.vq_block_size)
+        centres, labels, init = vq.kmeans_sharded(
+            prng.PRNGKey(vq_cfg.seed), blocks, vq_cfg.vq_clusters, mesh)
+        ref_c, ref_l = vq.kmeans(prng.PRNGKey(vq_cfg.seed), blocks,
+                                 vq_cfg.vq_clusters,
+                                 init_centers=torch.from_numpy(init).to(dev))
+        centre_err = float(np.abs(centres - ref_c.cpu().numpy()).max())
+        agreement = float((labels == ref_l.cpu().numpy()).mean())
+        report["kmeans"] = {"points": list(blocks.shape),
+                            "clusters": vq_cfg.vq_clusters,
+                            "centre_max_abs_err": centre_err,
+                            "label_agreement": agreement}
+        require(centre_err <= KMEANS_CENTRE_ATOL
+                and agreement >= MIN_LABEL_AGREEMENT,
+                f"sharded k-means against kmeans: {report['kmeans']}")
+
+        # one LBT step over 4 shards, against the same step on the CPU
+        lbt_codec = Codec(CodecConfig(spatial="lbt"), dev)
+        ct = lbt_codec._fwd(dct_ops.pad_centered(
+            lbt_codec._upload(base).to(torch.float32), 8)
+            - lbt_codec.spatial_offset)
+        lb = lbt.blocks_of(ct, 8)
+        lb = lb - lb.mean(0)
+        rng = np.random.default_rng(0)
+        w0 = lbt.dct_init(8)
+        start = {"enc": w0 + rng.normal(0, LBT_INIT_NOISE, w0.shape),
+                 "dec": w0.T + rng.normal(0, LBT_INIT_NOISE, w0.shape)}
+        init_fn, step = lbt.train_step_fn()
+        out = {}
+        for where, d, blk in (("card", dev, lb), ("cpu", torch.device("cpu"),
+                                                  lb.cpu())):
+            params = {k: torch.from_numpy(v.astype(np.float32)).to(d)
+                      for k, v in start.items()}
+            out[where] = step(params, init_fn(params), list(blk.chunk(
+                DIST_SHARDS)), Mesh((d,) * DIST_SHARDS))
+        (p_g, _, loss_g), (p_c, _, loss_c) = out["card"], out["cpu"]
+        lbt_err = max(float(((p_g[k].cpu() - p_c[k]).abs()
+                             / p_c[k].abs()).max()) for k in p_c)
+        report["lbt_step"] = {"blocks": list(lb.shape), "loss": float(loss_g),
+                              "loss_cpu": float(loss_c),
+                              "params_max_rel_err": lbt_err}
+        require(bool(torch.isfinite(loss_g)) and lbt_err <= LBT_RTOL
+                and abs(float(loss_g) - float(loss_c))
+                <= LBT_RTOL * abs(float(loss_c)),
+                f"LBT's sharded step against the CPU's: {report['lbt_step']}")
+
+        # a world of one over NCCL
+        t0 = time.perf_counter()
+        dist.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+        report["nccl_init_s"] = time.perf_counter() - t0
+        try:
+            gmesh = dist.global_mesh()
+            require(gmesh.devices == (dev,) and tdist.get_backend() == "nccl",
+                    f"the NCCL mesh is {gmesh}")
+            gen = torch.Generator(dev).manual_seed(0)
+            hists = [torch.randint(0, 1 << 20, (1, 3, 4096), device=dev,
+                                   generator=gen)
+                     for _ in range(DIST_SHARDS)]
+            group_mesh = Mesh((dev,) * DIST_SHARDS, group=gmesh.group)
+            require(torch.equal(dist.allreduce_histogram(hists, group_mesh),
+                                dist.allreduce_histogram(hists, mesh)),
+                    "allreduce_histogram through NCCL differs")
+            require(all(torch.equal(a, b) for a, b in zip(
+                dist.replicate(lm_levels, group_mesh),
+                dist.replicate(lm_levels, mesh))),
+                "replicate through NCCL differs")
+            lm_nccl = BatchCodec(lm_cfg, dev, mesh=group_mesh,
+                                 shared_levels=True)
+            require(np.array_equal(lm_nccl.encode_planes(frames), lm_planes)
+                    and np.array_equal(lm_nccl.last_qside["levels"],
+                                       lm_levels),
+                    "the NCCL mesh's shared Lloyd-Max levels or planes differ")
+        finally:
+            tdist.destroy_process_group()
+
+        # two Gloo processes on the card: this process's encodes meanwhile
+        codec = Codec(CodecConfig(entropy="grans"), dev)
+        streams = [sha256(codec.encode(f).to_bytes()) for f in frames]
+        t0 = time.perf_counter()
+        gloo = finish_workers(procs)
+        report["gloo_wait_s"] = time.perf_counter() - t0
+        for key in ("hist_ok", "psum_ok", "replicate_ok", "dwt_ok", "lbt_ok",
+                    "kmeans_ok", "imports_clean"):
+            require(gloo[key] is True, f"gloo workers: {key} is {gloo[key]}")
+        require(gloo["processes"] == 2 and gloo["backend"] == "gloo"
+                and gloo["device"] == str(dev), f"gloo workers: {gloo}")
+        require(gloo["stream_sha"] == streams,
+                "the gathered streams differ from this process's encodes")
+        require(gloo["planes_sha"] == [sha256(p.tobytes()) for p in lm_planes]
+                and gloo["levels_sha"] == sha256(
+                    np.ascontiguousarray(lm_levels).tobytes()),
+                "the two ranks' shared Lloyd-Max levels or planes differ from "
+                "one process's")
+    finally:
+        stop_workers(procs)
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"distribution: {json.dumps(report)}")
+    print(f"phase 4k: {report['seconds']:.1f} s")
+    return total
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
@@ -2911,6 +3234,12 @@ def main() -> None:
         launches[name] += count
     # 4j's CLI runs add to the counts of the kernels their paths reach
     for name, count in phase_entry_points(dev, base, clip, ipp_run).items():
+        launches[name] += count
+    # 4k's in-process meshes add theirs (the Gloo workers' own processes
+    # are not counted)
+    iii_run = (grans_clip[0], grans_clip[3])
+    for name, count in phase_distribution(dev, base, frames, clip, iii_run,
+                                          ipp_run).items():
         launches[name] += count
     grid_launches["rans_decode_ctx_grid"] = \
         ctx_grid_launches["rans_decode_ctx_grid"]

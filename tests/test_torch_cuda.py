@@ -1277,3 +1277,55 @@ def test_cli_turns_tf32_off_before_building_a_codec(dev, tmp_path,
         torch.backends.cudnn.allow_tf32 = False
         torch.set_float32_matmul_precision(old)
     assert seen == [(False, False, "highest")]
+
+
+# ---------------------------------------------------------------------------
+# Meshes on the card: 4 shards on cuda:0 run one after another there, each
+# through the same kernels as the one-device batch, so the outputs are equal
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kw", [dict(), dict(quantizer="lloydmax")],
+                         ids=["cdct-route", "lloydmax"])
+def test_batch_codec_on_a_cuda_mesh_equals_one_device(dev, kw):
+    from vcf_tpu_torch.parallel import Mesh
+
+    frames = np.stack([make_test_image(61, 90, seed=i) for i in range(6)])
+    cfg = CodecConfig(entropy="zlib", **kw)
+    mesh = Mesh((dev,) * 4)
+    for shared in ((False, True) if kw else (False,)):
+        one = BatchCodec(cfg, dev, shared_levels=shared)
+        sharded = BatchCodec(cfg, dev, mesh=mesh, shared_levels=shared)
+        before = dk.fused_cdct_quantize.launches
+        planes = sharded.encode_planes(frames)
+        if not kw:
+            assert dk.fused_cdct_quantize.launches - before == 4
+        np.testing.assert_array_equal(planes, one.encode_planes(frames))
+        for key, value in one.last_qside.items():
+            np.testing.assert_array_equal(sharded.last_qside[key], value)
+        np.testing.assert_array_equal(
+            sharded.decode_planes(planes, original_hw=(61, 90)),
+            one.decode_planes(planes, original_hw=(61, 90)))
+
+
+def test_ipp_on_a_cuda_mesh_equals_one_device(dev):
+    from vcf_tpu_torch.parallel import Mesh
+
+    frames = make_test_video(6, 64, 96)
+    vcfg = VideoConfig(mode="ipp", n_frames=6, gop_size=2, search_range=4)
+    ccfg = CodecConfig(entropy="grans")
+    one = video.IPPCodec(vcfg, ccfg, dev)
+    sharded = video.IPPCodec(vcfg, ccfg, dev, mesh=Mesh((dev,) * 4))
+    cs = sharded.encode(frames)
+    assert cs.to_bytes() == one.encode(frames).to_bytes()
+    rec = sharded.decode(CodeStream.from_bytes(cs.to_bytes()))
+    np.testing.assert_array_equal(
+        rec, sharded.last_recon.to(torch.uint8).cpu().numpy())
+    np.testing.assert_array_equal(rec, one.decode(cs))
+
+
+def test_make_mesh_raises_past_the_cards(dev):
+    from vcf_tpu_torch.parallel import make_mesh
+
+    assert make_mesh().size == torch.cuda.device_count()
+    with pytest.raises(RuntimeError, match="cuda devices"):
+        make_mesh(torch.cuda.device_count() + 1)

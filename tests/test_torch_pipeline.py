@@ -264,7 +264,8 @@ def test_import_does_not_load_jax():
             "vcf_tpu_torch.entropy.cbaac, vcf_tpu_torch.entropy.png, "
             "vcf_tpu_torch.entropy.pnm, vcf_tpu_torch.ops.prng, "
             "vcf_tpu_torch.ops.vq, vcf_tpu_torch.ops.quantize, "
-            "vcf_tpu_torch.parallel.mesh, vcf_tpu_torch.ops.klt, "
+            "vcf_tpu_torch.parallel.mesh, vcf_tpu_torch.parallel.dist, "
+            "vcf_tpu_torch.ops.klt, "
             "vcf_tpu_torch.ops.mdct, vcf_tpu_torch.ops.lbt, "
             "vcf_tpu_torch.ops.filters, vcf_tpu_torch.entropy.interleaved, "
             "vcf_tpu_torch.cli, vcf_tpu_torch.io.video, "

@@ -30,15 +30,18 @@ depends on how it fuses, which the port does not model.  The colour
 transform around the bank is `ops.color.fma_rows`, the FMA chain of
 vcf_tpu's colour dot.
 
-Not ported: `halo_sizes` and `analyze_level_rows_sharded`, the
-row-sharded analysis, which wait for ROADMAP A15.
+`analyze_level_rows_sharded` is one analysis level with the frame's
+rows sharded over a mesh (`parallel.Mesh`): each shard's slab takes its
+`halo_sizes` rows from its ring neighbours (`parallel.dist`: a copy
+within a process, point-to-point across processes) and runs the same FMA
+chains on them, so its subbands equal `analyze_level`'s bit for bit.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -496,6 +499,64 @@ def synthesize_level(ll: torch.Tensor, details, bank: Bank, out_hw):
           + _up_axis(hh, bank.rec_hi, bank.phase_hi, 1, w_out))
     return (_up_axis(lo, bank.rec_lo, bank.phase_lo, 0, h_out)
             + _up_axis(hi, bank.rec_hi, bank.phase_hi, 0, h_out))
+
+
+def halo_sizes(bank: Bank) -> Tuple[int, int]:
+    """(before, after) halo rows a shard needs for one analyze level:
+    output a[k] reads input rows 2k + j + shift for j in [0, len) and
+    both filters, so `before` covers the most negative j + shift and
+    `after` the largest."""
+    lo_min = min(bank.shift_lo, bank.shift_hi)
+    hi_max = max(len(bank.dec_lo) - 1 + bank.shift_lo,
+                 len(bank.dec_hi) - 1 + bank.shift_hi)
+    return max(0, -lo_min), max(0, hi_max)
+
+
+def _down_rows_from_ext(ext: torch.Tensor, filt: np.ndarray, shift: int,
+                        before: int, h_local: int, n_rows: int
+                        ) -> torch.Tensor:
+    """Row-direction analysis on a halo-extended slab: out[k] = sum_j
+    f[j] * ext[before + 2k + j + shift] for 2k in [0, h_local), the chain
+    `_down_axis` runs on the whole frame of `n_rows` rows."""
+    return _fma_chain(
+        lambda j: ext[before + j + shift:before + j + shift + h_local:2],
+        filt, plain0=shift % n_rows == 0)
+
+
+def analyze_level_rows_sharded(slabs: Sequence[torch.Tensor], bank: Bank,
+                               mesh):
+    """One analysis level with the frame's rows sharded over `mesh`:
+    `slabs` holds each shard's (h_local, w, ...) row slab on its device
+    (h_local even and >= both halos; across the mesh's processes, every
+    slab the same height), in frame order.  The halos wrap around the
+    ring as `_down_axis`'s periodic rows do (shard 0 receives the last
+    shard's rows, vcf_tpu's ppermute).  Returns (ll, (lh, hl, hh)), each
+    a list of the shards' h_local // 2 row slabs."""
+    from vcf_tpu_torch.parallel import dist
+
+    before, after = halo_sizes(bank)
+    h_local = slabs[0].shape[0]
+    if h_local % 2 or h_local < max(before, after):
+        raise ValueError(f"slabs of {h_local} rows: need an even height "
+                         f">= {max(before, after)}")
+    n_rows = h_local * len(slabs) * dist._group_size(mesh)
+    heads = (dist._ring_shift([x[h_local - before:] for x in slabs], mesh, 1)
+             if before else [None] * len(slabs))
+    tails = (dist._ring_shift([x[:after] for x in slabs], mesh, -1)
+             if after else [None] * len(slabs))
+    bands = []
+    for x, head, tail in zip(slabs, heads, tails):
+        ext = torch.cat([p for p in (head, x, tail) if p is not None])
+        lo = _down_rows_from_ext(ext, bank.dec_lo, bank.shift_lo, before,
+                                 h_local, n_rows)
+        hi = _down_rows_from_ext(ext, bank.dec_hi, bank.shift_hi, before,
+                                 h_local, n_rows)
+        bands.append((_down_axis(lo, bank.dec_lo, bank.shift_lo, 1),
+                      _down_axis(lo, bank.dec_hi, bank.shift_hi, 1),
+                      _down_axis(hi, bank.dec_lo, bank.shift_lo, 1),
+                      _down_axis(hi, bank.dec_hi, bank.shift_hi, 1)))
+    ll, lh, hl, hh = (list(b) for b in zip(*bands))
+    return ll, (lh, hl, hh)
 
 
 def analyze(x: torch.Tensor, wavelet: str, levels: int) -> list:

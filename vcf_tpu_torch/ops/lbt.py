@@ -12,9 +12,10 @@ Training is full-batch over all blocks of the image, from the DCT basis,
 with torch autograd.  The Adam step is optax's `adam` written out in
 float32 in optax's order (`adam_step`), not `torch.optim.Adam`, which
 rounds in another order.  The step loop reads nothing back, so on CUDA it
-queues without a host sync until the weights are used.  vcf_tpu's
-`train_step_fn` (its data-parallel step, psum'd over a mesh) waits for
-ROADMAP A15.
+queues without a host sync until the weights are used.
+`train_step_fn` is vcf_tpu's data-parallel step: each shard of a mesh
+(`parallel.Mesh`) takes the gradients of its own blocks, and their sum
+over the mesh (`parallel.dist`) feeds one Adam step (ROADMAP C14).
 """
 
 from __future__ import annotations
@@ -95,6 +96,50 @@ def train(blocks: torch.Tensor, enc0: torch.Tensor, dec0: torch.Tensor,
         params = [s[0] for s in stepped]
         moments = [(s[1], s[2]) for s in stepped]
     return params[0], params[1]
+
+
+def train_step_fn(lr: float = 1e-3, coding_lambda: float = 1e-2):
+    """One data-parallel training step (vcf_tpu's `train_step_fn`).
+
+    Returns (init, step): `init(params) -> state` for params {"enc":
+    (D, D), "dec": (D, D)}, and `step(params, state, shard_blocks, mesh)
+    -> (params, state, loss)`, where `shard_blocks` holds each shard's
+    (N_s, D) blocks on its device.  Each shard runs autograd of the loss
+    on its own blocks (the coefficients' variance is that shard's); the
+    gradients are summed over the mesh's shards and the loss averaged,
+    then each parameter takes one `adam_step`.  The sum is what vcf_tpu's
+    step computes: inside its shard_map, `jax.grad` with respect to the
+    replicated parameters already returns the psum of the shards'
+    gradients, and the `pmean` after it leaves that sum as it is
+    (ROADMAP C14).  Params and state live on the mesh's first device."""
+    from vcf_tpu_torch.parallel import dist
+
+    def init(params):
+        return {"count": 0,
+                "mu": {k: torch.zeros_like(p) for k, p in params.items()},
+                "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+    def step(params, state, shard_blocks, mesh):
+        names = ("enc", "dec")
+        losses, grads = [], []
+        for blocks in shard_blocks:
+            local = [params[k].detach().to(blocks.device).requires_grad_(True)
+                     for k in names]
+            loss = loss_fn(blocks, *local, coding_lambda)
+            grads.append(torch.autograd.grad(loss, local))
+            losses.append(loss.detach())
+        t = state["count"] + 1
+        new_params, mu, nu = {}, {}, {}
+        with torch.no_grad():
+            for i, k in enumerate(names):
+                g = dist._psum([gs[i] for gs in grads], mesh)
+                new_params[k], mu[k], nu[k] = adam_step(
+                    params[k].detach(), g, state["mu"][k], state["nu"][k], t,
+                    lr)
+            loss = dist._pmean(losses, mesh)
+        return new_params, {"count": t, "mu": mu, "nu": nu}, loss
+
+    return init, step
 
 
 def _side_info_path(path: str) -> str:

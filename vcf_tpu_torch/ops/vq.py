@@ -1,5 +1,6 @@
 """Vector quantization by k-means on a torch device (port of
-vcf_tpu/ops/vq.py; its mesh-sharded trainer waits for ROADMAP A15).
+vcf_tpu/ops/vq.py), and its data-parallel trainer over a mesh
+(`kmeans_sharded`).
 
 Capability parity with src/VQ.py (spatial block VQ) and src/color-VQ.py
 (RGB palette VQ), which use scikit-learn KMeans (k-means++, n_init=1,
@@ -116,6 +117,57 @@ def kmeans(key: np.ndarray, x: torch.Tensor, k: int,
     centers = centers[order]
     labels = torch.argmin(_pairwise_sqdist(x, centers, x2), dim=1)
     return centers, labels.to(torch.int32)
+
+
+def kmeans_sharded(key: np.ndarray, x, k: int, mesh,
+                   iters: int = KMEANS_ITERS):
+    """k-means with the points sharded over `mesh` (`parallel.Mesh`): ONE
+    codebook trained across the shards (the BASELINE north star; the
+    reference trains one per image, src/VQ.py:110-112).
+
+    x: (N, D) points, N divisible by the mesh size; with a process group
+    every process passes all N and takes its rank's rows (rank-major), and
+    the labels come back whole on every process.  Seeding is
+    `kmeans_plus_plus_init` on the strided global subsample vcf_tpu takes
+    (the same for every mesh size).  Each Lloyd step computes every
+    shard's assignment mass and float64 sums (the unsharded `kmeans`'s
+    statistics), psums them over the mesh in shard order (`parallel.dist`)
+    and updates the centres with mass; so the centres equal `kmeans`'s
+    with the same init up to the float64 sums' order.  Returns numpy
+    (centroids (K, D) energy-sorted, labels (N,) int32, init (K, D))."""
+    from vcf_tpu_torch.parallel import dist
+
+    x = dist._as_tensor(x).to(torch.float32)
+    n = x.shape[0]
+    stride = max(1, n // max(8 * k, 1))
+    d0 = mesh.devices[0]
+    init = kmeans_plus_plus_init(key, x[::stride].to(d0), k)
+    shards = dist._split(dist._process_rows(x, mesh), mesh)
+    norms = [sqnorm(xs) for xs in shards]
+    wide = [xs.to(torch.float64) for xs in shards]
+    centers = init
+    for _ in range(iters):
+        masses, sums = [], []
+        for xs, x2, x64, c in zip(shards, norms, wide,
+                                  (centers.to(d) for d in mesh.devices)):
+            assign = torch.argmin(_pairwise_sqdist(xs, c, x2), dim=1)
+            masses.append(torch.bincount(assign, minlength=k).to(
+                torch.float32))
+            s = torch.zeros((k, xs.shape[1]), dtype=torch.float64,
+                            device=xs.device)
+            sums.append(s.index_add_(0, assign, x64))
+        mass = dist._psum(masses, mesh)
+        new = (dist._psum(sums, mesh).to(torch.float32)
+               / torch.clamp(mass, min=1.0)[:, None])
+        centers = torch.where(mass[:, None] > 0, new, centers)
+    centers = centers[torch.argsort(sqnorm(centers), stable=True)]
+    labels = torch.cat([
+        torch.argmin(_pairwise_sqdist(xs, centers.to(xs.device), x2),
+                     dim=1).to(torch.int32).to(d0)
+        for xs, x2 in zip(shards, norms)])
+    return (centers.cpu().numpy(),
+            dist._gather_rows(labels, mesh).cpu().numpy(),
+            init.cpu().numpy())
 
 
 def assign_labels(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:

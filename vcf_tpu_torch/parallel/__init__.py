@@ -1,11 +1,14 @@
-"""Batched execution over the frame axis (port of vcf_tpu/parallel; the
-one-device part).
+"""Batched and sharded execution over the frame axis (port of
+vcf_tpu/parallel).
 
-vcf_tpu shards frames over a `jax.sharding.Mesh`; the port codes a
-batch of frames as one tensor on one torch device.  The mesh, sharding
-and the distribution layer wait for ROADMAP A15.
+A `Mesh` is a tuple of torch devices, one per shard, with an optional
+`torch.distributed` process group; `BatchCodec` codes a batch of frames on
+one device or sharded over a mesh, and `parallel.dist` holds the
+collectives (process start-up, psum, broadcast, the ordered stream
+gather) over Gloo or NCCL.
 """
 
-from vcf_tpu_torch.parallel.mesh import BatchCodec
+from vcf_tpu_torch.parallel.mesh import (BatchCodec, Mesh, make_mesh,
+                                         shard_batch)
 
-__all__ = ["BatchCodec"]
+__all__ = ["Mesh", "make_mesh", "shard_batch", "BatchCodec"]

@@ -9,10 +9,13 @@ and with a host codec per frame.  Other compositions fall back to
 per-frame coding through `Codec`.  The streams are vcf_tpu's: on equal
 index planes the bytes are identical.
 
-vcf_tpu's `mesh` argument goes; the port runs on one named device
-(multi-device sharding waits for ROADMAP A15).  `shared_levels` passes
-through to `BatchCodec` (Lloyd-Max: one level set for the clip); with a
-host entropy codec each frame's segment group then carries that one set,
+The codec runs on one named device; `mesh` (a `parallel.Mesh` whose
+first device is that device) shards the batch path's device work over
+its devices, as vcf_tpu's `mesh` does, and the entropy stage codes the
+gathered planes on the codec's device.  The per-frame fallback ignores
+the mesh, as vcf_tpu's does.  `shared_levels` passes through to
+`BatchCodec` (Lloyd-Max: one level set for the clip); with a host
+entropy codec each frame's segment group then carries that one set,
 where vcf_tpu's per-frame loop indexes the (C, L) array by frame and
 fails past the third frame (ROADMAP C11).
 """
@@ -34,7 +37,7 @@ BATCHED_ENTROPY = ("rans", "grans", "srans", "cgrans")
 
 class IIICodec:
     def __init__(self, video_config: VideoConfig, codec_config: CodecConfig,
-                 device, shared_levels: bool = False):
+                 device, shared_levels: bool = False, mesh=None):
         self.vcfg = video_config
         self.ccfg = codec_config
         self.device = torch.device(device)
@@ -47,7 +50,7 @@ class IIICodec:
         ):
             from vcf_tpu_torch.parallel.mesh import BatchCodec
 
-            self._batch = BatchCodec(codec_config, self.device,
+            self._batch = BatchCodec(codec_config, self.device, mesh=mesh,
                                      shared_levels=shared_levels)
 
     def encode(self, frames: np.ndarray) -> CodeStream:
@@ -57,7 +60,7 @@ class IIICodec:
         batched = (self._batch is not None
                    and self.ccfg.entropy in BATCHED_ENTROPY)
         if self._batch is not None:
-            # one device dispatch for the whole clip
+            # one device dispatch for the whole clip (one a shard)
             planes = self._batch.encode_planes(frames)
             levels = self._batch.last_qside.get("levels")
             if batched:

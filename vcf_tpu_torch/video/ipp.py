@@ -50,8 +50,13 @@ kernels on CUDA).  The stream holds `f%04d.<segment>` sub-streams,
 `mv_%04d` arrays and the payload JSON with `"generic": true`.  The still
 codec's decode filter, if any, runs inside the loop, as in vcf_tpu.
 
-The mesh (vcf_tpu's `_shard_gops`) waits for ROADMAP A15: the padded
-GOPs are stacked on the one device.
+With a `mesh` (a `parallel.Mesh` whose first device is the codec's), the
+fused loop's GOPs are sharded as vcf_tpu's `_shard_gops` shards them:
+the GOP batch padded to a multiple of the mesh size by repeating its
+last GOP, each shard's GOPs run through the frame loop on its own device,
+and the outputs gathered in GOP order on the codec's device and cut to
+the clip's GOPs, at encode and at decode.  The entropy stage and the
+generic closed loop are not sharded, as in vcf_tpu.
 """
 
 from __future__ import annotations
@@ -72,7 +77,8 @@ from vcf_tpu_torch.ops import quantize as q_ops
 from vcf_tpu_torch.ops.cuda import dct_kernel as dk
 from vcf_tpu_torch.ops.cuda import mc_kernel
 from vcf_tpu_torch.ops.cuda import sad_kernel
-from vcf_tpu_torch.parallel.mesh import _on_device
+from vcf_tpu_torch.parallel.mesh import (Mesh, check_mesh, gather, pad_to,
+                                         shard_batch)
 from vcf_tpu_torch.pipeline import Codec, check_full_fp32
 from vcf_tpu_torch.video.iii import BATCHED_ENTROPY
 
@@ -85,15 +91,18 @@ def _clip(x: torch.Tensor) -> torch.Tensor:
 
 
 class IPPCodec:
-    """IPP on one torch device: the fused GOP loop for the dct + deadzone
-    compositions, the generic closed loop through the still `Codec` for
-    every other one."""
+    """IPP on one torch device (or the fused loop sharded over a mesh):
+    the fused GOP loop for the dct + deadzone compositions, the generic
+    closed loop through the still `Codec` for every other one."""
 
     def __init__(self, video_config: VideoConfig, codec_config: CodecConfig,
-                 device):
+                 device, mesh=None):
         self.vcfg = video_config
         self.ccfg = codec_config
         self.device = torch.device(device)
+        check_mesh(mesh, self.device)
+        #: the fused loop's GOPs shard over it (None: all on `device`)
+        self.mesh = mesh
         if self.device.type == "cuda":
             check_full_fp32()
         self.entropy_codec = entropy.get(codec_config.entropy, codec_config,
@@ -119,6 +128,13 @@ class IPPCodec:
         #: `decode` must reproduce bit for bit
         self.last_planes = None
         self.last_recon = None
+
+    def _shard_gops(self, gops: np.ndarray) -> List[torch.Tensor]:
+        """A batch of GOPs (or of their mvs or modes) -> one tensor per
+        shard on its device, padded to a multiple of the mesh size by
+        repeating the last GOP (GOPs are independent: no collective)."""
+        mesh = self.mesh if self.mesh is not None else Mesh((self.device,))
+        return shard_batch(pad_to(gops, mesh.size)[0], mesh)
 
     # ------------------------------------------------------------------
     # Routes
@@ -379,9 +395,13 @@ class IPPCodec:
         padded = frames
         if n_pad:
             padded = np.concatenate([frames, np.repeat(frames[-1:], n_pad, 0)])
-        gops = _on_device(padded.reshape(-1, t, *frames.shape[1:]),
-                          self.device)
-        planes_b, mvs_b, modes_b, recs = self._gop_encode(gops)
+        gops = padded.reshape(-1, t, *frames.shape[1:])
+        n_gops = gops.shape[0]
+        outs = [self._gop_encode(g) for g in self._shard_gops(gops)]
+        planes_b, mvs_b, modes_b, recs = (
+            None if outs[0][i] is None
+            else gather([o[i] for o in outs], self.device)[:n_gops]
+            for i in range(4))
         planes_np = self._store(planes_b).reshape(-1, h, w, 3)[:n].cpu().numpy()
         mvs_np = mvs_b.cpu().numpy()                 # (G, T-1, nby, nbx, 2)
         modes_np = None if modes_b is None else modes_b.cpu().numpy()
@@ -469,16 +489,16 @@ class IPPCodec:
                 mv_all[i] = cs.get_array(f"mv_{i:04d}")
                 if rdo:
                     mode_all[i] = cs.get_array(f"modes_{i:04d}")
-        planes_t = self._load(_on_device(
-            planes_np.reshape(-1, t, *planes_np.shape[1:]), self.device))
-        mvs_t = torch.from_numpy(
-            mv_all.reshape(-1, t, nby, nbx, 2)[:, 1:].copy()).to(self.device)
-        modes_t = None
+        gops = planes_np.reshape(-1, t, *planes_np.shape[1:])
+        planes_t = [self._load(p) for p in self._shard_gops(gops)]
+        mvs_t = self._shard_gops(mv_all.reshape(-1, t, nby, nbx, 2)[:, 1:])
+        modes_t = [None] * len(planes_t)
         if rdo:
-            modes_t = torch.from_numpy(
-                mode_all.reshape(-1, t, nby, nbx)[:, 1:].copy()).to(self.device)
-        recs = self._gop_decode(planes_t, mvs_t, modes_t)
-        recs = recs.movedim(-3, -1).reshape(-1, h, w, 3)[:n]
+            modes_t = self._shard_gops(
+                mode_all.reshape(-1, t, nby, nbx)[:, 1:])
+        recs = gather([self._gop_decode(p, mv, md) for p, mv, md
+                       in zip(planes_t, mvs_t, modes_t)], self.device)
+        recs = recs[:gops.shape[0]].movedim(-3, -1).reshape(-1, h, w, 3)[:n]
         return recs.to(torch.uint8).cpu().numpy()
 
     # ------------------------------------------------------------------
