@@ -1,0 +1,8 @@
+"""`decode_gbps`: u8 pixel bytes of every clip decoded in the window's
+decode half over that half's wall time (host clock), in GB/s."""
+
+from portbench.end_to_end import _rate
+
+
+def read(rec: dict) -> float:
+    return _rate.gbps(rec, "dec")
