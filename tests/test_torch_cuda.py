@@ -1329,3 +1329,105 @@ def test_make_mesh_raises_past_the_cards(dev):
     assert make_mesh().size == torch.cuda.device_count()
     with pytest.raises(RuntimeError, match="cuda devices"):
         make_mesh(torch.cuda.device_count() + 1)
+
+
+def _trace_events(prof, path) -> list:
+    import json
+
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+def test_rans_read_backs_count_once_a_call_on_the_trace_clock(dev, tmp_path):
+    """A wire encode (K1, the row mode, assemble_stream), a K3 decode and a
+    grid decode each read the card back once: `host_syncs` grows by 1 a
+    call.  In a profiler trace each `vcf.rans.sync` span launches one
+    device-to-host copy, which ends inside the span's host interval: the
+    codec's spans and the device items share one clock."""
+    from torch.profiler import ProfilerActivity, profile
+    from vcf_tpu_torch.utils import profiling
+
+    g, sg, l = 64, 16, 24
+    syms, fg, cg = _case(g, sg, l, seed=11)
+    s = torch.from_numpy(syms).to(dev)
+    ft = torch.from_numpy(fg.astype(np.int64)).to(dev)
+    ct = torch.from_numpy(cg.astype(np.int64)).to(dev)
+    added = []
+
+    def counted(fn):
+        before = profiling.counts()["host_syncs"]
+        out = fn()
+        added.append(profiling.counts()["host_syncs"] - before)
+        return out
+
+    def wire_encode():
+        rows, counts, st = re_.rans_encode_rows(s, ft, ct)
+        return (*re_.assemble_stream(rows, counts), st, counts)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        words, n_words, st, counts = counted(wire_encode)
+        n = int(n_words)
+        out = counted(lambda: rd.rans_decode_grouped(words[:n], st, ft, ct,
+                                                     l, counts))
+        raw, st_raw = re_.rans_encode_grouped(s, ft, ct)
+        grid = counted(lambda: rd.rans_decode_grouped_grid(raw, st_raw, ft,
+                                                           ct, l))
+        torch.cuda.synchronize(dev)
+    assert added == [1, 1, 1]
+    assert torch.equal(out, s) and torch.equal(grid, s)
+
+    events = _trace_events(prof, tmp_path / "trace.json")
+    names = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"vcf.rans.encode", "vcf.rans.compact", "vcf.rans.assemble",
+            "vcf.rans.decode", "vcf.rans.tables", "vcf.rans.layout",
+            "vcf.rans.sync"} <= names
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "DtoH" in e.get("name", "")]
+    syncs = [e for e in events if e.get("cat") == "user_annotation"
+             and e["name"] == "vcf.rans.sync"]
+    assert len(syncs) == 3
+    for sp in syncs:
+        a, b = sp["ts"], sp["ts"] + sp["dur"]
+        inside = [c for c in copies
+                  if a <= launch_ts.get(c["args"].get("correlation"), -1) <= b]
+        assert len(inside) == 1, inside
+        end = inside[0]["ts"] + inside[0]["dur"]
+        assert a <= end <= b, (a, end, b)
+
+
+def test_layout_bytes_count_the_card_copies(dev):
+    """The DCT wrapper's planar copy, the lanes' copy and K1's (L, S) copy
+    each add their bytes read and written; contiguous inputs add nothing."""
+    from vcf_tpu_torch.utils import profiling
+
+    def added(fn):
+        before = profiling.counts()["layout_bytes"]
+        out = fn()
+        return out, profiling.counts()["layout_bytes"] - before
+
+    clip = torch.from_numpy(make_test_video(2, 64, 256, seed=3)).to(dev)
+    n = clip.numel()
+    mat = dk.static_mat(color_ops.YCOCG_FWD)
+    planes, got = added(lambda: dk.fused_cdct_quantize(
+        clip.permute(0, 3, 1, 2), mat, grid_layout=True))
+    assert got == 2 * n
+    again, got = added(lambda: dk.fused_cdct_quantize(
+        clip.permute(0, 3, 1, 2).contiguous(), mat, grid_layout=True))
+    assert got == 0 and torch.equal(again, planes)
+    lanes, got = added(lambda: rans.grid_lanes_lmajor(
+        planes, 8, 1024, cw=dk._chunk_w(256, 8)))
+    assert got == 2 * n
+    fg, cg = rans.freqs_from_counts(
+        rans.group_histograms(lanes.t(), 64).cpu().numpy())
+    ft = torch.from_numpy(fg.astype(np.int64)).to(dev)
+    ct = torch.from_numpy(cg.astype(np.int64)).to(dev)
+    (raw, st), got = added(lambda: re_.rans_encode_grouped(lanes.t(), ft, ct))
+    assert got == 2 * n
+    (raw2, st2), got = added(lambda: re_.rans_encode_grouped(
+        lanes.contiguous().t(), ft, ct))
+    assert got == 0 and torch.equal(raw2, raw) and torch.equal(st2, st)

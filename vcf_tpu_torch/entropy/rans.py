@@ -20,7 +20,9 @@ implementations (`np_*`) define the format.
 `grid_lanes*` / `grid_unlanes*` lay out the index planes of the
 subband-grid tile layout (the `grid_layout` modes of B1-B4) as lanes
 with plain reshapes: the device-resident lane-grid path, whose raw
-(L, S) grid the routing-free grid decode reads directly.
+(L, S) grid the routing-free grid decode reads directly.  They run in a
+`vcf.rans.layout` span, and the reshapes that copy count their bytes in
+`layout_bytes` (`utils.profiling`).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from vcf_tpu_torch.ops.cuda.rans_decode import rans_decode_grouped
 from vcf_tpu_torch.ops.cuda.rans_encode import (K_PROB, MASK, RANS_L,
                                                 _SHIFT_EMIT, rans_compact,
                                                 rans_encode_grouped)
+from vcf_tpu_torch.utils import profiling
 
 __all__ = ["K_PROB", "RANS_L", "MASK", "quantize_freqs", "np_encode_grouped",
            "np_decode_grouped", "subband_lanes", "subband_unlanes",
@@ -198,13 +201,22 @@ def _grid_split(planes_grid: torch.Tensor, b: int, s_streams: int,
     n, c = planes_grid.shape[:2]
     g, sg, l, (j_t, br, k_t, bc) = _grid_dims(planes_grid.shape, b,
                                               s_streams, rows, cw)
-    x = planes_grid.reshape(n, c, j_t, b, br, k_t, b, bc)
+    x = _reshaped(planes_grid, n, c, j_t, b, br, k_t, b, bc)
     return x.permute(3, 6, 0, 1, 2, 4, 5, 7), g, sg, l
 
 
 def _grid_join(xt: torch.Tensor, shape) -> torch.Tensor:
     """(gy, gx, N, C, J, BR, K, BC) -> (N, C, H, W) grid-layout planes."""
-    return xt.permute(2, 3, 4, 0, 5, 6, 1, 7).reshape(shape)
+    return _reshaped(xt.permute(2, 3, 4, 0, 5, 6, 1, 7), *shape)
+
+
+def _reshaped(x: torch.Tensor, *shape) -> torch.Tensor:
+    """x.reshape(shape); where that copies, the bytes read and written
+    count in `layout_bytes` (utils.profiling)."""
+    y = x.reshape(shape)
+    if y.untyped_storage().data_ptr() != x.untyped_storage().data_ptr():
+        profiling.count("layout_bytes", 2 * y.nbytes)
+    return y
 
 
 def grid_lanes(planes_grid: torch.Tensor, b: int, s_streams: int,
@@ -215,8 +227,9 @@ def grid_lanes(planes_grid: torch.Tensor, b: int, s_streams: int,
     lane matrix with one group per coefficient (lane // (S / b^2) =
     gy * b + gx) and lane-major block order.  `cw` is the layout's tile
     width (`ops.cuda.dct_kernel._chunk_w`).  Pure reshapes/permutes."""
-    xt, g, sg, l = _grid_split(planes_grid, b, s_streams, rows, cw)
-    return xt.reshape(g * sg, l)
+    with profiling.span("vcf.rans.layout"):
+        xt, g, sg, l = _grid_split(planes_grid, b, s_streams, rows, cw)
+        return _reshaped(xt, g * sg, l)
 
 
 def grid_lanes_lmajor(planes_grid: torch.Tensor, b: int, s_streams: int,
@@ -224,8 +237,10 @@ def grid_lanes_lmajor(planes_grid: torch.Tensor, b: int, s_streams: int,
     """`grid_lanes` as (L, S), the layout K1 reads (pass it `.t()`):
     a strided view of the (S, L) matrix that `grid_lanes` copies out, so
     K1's wrapper makes it contiguous (a transposing copy)."""
-    xt, g, sg, l = _grid_split(planes_grid, b, s_streams, rows, cw)
-    return xt.reshape(g, sg, l).permute(2, 0, 1).reshape(l, g * sg)
+    with profiling.span("vcf.rans.layout"):
+        xt, g, sg, l = _grid_split(planes_grid, b, s_streams, rows, cw)
+        return _reshaped(_reshaped(xt, g, sg, l).permute(2, 0, 1),
+                         l, g * sg)
 
 
 def grid_unlanes(syms: torch.Tensor, b: int, shape, rows: int = 32,
@@ -234,7 +249,9 @@ def grid_unlanes(syms: torch.Tensor, b: int, shape, rows: int = 32,
     (the input of `fused_dequantize_cdct(grid_layout=True)`)."""
     n, c = shape[:2]
     _, _, _, (j_t, br, k_t, bc) = _grid_dims(shape, b, syms.shape[0], rows, cw)
-    return _grid_join(syms.reshape(b, b, n, c, j_t, br, k_t, bc), shape)
+    with profiling.span("vcf.rans.layout"):
+        return _grid_join(_reshaped(syms, b, b, n, c, j_t, br, k_t, bc),
+                          shape)
 
 
 def grid_unlanes_lmajor(syms: torch.Tensor, b: int, shape, rows: int = 32,
@@ -244,9 +261,10 @@ def grid_unlanes_lmajor(syms: torch.Tensor, b: int, shape, rows: int = 32,
     n, c = shape[:2]
     l, s_streams = syms.shape
     g, sg, _, (j_t, br, k_t, bc) = _grid_dims(shape, b, s_streams, rows, cw)
-    xt = syms.reshape(l, g, sg).permute(1, 2, 0).reshape(
-        b, b, n, c, j_t, br, k_t, bc)
-    return _grid_join(xt, shape)
+    with profiling.span("vcf.rans.layout"):
+        xt = _reshaped(_reshaped(syms, l, g, sg).permute(1, 2, 0),
+                       b, b, n, c, j_t, br, k_t, bc)
+        return _grid_join(xt, shape)
 
 
 def group_histograms(lanes: torch.Tensor, g: int) -> torch.Tensor:

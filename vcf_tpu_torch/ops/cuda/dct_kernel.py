@@ -37,7 +37,10 @@ vertical DCT pass before the horizontal one, quantize by a multiply with
 the float32 reciprocal of qss, divide by the perceptual table on
 decode.  Kernel against plain version follows the +-1 rule (float32
 sums in another order), not bit-exactness.  `launches` counts kernel
-launches, `grid_launches` those in the grid layout.
+launches, `grid_launches` those in the grid layout.  A launch runs in a
+`vcf.dct.forward` or `vcf.dct.inverse` span, the copy of an input that
+is not contiguous in `vcf.dct.layout`, its bytes counted in
+`layout_bytes` (`utils.profiling`).
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ import torch
 
 from vcf_tpu_torch.ops import dct as dct_ops
 from vcf_tpu_torch.ops.cuda import _build
+from vcf_tpu_torch.utils import profiling
 
 BLOCK_SIZES = (1, 2, 4, 8, 16, 32)
 ROWS = 32  # tile rows of the subband-grid layout
@@ -252,7 +256,11 @@ def _launch(entry: str, x: torch.Tensor, out: torch.Tensor, b: int,
     (C, H, W) or (N, C, H, W); cw is 0 (block layout) or the grid
     layout's chunk width."""
     lib = _build.load()
-    x = x.contiguous()
+    if not x.is_contiguous():
+        # e.g. the planar view of an (N, H, W, 3) clip
+        with profiling.span("vcf.dct.layout"):
+            x = x.contiguous()
+        profiling.count("layout_bytes", 2 * x.nbytes)
     n = x.shape[0] if x.dim() == 4 else 1
     c, h, w = x.shape[-3:]
     tables = _device_tables(b, x.device).data_ptr() if perceptual else None
@@ -266,12 +274,17 @@ def _launch(entry: str, x: torch.Tensor, out: torch.Tensor, b: int,
     _build.check(rc, entry)
 
 
+_SPANS = {"vcf_dct_forward": "vcf.dct.forward",
+          "vcf_dct_inverse": "vcf.dct.inverse"}
+
+
 def _run(fn, entry: str, x: torch.Tensor, out_dtype, b: int, step: float,
          offset: int, perceptual: bool, m, grid_layout: bool) -> torch.Tensor:
     """Launch one kernel for the CUDA tensor x and count it on `fn`."""
     cw = _grid_cw(x, b, fn.__name__) if grid_layout else 0
-    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
-    _launch(entry, x, out, b, step, offset, perceptual, m, cw)
+    with profiling.span(_SPANS[entry]):
+        out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+        _launch(entry, x, out, b, step, offset, perceptual, m, cw)
     fn.launches += 1
     fn.grid_launches += bool(grid_layout)
     return out

@@ -19,7 +19,8 @@ A copy, so it equals the plain versions bit for bit; they equal
 (VMEM tiling) have no counterpart.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel.
-Each wrapper counts its launches in `fn.launches`.
+Each wrapper counts its launches in `fn.launches`; `mc_apply_planar`
+runs in a `vcf.motion.compensate` span (`utils.profiling`).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 
 from vcf_tpu_torch.ops import motion
 from vcf_tpu_torch.ops.cuda import _build
+from vcf_tpu_torch.utils import profiling
 
 
 def mc_apply_ref(ref: torch.Tensor, mv: torch.Tensor, m: int) -> torch.Tensor:
@@ -98,9 +100,10 @@ def _launch(fn, ref: torch.Tensor, mv: torch.Tensor, m: int,
 
 def mc_apply_planar(ref: torch.Tensor, mv: torch.Tensor, m: int) -> torch.Tensor:
     """(..., C, H, W) float32 frames -> motion-compensated frames."""
-    if _build.runs_plain(ref):
-        return mc_apply_planar_ref(ref, mv, m)
-    return _launch(mc_apply_planar, ref, mv, m, channel_last=False)
+    with profiling.span("vcf.motion.compensate"):
+        if _build.runs_plain(ref):
+            return mc_apply_planar_ref(ref, mv, m)
+        return _launch(mc_apply_planar, ref, mv, m, channel_last=False)
 
 
 def mc_apply(ref: torch.Tensor, mv: torch.Tensor, m: int) -> torch.Tensor:

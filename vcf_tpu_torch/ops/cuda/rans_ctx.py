@@ -39,7 +39,7 @@ from vcf_tpu_torch.ops.cuda.rans_decode import (
     launch_grid, raise_decode_error)
 from vcf_tpu_torch.ops.cuda.rans_encode import (
     K_PROB, _require, _require_cuda, encode_steps_ref, i32_as_u32,
-    launch_encode, pack_tables)
+    launch_encode, pack_tables, to_host)
 
 N_CTX = 4
 
@@ -85,10 +85,10 @@ def _check_tables(freqs_gc, cums_gc) -> Tuple[torch.Tensor, torch.Tensor]:
     _require(f.shape[1] in CTX_BOUNDS,
              f"n_ctx must be one of {sorted(CTX_BOUNDS)}, got {f.shape[1]}")
     # both checks come back in one readback
-    sums_ok, prefix_ok = torch.stack([
+    sums_ok, prefix_ok = to_host(torch.stack([
         (f.sum(dim=2) == 1 << K_PROB).all(),
         (c[..., 0] == 0).all()
-        & (c[..., 1:] == torch.cumsum(f, dim=2)[..., :-1]).all()]).tolist()
+        & (c[..., 1:] == torch.cumsum(f, dim=2)[..., :-1]).all()])).tolist()
     _require(sums_ok, f"every context table's freqs must sum to 2^{K_PROB}")
     _require(prefix_ok, "cums_gc is not the exclusive prefix sum of freqs_gc")
     return f, c

@@ -23,6 +23,9 @@ rule in Python.  Design notes and bounds are in csrc/rans_grid.cu.
 
 Each wrapper runs the plain torch version for a CPU tensor and launches
 its CUDA kernel for a CUDA tensor; `launches` counts kernel launches.
+Both decodes run in a `vcf.rans.decode` span (`utils.profiling`); the
+read-back of a launch's error flag is `rans_encode.to_host`'s
+(`vcf.rans.sync`, counted in `host_syncs`).
 """
 
 from __future__ import annotations
@@ -35,7 +38,9 @@ import torch
 
 from vcf_tpu_torch.ops.cuda import _build
 from vcf_tpu_torch.ops.cuda.rans_encode import (
-    K_PROB, MASK, RANS_L, _require, _require_cuda, pack_tables, u32_as_i32)
+    K_PROB, MASK, RANS_L, _require, _require_cuda, pack_tables, to_host,
+    u32_as_i32)
+from vcf_tpu_torch.utils import profiling
 
 _ERRORS = {1: "renormalization count differs from the counts sidecar",
            2: "stream ends before the last step",
@@ -142,16 +147,17 @@ def rans_decode_grouped(words: torch.Tensor, states: torch.Tensor,
     _require(counts is None or counts.shape == (l,),
              f"counts must be ({l},)")
     _require(states.device == words.device, "words and states on two devices")
-    if words.device.type == "cpu":
-        return rans_decode_grouped_ref(words, states, freqs_g, cums_g, l,
-                                       counts)
-    _require_cuda(words)
-    out, err = launch_decode(words, states, pack_tables(freqs_g, cums_g,
-                                                        words.device),
-                             None, counts, l, g, 0)
-    rans_decode_grouped.launches += 1
-    raise_decode_error(err)
-    return out.t()
+    with profiling.span("vcf.rans.decode"):
+        if words.device.type == "cpu":
+            return rans_decode_grouped_ref(words, states, freqs_g, cums_g,
+                                           l, counts)
+        _require_cuda(words)
+        out, err = launch_decode(words, states,
+                                 pack_tables(freqs_g, cums_g, words.device),
+                                 None, counts, l, g, 0)
+        rans_decode_grouped.launches += 1
+        raise_decode_error(err)
+        return out.t()
 
 
 def launch_decode(words: torch.Tensor, states: torch.Tensor,
@@ -210,7 +216,7 @@ def launch_decode(words: torch.Tensor, states: torch.Tensor,
 
 def raise_decode_error(err: torch.Tensor) -> None:
     """Raise the ValueError of a K3 launch's (code, step), if any."""
-    code, step = err.tolist()
+    code, step = to_host(err).tolist()
     if code:
         raise ValueError(f"rans decode: {_ERRORS[code]} (step {step})")
 
@@ -331,7 +337,7 @@ def launch_grid(entry: str, raw: torch.Tensor, states: torch.Tensor,
             out.data_ptr(), err.data_ptr(), s_streams, l, g, *extra,
             _build.stream_of(raw))
     _build.check(rc, entry)
-    if int(err[0]):
+    if int(to_host(err)[0]):
         raise ValueError(_GRID_ERROR)
     return out
 
@@ -352,13 +358,16 @@ def rans_decode_grouped_grid(raw: torch.Tensor, states: torch.Tensor,
     (its `.t()` is vcf_tpu's `lmajor` output, at no cost)."""
     g = torch.as_tensor(freqs_g).shape[0]
     check_grid(raw, states, l, g)
-    if raw.device.type == "cpu":
-        out = rans_decode_grouped_grid_ref(raw, states, freqs_g, cums_g, l)
-    else:
-        _require_cuda(raw)
-        tab = pack_tables(freqs_g, cums_g, raw.device)
-        out = launch_grid("vcf_rans_decode_grid", raw, states, (tab,), l, g)
-        rans_decode_grouped_grid.launches += 1
+    with profiling.span("vcf.rans.decode"):
+        if raw.device.type == "cpu":
+            out = rans_decode_grouped_grid_ref(raw, states, freqs_g, cums_g,
+                                               l)
+        else:
+            _require_cuda(raw)
+            tab = pack_tables(freqs_g, cums_g, raw.device)
+            out = launch_grid("vcf_rans_decode_grid", raw, states, (tab,), l,
+                              g)
+            rans_decode_grouped_grid.launches += 1
     return out.t()
 
 

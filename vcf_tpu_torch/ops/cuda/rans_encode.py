@@ -22,6 +22,12 @@ its CUDA kernel for a CUDA tensor; nothing else.  `launches` counts the
 kernel launches.  uint32 state arithmetic runs in int64 with masks in
 the plain versions (torch's uint32 support is partial) and natively in
 the kernels.
+
+Spans (`utils.profiling`): `vcf.rans.encode` (K1), `vcf.rans.compact`
+(the row mode), `vcf.rans.assemble`, `vcf.rans.tables` (`pack_tables`),
+`vcf.rans.layout` around K1's (L, S) copy (its bytes counted in
+`layout_bytes`), and `vcf.rans.sync` around each read-back of a CUDA
+tensor (`to_host`, counted in `host_syncs`).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import Optional, Tuple
 import torch
 
 from vcf_tpu_torch.ops.cuda import _build
+from vcf_tpu_torch.utils import profiling
 
 #: steps of K1's staged symbol tiles (ENC_TILE in csrc/rans_encode.cu);
 #: the tests' ragged step counts sit around it
@@ -45,12 +52,23 @@ def pack_tables(freqs_g: torch.Tensor, cums_g: torch.Tensor,
                 device: torch.device) -> torch.Tensor:
     """(G, 256) freqs and cums -> (G, 256) int32 entries f | (cum << 16),
     the kernels' table layout (f <= 2^15 and cum < 2^15 fit 16 bits)."""
-    f = torch.as_tensor(freqs_g).to(torch.int64)
-    c = torch.as_tensor(cums_g).to(torch.int64)
-    if f.shape != c.shape or f.dim() != 2 or f.shape[1] != 256:
-        raise ValueError(f"tables must be (G, 256), got {tuple(f.shape)} "
-                         f"and {tuple(c.shape)}")
-    return (f | (c << 16)).to(torch.int32).to(device).contiguous()
+    with profiling.span("vcf.rans.tables"):
+        f = torch.as_tensor(freqs_g).to(torch.int64)
+        c = torch.as_tensor(cums_g).to(torch.int64)
+        if f.shape != c.shape or f.dim() != 2 or f.shape[1] != 256:
+            raise ValueError(f"tables must be (G, 256), got "
+                             f"{tuple(f.shape)} and {tuple(c.shape)}")
+        return (f | (c << 16)).to(torch.int32).to(device).contiguous()
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """t on the host.  For a CUDA tensor the host waits for the card: the
+    copy runs in a `vcf.rans.sync` span and counts in `host_syncs`."""
+    if t.device.type != "cuda":
+        return t.cpu()
+    with profiling.span("vcf.rans.sync"):
+        profiling.count("host_syncs")
+        return t.cpu()
 
 
 def u32_as_i32(x: torch.Tensor) -> torch.Tensor:
@@ -168,14 +186,27 @@ def rans_encode_grouped(syms: torch.Tensor, freqs_g, cums_g
     s_streams = syms.shape[0]
     _require(g >= 1 and s_streams % g == 0,
              f"{s_streams} lanes do not split into {g} groups")
-    if syms.device.type == "cpu":
-        return rans_encode_grouped_ref(syms, freqs_g, cums_g)
-    _require_cuda(syms)
-    tab = pack_tables(freqs_g, cums_g, syms.device)
-    # (L, S): the kernel stages tiles of steps x lanes
-    raw, states = launch_encode(syms.t().contiguous(), tab, None, g, 0)
-    rans_encode_grouped.launches += 1
-    return raw, i32_as_u32(states)
+    with profiling.span("vcf.rans.encode"):
+        if syms.device.type == "cpu":
+            return rans_encode_grouped_ref(syms, freqs_g, cums_g)
+        _require_cuda(syms)
+        tab = pack_tables(freqs_g, cums_g, syms.device)
+        raw, states = launch_encode(_steps_major(syms), tab, None, g, 0)
+        rans_encode_grouped.launches += 1
+        return raw, i32_as_u32(states)
+
+
+def _steps_major(syms: torch.Tensor) -> torch.Tensor:
+    """(S, L) symbols as the contiguous (L, S) K1 reads (the kernel stages
+    tiles of steps x lanes): no copy for the transposed view of (L, S)
+    lanes, else one, in a `vcf.rans.layout` span with its bytes counted."""
+    sym_l = syms.t()
+    if sym_l.is_contiguous():
+        return sym_l
+    with profiling.span("vcf.rans.layout"):
+        sym_l = sym_l.contiguous()
+    profiling.count("layout_bytes", 2 * sym_l.nbytes)
+    return sym_l
 
 
 rans_encode_grouped.launches = 0
@@ -264,22 +295,24 @@ def rans_compact_rows(raw: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     _require(raw.dim() == 2 and raw.dtype == torch.int32,
              f"raw grid must be (L, S) int32, got {raw.dtype} "
              f"{tuple(raw.shape)}")
-    if raw.device.type == "cpu":
-        return rans_compact_rows_ref(raw)
-    _require_cuda(raw)
-    raw = raw.contiguous()
-    l, s_streams = raw.shape
-    _require(l > 0 and s_streams > 0, "empty raw grid")
-    lib = _build.load()
-    rows = torch.empty((l, s_streams), dtype=torch.int16, device=raw.device)
-    counts = torch.empty(l, dtype=torch.int32, device=raw.device)
-    with torch.cuda.device(raw.device):
-        rc = lib.vcf_rans_compact_rows(raw.data_ptr(), s_streams, l,
-                                       rows.data_ptr(), counts.data_ptr(),
-                                       _build.stream_of(raw))
-    _build.check(rc, "rans_compact_rows")
-    rans_compact_rows.launches += 1
-    return rows, counts
+    with profiling.span("vcf.rans.compact"):
+        if raw.device.type == "cpu":
+            return rans_compact_rows_ref(raw)
+        _require_cuda(raw)
+        raw = raw.contiguous()
+        l, s_streams = raw.shape
+        _require(l > 0 and s_streams > 0, "empty raw grid")
+        lib = _build.load()
+        rows = torch.empty((l, s_streams), dtype=torch.int16,
+                           device=raw.device)
+        counts = torch.empty(l, dtype=torch.int32, device=raw.device)
+        with torch.cuda.device(raw.device):
+            rc = lib.vcf_rans_compact_rows(raw.data_ptr(), s_streams, l,
+                                           rows.data_ptr(), counts.data_ptr(),
+                                           _build.stream_of(raw))
+        _build.check(rc, "rans_compact_rows")
+        rans_compact_rows.launches += 1
+        return rows, counts
 
 
 rans_compact_rows.launches = 0
@@ -309,14 +342,16 @@ def assemble_stream(rows: torch.Tensor, counts: torch.Tensor
              f"{tuple(rows.shape)}")
     l, cap = rows.shape
     _require(counts.shape == (l,), f"counts must be ({l},)")
-    c = counts.to(torch.int64)
-    ends = torch.cumsum(c, 0)
-    n_words, c_max = (int(v) for v in torch.stack([ends[-1], c.max()]).cpu())
-    _require(c_max <= cap, f"a step has {c_max} words, more than the "
-             f"{cap} columns of the rows")
-    pos = torch.arange(n_words, device=rows.device)
-    t = torch.searchsorted(ends, pos, right=True)
-    words = torch.zeros(l * cap, dtype=torch.int16, device=rows.device)
-    words[:n_words] = rows[t, pos - (ends[t] - c[t])]
-    return (words.view(torch.uint16),
-            torch.tensor(n_words, dtype=torch.int32, device=rows.device))
+    with profiling.span("vcf.rans.assemble"):
+        c = counts.to(torch.int64)
+        ends = torch.cumsum(c, 0)
+        n_words, c_max = (int(v) for v in
+                          to_host(torch.stack([ends[-1], c.max()])))
+        _require(c_max <= cap, f"a step has {c_max} words, more than the "
+                 f"{cap} columns of the rows")
+        pos = torch.arange(n_words, device=rows.device)
+        t = torch.searchsorted(ends, pos, right=True)
+        words = torch.zeros(l * cap, dtype=torch.int16, device=rows.device)
+        words[:n_words] = rows[t, pos - (ends[t] - c[t])]
+        return (words.view(torch.uint16),
+                torch.tensor(n_words, dtype=torch.int32, device=rows.device))

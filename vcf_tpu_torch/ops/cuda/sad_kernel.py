@@ -30,7 +30,8 @@ sum of |a - b| is exact in any order, and every minimiser passes the
 screen.  A CPU tensor runs the plain version,
 `sad_search_ref` (which is `ops.motion.full_search`); a CUDA tensor
 launches the kernel.  They agree bit for bit: mvs and SADs.
-`sad_search.launches` counts kernel launches of both modes.
+`sad_search.launches` counts kernel launches of both modes; a search
+runs in a `vcf.motion.search` span (`utils.profiling`).
 
 Shared memory: on the card `vcf_sad_mode` picks the mode of (m, s): the
 instance or the staged generic mode where their shared memory fits
@@ -50,6 +51,7 @@ import torch
 
 from vcf_tpu_torch.ops import motion
 from vcf_tpu_torch.ops.cuda import _build
+from vcf_tpu_torch.utils import profiling
 
 #: block sizes with a kernel instance; others take the generic mode
 INSTANCES = (4, 8, 16, 32)
@@ -124,9 +126,10 @@ def sad_search(ref_luma: torch.Tensor, cur_luma: torch.Tensor, m: int,
                s: int):
     """Full-search block ME, the contract of `ops.motion.full_search`."""
     _check(ref_luma, cur_luma, m, s)
-    if _build.runs_plain(cur_luma):
-        return sad_search_ref(ref_luma, cur_luma, m, s)
-    return _launch(ref_luma, cur_luma, m, s)
+    with profiling.span("vcf.motion.search"):
+        if _build.runs_plain(cur_luma):
+            return sad_search_ref(ref_luma, cur_luma, m, s)
+        return _launch(ref_luma, cur_luma, m, s)
 
 
 sad_search.launches = 0

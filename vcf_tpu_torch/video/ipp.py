@@ -37,6 +37,10 @@ modes of B3/B4 (`fused_cdct_quantize` / `fused_dequantize_cdct`).  The
 planes feed `entropy.rans.grid_lanes_lmajor` with plain reshapes.  For
 every other color both are None, as in vcf_tpu.  Its luma is vcf_tpu's
 planar one: the FMA chain on round(ref), with no clip and no u8 cast.
+The two run in `vcf.ipp.encode` / `vcf.ipp.decode` spans
+(`utils.profiling`), their op groups in `vcf.ipp.luma`, `vcf.ipp.pixels`
+(casts, residual, reconstruction) and `vcf.ipp.layout` (the output
+stacks, whose bytes count in `layout_bytes`).
 
 Every other composition (not dct + deadzone) takes vcf_tpu's generic
 closed loop through the still `Codec` (vcf_tpu ipp.py:601-667; the
@@ -61,7 +65,6 @@ generic closed loop are not sharded, as in vcf_tpu.
 
 from __future__ import annotations
 
-import functools
 from typing import Dict, List
 
 import numpy as np
@@ -80,6 +83,7 @@ from vcf_tpu_torch.ops.cuda import sad_kernel
 from vcf_tpu_torch.parallel.mesh import (Mesh, check_mesh, gather, pad_to,
                                          shard_batch)
 from vcf_tpu_torch.pipeline import Codec, check_full_fp32
+from vcf_tpu_torch.utils import profiling
 from vcf_tpu_torch.video.iii import BATCHED_ENTROPY
 
 # residuals and indexes are shifted by 128 (src/IPP_DCT.py:550-560)
@@ -88,6 +92,32 @@ _OFF = 128
 
 def _clip(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, 0.0, 255.0)
+
+
+def _residual(cur: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    """clip(cur - pred + 128), in a `vcf.ipp.pixels` span."""
+    with profiling.span("vcf.ipp.pixels"):
+        return _clip(cur - pred + 128.0)
+
+
+def _reconstruct(pred: torch.Tensor, rec: torch.Tensor) -> torch.Tensor:
+    """clip(pred + rec - 128), in a `vcf.ipp.pixels` span.  Each
+    temporary is freed where the one expression frees it (rec at the add,
+    unless the caller holds it), so the card's allocator sees the same
+    order of allocations and frees as without the span."""
+    with profiling.span("vcf.ipp.pixels"):
+        x = pred + rec
+        del rec
+        x = x - 128.0
+        return _clip(x)
+
+
+def _stack_frames(frames: List[torch.Tensor]) -> torch.Tensor:
+    """torch.stack(frames, 1), its bytes read and written counted in
+    `layout_bytes`."""
+    out = torch.stack(frames, 1)
+    profiling.count("layout_bytes", 2 * out.nbytes)
+    return out
 
 
 class IPPCodec:
@@ -311,12 +341,14 @@ class IPPCodec:
             pred = self._compensate(ref, mvs[:, t - 1])
             rec = dec(planes[:, t])
             if modes is None:
-                ref = _clip(pred + rec - 128.0)
+                ref = _reconstruct(pred, rec)
             else:
-                ref = torch.where(self._mask(modes[:, t - 1]),
-                                  _clip(pred + rec - 128.0), rec)
+                with profiling.span("vcf.ipp.pixels"):
+                    ref = torch.where(self._mask(modes[:, t - 1]),
+                                      _reconstruct(pred, rec), rec)
             recs.append(ref)
-        return torch.stack(recs, 1)
+        with profiling.span("vcf.ipp.layout"):
+            return _stack_frames(recs)
 
     def _build_planar_gop(self):
         """(gop_encode_planar, gop_decode_planar): vcf_tpu's planar
@@ -329,40 +361,55 @@ class IPPCodec:
         mi = dk.static_mat(color_ops.YCOCG_INV)
 
         def enc_p(img):
-            return dk.fused_cdct_quantize(img.to(torch.uint8), mf, b=b,
-                                          qss=qss, offset=_OFF,
-                                          grid_layout=True)
+            with profiling.span("vcf.ipp.pixels"):
+                pixels = img.to(torch.uint8)
+            return dk.fused_cdct_quantize(pixels, mf, b=b, qss=qss,
+                                          offset=_OFF, grid_layout=True)
 
         def dec_p(k):
-            return dk.fused_dequantize_cdct(k, mi, b=b, qss=qss, offset=_OFF,
-                                            grid_layout=True).to(torch.float32)
+            rec = dk.fused_dequantize_cdct(k, mi, b=b, qss=qss, offset=_OFF,
+                                           grid_layout=True)
+            with profiling.span("vcf.ipp.pixels"):
+                return rec.to(torch.float32)
 
         def gop_encode_planar(gops: torch.Tensor):
             """(G, T, H, W, 3) uint8 -> (planes (G, T, 3, H, W) uint8 in
             the grid layout, mvs (G, T-1, nby, nbx, 2) int32)."""
-            frames = gops.permute(0, 1, 4, 2, 3).to(torch.float32)
-            k = enc_p(frames[:, 0])
-            ref = dec_p(k)
-            ks, recs, mvs = [k], [ref], []
-            for t in range(1, gops.shape[1]):
-                cur = frames[:, t]
-                # vcf_tpu's planar luma: round(ref), no clip, no u8 cast
-                ref_l = motion.to_luma(torch.round(ref), channel_axis=-3)
-                cur_l = motion.to_luma(cur, channel_axis=-3)
-                mv, _ = self._make_search(*cur_l.shape[-2:])(ref_l, cur_l)
-                pred = self._compensate(ref, mv)
-                k = enc_p(_clip(cur - pred + 128.0))
-                ref = _clip(pred + dec_p(k) - 128.0)
-                ks.append(k)
-                recs.append(ref)
-                mvs.append(mv)
-            self.last_grid_recon = torch.stack(recs, 1)
-            return torch.stack(ks, 1), self._stack_mvs(mvs, gops)
+            with profiling.span("vcf.ipp.encode"):
+                with profiling.span("vcf.ipp.pixels"):
+                    frames = gops.permute(0, 1, 4, 2, 3).to(torch.float32)
+                k = enc_p(frames[:, 0])
+                ref = dec_p(k)
+                ks, recs, mvs = [k], [ref], []
+                for t in range(1, gops.shape[1]):
+                    cur = frames[:, t]
+                    with profiling.span("vcf.ipp.luma"):
+                        # vcf_tpu's planar luma: round(ref), no clip, no u8
+                        # cast
+                        ref_l = motion.to_luma(torch.round(ref),
+                                               channel_axis=-3)
+                        cur_l = motion.to_luma(cur, channel_axis=-3)
+                    mv, _ = self._make_search(*cur_l.shape[-2:])(ref_l, cur_l)
+                    pred = self._compensate(ref, mv)
+                    # the residual and the decode stay temporaries
+                    k = enc_p(_residual(cur, pred))
+                    ref = _reconstruct(pred, dec_p(k))
+                    ks.append(k)
+                    recs.append(ref)
+                    mvs.append(mv)
+                with profiling.span("vcf.ipp.layout"):
+                    self.last_grid_recon = _stack_frames(recs)
+                    planes = _stack_frames(ks)
+                return planes, self._stack_mvs(mvs, gops)
 
-        # grid-layout planes (G, T, 3, H, W) uint8 and mvs -> (G, T, 3, H,
-        # W) float32 reconstruction
-        return gop_encode_planar, functools.partial(self._gop_decode,
-                                                    dec=dec_p)
+        def gop_decode_planar(planes: torch.Tensor, mvs: torch.Tensor,
+                              modes=None):
+            """Grid-layout planes (G, T, 3, H, W) uint8 and mvs -> (G, T,
+            3, H, W) float32 reconstruction."""
+            with profiling.span("vcf.ipp.decode"):
+                return self._gop_decode(planes, mvs, modes, dec=dec_p)
+
+        return gop_encode_planar, gop_decode_planar
 
     def _stack_mvs(self, mvs: List[torch.Tensor], gops: torch.Tensor
                    ) -> torch.Tensor:
