@@ -48,7 +48,12 @@ kernels from vcf_tpu_torch/csrc on first use.  Phases:
    and 2 frames, bit-exact, every launch in the vector mode (its Python
    mirror `launch_mode` equal to `vcf_mc_mode`); CUDA-event times of
    each (MC at 7 and 2 frames, both layouts, beside torch.take with a
-   prebuilt source index, and the wrapper's host time a call);
+   prebuilt source index, and the wrapper's host time a call); and the
+   luma kernel at the planar IPP loop's launch shapes, 8x3x1088x1920
+   float32 planar with the round (on half-integer pixels) and a
+   (8, 1088, 1920, 3) u8 frame view of an (8, 2, 1088, 1920, 3) clip,
+   bit for bit against its plain version (`to_luma`, fma_rows' chain),
+   both in their vector modes, timed beside it;
 4c. main path, IPP: IPPCodec(VideoConfig(mode="ipp", n_frames=8,
    gop_size=4, me_block=16, search_range=8), CodecConfig(entropy="grans",
    subbands=False), "cuda") encode -> bytes -> decode of that clip (SAD,
@@ -91,8 +96,9 @@ kernels from vcf_tpu_torch/csrc on first use.  Phases:
    composition): _gop_encode_grid_batch -> grid lanes -> K1 ->
    grid decode -> _gop_decode_grid_batch; decoder == encoder; mvs and
    indexes against the port's CPU run of the same loop (SAD's m=16
-   instance and MC's vector mode launched); rmse, bpp, encode/decode
-   times, the GOP-loop encode split by CUDA events into luma, SAD, MC,
+   instance, MC's and the luma kernel's vector modes launched); rmse,
+   bpp, encode/decode times, the GOP-loop encode split by CUDA events
+   into luma, SAD, MC,
    B3/B4 and the rest, and the SAD screen's second sums on the loop's
    references;
 4h. the host entropy codecs and the quantizers on phase 4's frame
@@ -1047,7 +1053,57 @@ def phase_motion_kernels(dev, clip: np.ndarray) -> list:
           f"channel-last {mc_row['channel_last_ms']:.4f} ms (plain torch "
           f"{mc_row['channel_last_plain_ms']:.4f}), torch.take "
           f"{mc_row['library_ms']:.4f} ms")
-    return results
+    return results + [luma_row(x)]
+
+
+def luma_row(x: torch.Tensor) -> dict:
+    """The luma kernel at the planar IPP loop's two launch shapes (a GOP
+    batch of 8): the (8, 3, H, W) float32 reference with the round, on
+    half-integer pixels here, and a u8 frame of an (8, T, H, W, 3) clip,
+    a channels-last view; each bit for bit against its plain version,
+    in its vector mode, and timed."""
+    from vcf_tpu_torch.ops.cuda import luma_kernel as lk
+
+    planar = x.permute(0, 3, 1, 2).to(torch.float32).contiguous()
+    ref = planar + 0.5 * (planar % 2)            # ties of the round
+    view = torch.stack([x.roll(1, 0), x], 1)[:, 1]
+    calls = {"f32 planar, round": (ref, -3, True),
+             "u8 channels-last view": (view, -1, False)}
+    zero_counts({"luma": lk.luma})
+    out = {}
+    for what, (inp, axis, rnd) in calls.items():
+        got = lk.luma(inp, axis, round=rnd)
+        want = lk.luma_ref(inp, axis, round=rnd)
+        torch.cuda.synchronize()
+        n_diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        require(n_diff == 0, f"luma kernel differs from its plain version "
+                f"on the {what} input: {n_diff} lumas")
+        xs, strides = lk.frames_of(inp, axis)
+        out[what] = {
+            "mode": lk.launch_mode(xs.data_ptr(), inp.dtype, xs.shape[:3],
+                                   strides),
+            "ms": cuda_ms(lambda: lk.luma(inp, axis, round=rnd), 20),
+            "plain_ms": cuda_ms(lambda: lk.luma_ref(inp, axis, round=rnd), 3),
+            **bound(nbytes(inp, got))}
+    require(lk.luma.generic_launches == 0 and
+            [o["mode"] for o in out.values()] == ["planar", "channels_last"],
+            f"luma: phase 3c's launches did not take the vector modes "
+            f"({json.dumps(out)})")
+    for what, o in out.items():
+        print(f"time luma {what} {tuple(calls[what][0].shape)}: kernel "
+              f"{o['ms']:.4f} ms, plain torch {o['plain_ms']:.4f} ms, bound "
+              f"{o['bound_ms']:.4f} ms ({o['bound_by']}), "
+              f"{o['ms'] / o['bound_ms']:.2f}x the bound")
+    f32, u8 = out.values()
+    row = kernel_row("luma", "motion.cu", "", 0, f32["ms"], f32["plain_ms"],
+                     {"bound_ms": f32["bound_ms"],
+                      "bound_by": f32["bound_by"]},
+                     diff_share=0.0, mode="planar / channels_last",
+                     u8_view_ms=u8["ms"], u8_view_plain_ms=u8["plain_ms"],
+                     u8_view_bound_ms=u8["bound_ms"])
+    row["replaces"] = ("none: vcf_tpu/video/ipp.py:409-410 takes the planar "
+                       "loop's lumas as an XLA dot")
+    return row
 
 
 def mc_source_index(shape, mv: torch.Tensor, m: int) -> torch.Tensor:
@@ -1989,12 +2045,12 @@ def gop_encode_split(enc, gops: torch.Tensor) -> tuple:
     through timing wrappers swapped in for the module functions the loop
     calls, for this run only) and the rest (clip, round, stacks); and the
     (ref, cur) lumas of its SAD calls."""
-    from vcf_tpu_torch.ops import motion
     from vcf_tpu_torch.ops.cuda import dct_kernel as dk
+    from vcf_tpu_torch.ops.cuda import luma_kernel as lk
     from vcf_tpu_torch.ops.cuda import mc_kernel as mk
     from vcf_tpu_torch.ops.cuda import sad_kernel as sk
 
-    targets = {"luma": (motion, "to_luma"), "SAD": (sk, "sad_search"),
+    targets = {"luma": (lk, "luma"), "SAD": (sk, "sad_search"),
                "MC": (mk, "mc_apply_planar"),
                "B3 grid": (dk, "fused_cdct_quantize"),
                "B4 grid": (dk, "fused_dequantize_cdct")}
@@ -2088,12 +2144,13 @@ def phase_ipp_grid(dev, clip: np.ndarray) -> dict:
 
     from vcf_tpu_torch import metrics, video
     from vcf_tpu_torch.ops.cuda import dct_kernel as dk
+    from vcf_tpu_torch.ops.cuda import luma_kernel as lk
     from vcf_tpu_torch.ops.cuda import mc_kernel as mk
     from vcf_tpu_torch.ops.cuda import rans_decode as rd
     from vcf_tpu_torch.ops.cuda import rans_encode as re_
     from vcf_tpu_torch.ops.cuda import sad_kernel as sk
 
-    kernels = {"sad_search": sk.sad_search,
+    kernels = {"luma": lk.luma, "sad_search": sk.sad_search,
                "mc_apply_planar": mk.mc_apply_planar,
                "fused_cdct_quantize": dk.fused_cdct_quantize,
                "fused_dequantize_cdct": dk.fused_dequantize_cdct,
@@ -2108,7 +2165,8 @@ def phase_ipp_grid(dev, clip: np.ndarray) -> dict:
     planes, mvs, raw, st = encode_full(gops)
     recs = decode_full(raw, st, mvs)
     torch.cuda.synchronize()
-    launches = {"sad_search": sk.sad_search.launches,
+    launches = {"luma": lk.luma.launches,
+                "sad_search": sk.sad_search.launches,
                 "mc_apply_planar": mk.mc_apply_planar.launches,
                 "fused_cdct_quantize": dk.fused_cdct_quantize.grid_launches,
                 "fused_dequantize_cdct":
@@ -2121,6 +2179,12 @@ def phase_ipp_grid(dev, clip: np.ndarray) -> dict:
         require(count > 0, f"kernel {name} was not launched on the IPP grid "
                 "path")
     require_ipp_modes("IPP grid path")
+    # each launch takes the whole GOP batch: two a P step
+    p_steps = planes.shape[1] - 1
+    require(lk.luma.launches == 2 * p_steps and lk.luma.generic_launches == 0,
+            f"IPP grid path: {lk.luma.launches} luma launches "
+            f"({lk.luma.generic_launches} scalar) for {p_steps} P steps, not "
+            "two in the vector modes a step")
     require(torch.equal(recs, ipp.last_grid_recon),
             "the grid decoder differs from the encoder's reconstruction")
     rec = torch.clamp(torch.round(recs), 0, 255).to(torch.uint8).permute(
@@ -3222,6 +3286,8 @@ def main() -> None:
                    phase_ipp_grid(dev, clip)):
         for name, count in counts.items():
             grid_launches[name] = grid_launches.get(name, 0) + count
+    # the luma kernel runs on the planar grid loop alone (4g)
+    launches["luma"] = grid_launches.pop("luma")
     ipp_launches, ipp_run = phase_ipp(dev, clip)
     launches.update(ipp_launches)
     launches.update(phase_cgrans_clip(dev, frames, planes, ctx_words,

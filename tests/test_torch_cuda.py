@@ -21,8 +21,11 @@ planes d.max() <= 1 on < 0.1% of entries; rmse agrees to 3 decimals.
 The SAD kernel's float32 screen keeps every minimiser and its float64
 sums are exact, so its mvs and SADs equal the plain version's in both
 modes (block-size instances and the generic kernel); motion compensation
-is a copy, bit-exact.
+is a copy, bit-exact.  The luma kernel equals `ops.color.fma_rows`'s
+chain bit for bit: on every RGB triple and on half-integer pixels.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -39,6 +42,7 @@ from vcf_tpu_torch.ops import dct as dct_ops
 from vcf_tpu_torch.ops import motion
 from vcf_tpu_torch.ops.cuda import _build
 from vcf_tpu_torch.ops.cuda import dct_kernel as dk
+from vcf_tpu_torch.ops.cuda import luma_kernel as lk
 from vcf_tpu_torch.ops.cuda import mc_kernel as mk
 from vcf_tpu_torch.ops import dwt as dwt_ops
 from vcf_tpu_torch.ops.cuda import rans_ctx as rc
@@ -1431,3 +1435,135 @@ def test_layout_bytes_count_the_card_copies(dev):
     (raw2, st2), got = added(lambda: re_.rans_encode_grouped(
         lanes.contiguous().t(), ft, ct))
     assert got == 0 and torch.equal(raw2, raw) and torch.equal(st2, st)
+
+
+# The luma kernel (csrc/motion.cu luma_kernel): bit for bit against its
+# plain version, `to_luma` (fma_rows' chain) after `torch.round` when
+# rounding, compared as int32 bits.
+LUMA_MODES = {0: "planar", 1: "channels_last", 2: "scalar"}
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32)
+
+
+@functools.lru_cache(maxsize=1)
+def _every_rgb():
+    """Every RGB triple as one (1, 4096, 4096, 3) u8 frame, and the bits
+    of its luma by `to_luma` on the CPU."""
+    v = np.arange(1 << 24, dtype=np.uint32)
+    rgb = np.stack([(v >> 16) & 255, (v >> 8) & 255, v & 255], -1)
+    frame = torch.from_numpy(rgb.astype(np.uint8).reshape(1, 4096, 4096, 3))
+    return frame, _bits(motion.to_luma(frame))
+
+
+def _luma_mode_equal(x, axis):
+    """The mode the C entry picks equals the wrapper's mirror; returns it."""
+    xs, strides = lk.frames_of(x, axis)
+    c = _build.load().vcf_luma_mode(xs.data_ptr(), lk.DTYPES[x.dtype],
+                                    *xs.shape[:3], *strides)
+    mode = lk.launch_mode(xs.data_ptr(), x.dtype, xs.shape[:3], strides)
+    assert LUMA_MODES[c] == mode
+    return mode
+
+
+@pytest.mark.parametrize("round_", [False, True])
+@pytest.mark.parametrize("layout", ["planar", "channels_last"])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_luma_kernel_every_rgb_triple(dev, dtype, layout, round_):
+    frame, want = _every_rgb()
+    if layout == "planar":
+        x, axis = frame.permute(0, 3, 1, 2).to(dtype).contiguous().to(dev), -3
+    else:
+        # a frame of a (G, T, H, W, 3) clip: a strided channels-last view
+        clip = torch.zeros((1, 2, 4096, 4096, 3), dtype=dtype, device=dev)
+        clip[:, 1] = frame.to(dev)
+        x, axis = clip[:, 1], -1
+    assert _luma_mode_equal(x, axis) == layout
+    launches = lk.luma.launches
+    got = lk.luma(x, axis, round=round_)
+    torch.cuda.synchronize()
+    assert lk.luma.launches == launches + 1
+    assert got.shape == (1, 4096, 4096) and got.is_contiguous()
+    assert torch.equal(_bits(got).cpu(), want)
+
+
+def test_luma_kernel_half_integers_and_negatives_under_round(dev):
+    rng = np.random.default_rng(21)
+    half = torch.from_numpy(
+        (rng.integers(-41, 2 * 255 + 41, (3, 3, 64, 256)) / 2).astype(
+            np.float32))
+    for x, axis in ((half, -3), (half.permute(0, 2, 3, 1).contiguous(), -1)):
+        for round_ in (True, False):
+            got = lk.luma(x.to(dev), axis, round=round_)
+            want = lk.luma_ref(x, axis, round=round_)
+            assert torch.equal(_bits(got).cpu(), _bits(want))
+
+
+def test_luma_kernel_scalar_mode(dev):
+    """Odd widths, misaligned views and other strides take the scalar mode
+    of the same kernel, counted in generic_launches; equal bit for bit."""
+    rng = np.random.default_rng(22)
+
+    def pixels(*shape, dtype=np.float32):
+        return torch.from_numpy(rng.integers(0, 256, shape).astype(dtype)
+                                ).to(dev)
+
+    cases = [
+        (pixels(2, 3, 5, 37), -3),                           # W % 4 != 0
+        (pixels(2, 5, 37, 3, dtype=np.uint8), -1),
+        (pixels(2, 5, 26, 3, dtype=np.uint8), -1),
+        (pixels(2 * 3 * 8 * 64 + 1)[1:].view(2, 3, 8, 64), -3),
+        (pixels(2 * 8 * 64 * 3 + 3, dtype=np.uint8)[3:].view(2, 8, 64, 3),
+         -1),                                                # 3 bytes off
+        (pixels(2 * 3 * 8 * 64 + 2, dtype=np.uint8)[2:].view(2, 3, 8, 64),
+         -3),
+        (pixels(2, 8, 64, 6)[..., ::2], -1),                 # pixel stride 6
+        (pixels(2, 3, 8, 65)[..., :64], -3),                 # rows of 65
+    ]
+    for x, axis in cases:
+        assert _luma_mode_equal(x, axis) == "scalar"
+        for round_ in (False, True):
+            before = (lk.luma.launches, lk.luma.generic_launches)
+            got = lk.luma(x, axis, round=round_)
+            torch.cuda.synchronize()
+            assert (lk.luma.launches, lk.luma.generic_launches) == (
+                before[0] + 1, before[1] + 1)
+            assert torch.equal(_bits(got).cpu(),
+                               _bits(lk.luma_ref(x.cpu(), axis, round_)))
+
+
+def test_luma_kernel_u8_views_at_4_byte_offsets(dev):
+    """A uint8 quad is 4 bytes: views 4 bytes off a 16-byte boundary keep
+    the vector modes, with a non-multiple of 16 for W."""
+    rng = np.random.default_rng(24)
+    flat = torch.from_numpy(rng.integers(0, 256, 2 * 8 * 20 * 3 + 4).astype(
+        np.uint8)).to(dev)
+    for x, axis, mode in ((flat[4:].view(2, 8, 20, 3), -1, "channels_last"),
+                          (flat[4:].view(2, 3, 8, 20), -3, "planar")):
+        assert _luma_mode_equal(x, axis) == mode
+        generic = lk.luma.generic_launches
+        got = lk.luma(x, axis)
+        assert lk.luma.generic_launches == generic
+        assert torch.equal(_bits(got).cpu(), _bits(lk.luma_ref(x.cpu(), axis)))
+
+
+def test_ipp_planar_loop_luma_kernel_equals_fma_rows(dev, monkeypatch):
+    """The planar grid loop on a 2-GOP 1088x1920 clip: the same planes,
+    mvs and reconstruction with the kernel's lumas as with fma_rows',
+    and two vector-mode launches a P step."""
+    gop = 4
+    frames = make_test_video(2 * gop, 1088, 1920, seed=23)
+    vcfg = VideoConfig(mode="ipp", n_frames=2 * gop, gop_size=gop)
+    ipp = video.get(vcfg, CodecConfig(entropy="grans"), dev)
+    gops = torch.from_numpy(frames).to(dev).reshape(2, gop, 1088, 1920, 3)
+    before = (lk.luma.launches, lk.luma.generic_launches)
+    planes, mvs = ipp._gop_encode_grid_batch(gops)
+    torch.cuda.synchronize()
+    assert (lk.luma.launches, lk.luma.generic_launches) == (
+        before[0] + 2 * (gop - 1), before[1])
+    recon = ipp.last_grid_recon
+    monkeypatch.setattr(lk, "luma", lk.luma_ref)
+    planes_p, mvs_p = ipp._gop_encode_grid_batch(gops)
+    assert torch.equal(planes, planes_p) and torch.equal(mvs, mvs_p)
+    assert torch.equal(_bits(recon), _bits(ipp.last_grid_recon))

@@ -1,5 +1,5 @@
 // The IPP motion kernels: full-search block SAD with the argmin fused in,
-// and block motion compensation.
+// block motion compensation, and the luma the search runs on.
 //
 // sad_search_kernel replaces, in vcf_tpu/ops/pallas/sad_kernel.py,
 // sad_search (:58) and its row-tiled variant sad_search_tiled (:141).  For
@@ -105,6 +105,29 @@
 // (vcf_mc_mode); every other shape (m = 5, 6, a storage offset) takes
 // mc_kernel, the first design, kept as the generic mode: one thread per
 // output element.
+//
+// luma_kernel replaces no TPU kernel: vcf_tpu's planar IPP loop takes its
+// lumas as an XLA dot (vcf_tpu/video/ipp.py:409-410).  It maps a 3-channel
+// axis to a float32 luma plane by the chain ops/color.py fma_rows
+// evaluates,
+//   l = fma(x2, w2, fma(x1, w1, x0 * w0)),
+// each step by an _rn intrinsic, so nvcc neither contracts nor reorders;
+// ROUND applies rintf (half to even, as torch.round) to each channel
+// first.  For pixel-sized integers fma_rows' float64 steps round as this
+// chain does, so the two agree bit for bit.  The input is float32 or
+// uint8, planar (G, 3, H, W) or a channels-last view (G, H, W, 3) with a
+// pixel stride of 3, read where it lies, with no copy first.
+// What bounds it: bytes.  At 8 x 3 x 1088 x 1920 float32 it reads 200.5 MB
+// and writes 66.8 MB, three operations a pixel.  Design: a thread takes a
+// group of 4 pixels along W as three aligned quad loads (4 elements: 16
+// bytes of float32, 4 of uint8), one a channel in the planar mode, the
+// group's whole 3-channel run (48 or 12 bytes) in the channels-last mode,
+// and stores its 4 lumas as one 16-byte word, so a warp's stores are one
+// contiguous 512-byte run and every byte moves once; a grid-stride loop
+// over the groups, 8 CTAs of 256 threads an SM.  W % 4 != 0, a view off
+// quad alignment or any other strides take the scalar mode of the same
+// kernel, a thread a pixel (vcf_luma_mode, chosen by the input's pointer
+// and strides).
 
 #include <algorithm>
 #include <cstdint>
@@ -130,6 +153,12 @@ constexpr int MC_THREADS = 256;         // the generic mode's CTA
 constexpr int MC_VEC = 4;               // outputs a run (one float4)
 constexpr int MC_VEC_WARPS = 4;         // most warps of runs a CTA
 constexpr int MC_VEC_ROWS = 16;         // rows a CTA (at least one block)
+constexpr int LUMA_THREADS = 256;
+constexpr int LUMA_CTAS_SM = 8;         // CTAs an SM: 2048 threads
+// luma_kernel's modes (vcf_luma_mode)
+constexpr int LUMA_PLANAR = 0;          // vector, (G, 3, H, W)
+constexpr int LUMA_CHANNEL_LAST = 1;    // vector, (G, H, W, 3)
+constexpr int LUMA_SCALAR = 2;          // any strides, a thread a pixel
 
 // The run length for n = 2s + 1 displacements a row: the one whose runs
 // cover n with fewer slots (17 for s = 8, 9 for s = 4).
@@ -657,6 +686,89 @@ mc_vec_kernel(const float* __restrict__ ref, const int* __restrict__ mv,
   }
 }
 
+// The luma of one pixel: fma_rows' chain, rounded step by step.
+template <bool ROUND>
+__device__ __forceinline__ float luma_of(float x0, float x1, float x2,
+                                         float w0, float w1, float w2) {
+  if (ROUND) {
+    x0 = rintf(x0);
+    x1 = rintf(x1);
+    x2 = rintf(x2);
+  }
+  return __fmaf_rn(x2, w2, __fmaf_rn(x1, w1, __fmul_rn(x0, w0)));
+}
+
+// A quad: 4 consecutive elements of T, one aligned load (16 bytes of
+// float32, 4 of uint8); at(r, k) is element k of three quads (k a
+// constant once the callers' loops unroll, so r stays in registers).
+template <typename T>
+struct LumaQuad;
+template <>
+struct LumaQuad<float> {
+  using type = uint4;
+  __device__ static float at(const uint4 (&r)[3], int k) {
+    const uint4& v = r[k >> 2];
+    return __uint_as_float((k & 3) == 0   ? v.x
+                           : (k & 3) == 1 ? v.y
+                           : (k & 3) == 2 ? v.z
+                                          : v.w);
+  }
+};
+template <>
+struct LumaQuad<unsigned char> {
+  using type = unsigned;
+  __device__ static float at(const unsigned (&r)[3], int k) {
+    return (float)((r[k >> 2] >> (8 * (k & 3))) & 0xffu);
+  }
+};
+
+// x: G frames of H rows of W pixels, element (g, c, y, x) at
+// g * sg + c * sc + y * sh + x * sw; out (G, H, W) f32, contiguous.  n:
+// the groups of 4 pixels along W (vector modes: planar sw = 1, a quad a
+// channel; channels-last sc = 1 and sw = 3, the group's 12 elements as
+// three quads; W % 4 == 0 and quad-aligned frames, rows and channels), or
+// the pixels (LUMA_SCALAR).
+template <typename T, int MODE, bool ROUND>
+__global__ void __launch_bounds__(LUMA_THREADS)
+luma_kernel(const T* __restrict__ x, float* __restrict__ out, int H, int W,
+            long long sg, long long sc, long long sh, long long sw,
+            long long n, float w0, float w1, float w2) {
+  if (MODE == LUMA_SCALAR) {
+    for (long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         q < n; q += (long long)gridDim.x * blockDim.x) {
+      const long long row = q / W, g = row / H;
+      const T* p = x + g * sg + (row - g * H) * sh + (q - row * W) * sw;
+      out[q] = luma_of<ROUND>((float)p[0], (float)p[sc], (float)p[2 * sc],
+                              w0, w1, w2);
+    }
+    return;
+  }
+  using Quad = typename LumaQuad<T>::type;
+  const unsigned nw = W / 4;      // n < 2^31: 32-bit index arithmetic
+  for (unsigned q = blockIdx.x * blockDim.x + threadIdx.x; q < n;
+       q += gridDim.x * blockDim.x) {
+    const unsigned row = q / nw, g = row / H;
+    const T* p = x + g * sg + (long long)(row - g * H) * sh +
+                 (long long)(q - row * nw) * (MODE == LUMA_PLANAR ? 4 : 12);
+    Quad r[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      r[j] = __ldg(MODE == LUMA_PLANAR
+                       ? reinterpret_cast<const Quad*>(p + j * sc)
+                       : reinterpret_cast<const Quad*>(p) + j);
+    // pixel i's channel c: element 4 * c + i (planar), 3 * i + c
+    constexpr int kc = MODE == LUMA_PLANAR ? 4 : 1;
+    float l[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = MODE == LUMA_PLANAR ? i : 3 * i;
+      l[i] = luma_of<ROUND>(LumaQuad<T>::at(r, k), LumaQuad<T>::at(r, k + kc),
+                            LumaQuad<T>::at(r, k + 2 * kc), w0, w1, w2);
+    }
+    reinterpret_cast<float4*>(out)[q] = make_float4(l[0], l[1], l[2], l[3]);
+  }
+}
+
 }  // namespace vcf
 
 namespace {
@@ -717,6 +829,29 @@ int launch_sad(const float* ref, const float* cur, int* mv, float* sad,
 }
 
 bool sad_instance(int m) { return m == 4 || m == 8 || m == 16 || m == 32; }
+
+template <typename T, bool ROUND>
+int launch_luma(const void* x, void* out, int mode, int H, int W,
+                long long sg, long long sc, long long sh, long long sw,
+                long long n, float w0, float w1, float w2, void* stream) {
+  int dev = 0, sms = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (!err)
+    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
+  if (err) return err;
+  const long long ctas = std::min<long long>(
+      (n + vcf::LUMA_THREADS - 1) / vcf::LUMA_THREADS,
+      (long long)sms * vcf::LUMA_CTAS_SM);
+  auto kernel = mode == vcf::LUMA_PLANAR
+                    ? &vcf::luma_kernel<T, vcf::LUMA_PLANAR, ROUND>
+                : mode == vcf::LUMA_CHANNEL_LAST
+                    ? &vcf::luma_kernel<T, vcf::LUMA_CHANNEL_LAST, ROUND>
+                    : &vcf::luma_kernel<T, vcf::LUMA_SCALAR, ROUND>;
+  kernel<<<(unsigned)ctas, vcf::LUMA_THREADS, 0, (cudaStream_t)stream>>>(
+      (const T*)x, (float*)out, H, W, sg, sc, sh, sw, n, w0, w1, w2);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -835,6 +970,42 @@ int vcf_mc_apply(const void* ref, const void* mv, void* out, int G, int C,
     vcf::mc_kernel<false><<<grid, vcf::MC_THREADS, 0, st>>>(r, v, o, C, H,
                                                            W, m);
   return (int)cudaGetLastError();
+}
+
+// The mode vcf_luma takes: 0 planar vector, 1 channels-last vector (W %
+// 4 == 0; x and its frame, row and, planar, channel offsets aligned to a
+// quad, 16 bytes of float32 or 4 of uint8; fewer than 2^31 groups of 4
+// pixels), 2 scalar (any other strides); -1 for a shape it refuses.
+// Strides in elements, 0 for an axis of size 1.
+int vcf_luma_mode(const void* x, int dtype, int G, int H, int W,
+                  long long sg, long long sc, long long sh, long long sw) {
+  if (G < 1 || H < 1 || W < 1 || (dtype != 0 && dtype != 1)) return -1;
+  const int es = dtype ? 1 : 4, quad = 4 * es;
+  const bool aligned = (uintptr_t)x % quad == 0 && (sg * es) % quad == 0 &&
+                       (sh * es) % quad == 0;
+  if (W % 4 || !aligned || (long long)G * H * (W / 4) >= (1LL << 31))
+    return vcf::LUMA_SCALAR;
+  if (sw == 1 && (sc * es) % quad == 0) return vcf::LUMA_PLANAR;
+  if (sc == 1 && sw == 3) return vcf::LUMA_CHANNEL_LAST;
+  return vcf::LUMA_SCALAR;
+}
+
+// x: G x H x W pixels of 3 channels on the device, float32 (dtype 0) or
+// uint8 (1), element (g, c, y, x) at g * sg + c * sc + y * sh + x * sw
+// (strides in elements, 0 for an axis of size 1); out (G, H, W) f32,
+// contiguous, on the device; w0..w2 the float32 weights.  round != 0
+// rounds each float32 channel (half to even) first.
+int vcf_luma(const void* x, void* out, int dtype, int G, int H, int W,
+             long long sg, long long sc, long long sh, long long sw,
+             float w0, float w1, float w2, int round, void* stream) {
+  const int mode = vcf_luma_mode(x, dtype, G, H, W, sg, sc, sh, sw);
+  if (mode < 0 || (uintptr_t)out % 16) return (int)cudaErrorInvalidValue;
+  const long long pixels = (long long)G * H * W;
+  const long long n = mode == vcf::LUMA_SCALAR ? pixels : pixels / 4;
+  auto launch = dtype   ? &launch_luma<unsigned char, false>
+                : round ? &launch_luma<float, true>
+                        : &launch_luma<float, false>;
+  return launch(x, out, mode, H, W, sg, sc, sh, sw, n, w0, w1, w2, stream);
 }
 
 }  // extern "C"

@@ -66,6 +66,9 @@ _SIGNATURES = {
     "vcf_sad_search": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vcf_mc_mode": [_P, _P, _I, _I, _I],
     "vcf_mc_apply": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "vcf_luma_mode": [_P, _I, _I, _I, _I, _LL, _LL, _LL, _LL],
+    "vcf_luma": [_P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _F, _F, _F, _I,
+                 _P],
 }
 
 

@@ -36,7 +36,10 @@ mvs)` -> the reconstruction (G, T, 3, H, W) float32, over the grid
 modes of B3/B4 (`fused_cdct_quantize` / `fused_dequantize_cdct`).  The
 planes feed `entropy.rans.grid_lanes_lmajor` with plain reshapes.  For
 every other color both are None, as in vcf_tpu.  Its luma is vcf_tpu's
-planar one: the FMA chain on round(ref), with no clip and no u8 cast.
+planar one: the FMA chain on round(ref), with no clip and no u8 cast, and
+on the u8 clip's frame for cur; on CUDA both are one kernel each
+(`ops.cuda.luma_kernel`, the round folded in, either layout read where it
+lies), elsewhere `to_luma`.
 The two run in `vcf.ipp.encode` / `vcf.ipp.decode` spans
 (`utils.profiling`), their op groups in `vcf.ipp.luma`, `vcf.ipp.pixels`
 (casts, residual, reconstruction) and `vcf.ipp.layout` (the output
@@ -78,7 +81,7 @@ from vcf_tpu_torch.ops import dct as dct_ops
 from vcf_tpu_torch.ops import motion
 from vcf_tpu_torch.ops import quantize as q_ops
 from vcf_tpu_torch.ops.cuda import dct_kernel as dk
-from vcf_tpu_torch.ops.cuda import mc_kernel
+from vcf_tpu_torch.ops.cuda import luma_kernel, mc_kernel
 from vcf_tpu_torch.ops.cuda import sad_kernel
 from vcf_tpu_torch.parallel.mesh import (Mesh, check_mesh, gather, pad_to,
                                          shard_batch)
@@ -385,10 +388,9 @@ class IPPCodec:
                     cur = frames[:, t]
                     with profiling.span("vcf.ipp.luma"):
                         # vcf_tpu's planar luma: round(ref), no clip, no u8
-                        # cast
-                        ref_l = motion.to_luma(torch.round(ref),
-                                               channel_axis=-3)
-                        cur_l = motion.to_luma(cur, channel_axis=-3)
+                        # cast; cur's from the u8 clip, the same integers
+                        ref_l = luma_kernel.luma(ref, -3, round=True)
+                        cur_l = luma_kernel.luma(gops[:, t], -1)
                     mv, _ = self._make_search(*cur_l.shape[-2:])(ref_l, cur_l)
                     pred = self._compensate(ref, mv)
                     # the residual and the decode stay temporaries
