@@ -801,6 +801,43 @@ def test_dwt_on_cuda_matches_cpu(dev, monkeypatch, kw):
     assert np.array_equal(rec, cpu.decode(cs))
 
 
+def test_dwt_clip_path_on_cuda_matches_cpu(dev):
+    """The DWT clip entries on the card: a 3-frame clip's lanes, its
+    context stream (K1's context mode, K2, K3's look-back) and its frames
+    equal the CPU's bit for bit; K1's (L, S) copy of the grid adds its
+    bytes read and written to `layout_bytes`."""
+    from vcf_tpu_torch.entropy import dwt_device as dd
+    from vcf_tpu_torch.utils import profiling
+
+    cfg = CodecConfig(spatial="dwt", entropy="cgrans")
+    gpu, cpu = Codec(cfg, device=dev), Codec(cfg, device="cpu")
+    clip = np.stack([make_test_image(96, 128, seed=s) for s in (5, 6, 7)])
+    shape = clip.shape[1:]
+    lanes = gpu._dwt.clip_to_lanes(gpu, torch.from_numpy(clip).to(dev))
+    lanes_c = cpu._dwt.clip_to_lanes(cpu, torch.from_numpy(clip))
+    assert torch.equal(lanes.cpu(), lanes_c)
+    g = len(cpu._dwt._grid_sizes(shape))
+    fg, cg = (torch.from_numpy(t.astype(np.int64))
+              for t in dd.train_ctx_tables(lanes_c, g, 4))
+    before = profiling.counts()["layout_bytes"]
+    words, n_words, counts, states = rans.encode_lanes_device(
+        lanes, fg.to(dev), cg.to(dev))
+    assert profiling.counts()["layout_bytes"] - before == 2 * lanes.numel()
+    words_c, n_words_c, counts_c, states_c = rans.encode_lanes_device(
+        lanes_c, fg, cg)
+    n = int(n_words)
+    assert n == int(n_words_c)
+    assert torch.equal(words[:n].cpu(), words_c[:n])
+    assert torch.equal(counts.cpu(), counts_c)
+    assert torch.equal(states.cpu(), states_c)
+    out = rc.rans_decode_ctx(words[:n], states, fg.to(dev), cg.to(dev),
+                             lanes.shape[1], counts)
+    assert torch.equal(out.cpu(), lanes_c)
+    frames = gpu._dwt.lanes_to_clip(gpu, out, shape)
+    assert torch.equal(frames.cpu(),
+                       cpu._dwt.lanes_to_clip(cpu, lanes_c, shape))
+
+
 @pytest.mark.parametrize("qss", [24, 32, 7])
 def test_deadzone_quantize_on_cuda_is_ieee(dev, qss):
     """trunc(x / qss) with the IEEE quotient on the card, as on the CPU

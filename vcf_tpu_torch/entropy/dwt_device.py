@@ -10,8 +10,16 @@ lanes are lane-major: lane j codes the contiguous raster span
 [j * L, (j + 1) * L) of its band, so a lane's previous symbol is the
 spatially adjacent coefficient, the context of the order-1 tables.
 
+A clip of N frames (`ops.dwt.DWT.clip_to_lanes`) keeps one frame's lane
+grid shape and stacks the frames inside each group: group i holds band
+i's lanes of frame 0, then of frame 1, ... (`bands_to_grid`), so the
+grid is (G * sg * N, L) and one frame is the still codec's grid.
+
 Order 0 runs K1 + K2 and K3; the order-1 context tables (`cgrans`) run
-the context modes of K1 and K3 with K2 (`entropy.rans`).  The lane grid
+the context modes of K1 and K3 with K2 (`entropy.rans`).  A clip's
+stream stays on the device: `entropy.rans.encode_lanes_device` is the
+encode's device half (words, n_words, states and counts), which
+`encode_grid` copies to the host.  The lane grid
 follows vcf_tpu's non-TPU rule (power-of-two sg, L a multiple of 4),
 which is what vcf_tpu writes on the CPU; a decoder reads sg and L from
 the sidecar.
@@ -32,6 +40,7 @@ import numpy as np
 import torch
 
 from vcf_tpu_torch.entropy import rans as rans_mod
+from vcf_tpu_torch.utils import profiling
 
 
 def grid_dims(band_sizes: Sequence[int],
@@ -49,24 +58,43 @@ def grid_dims(band_sizes: Sequence[int],
     return sg, -(-l // 4) * 4
 
 
-def _band_to_lanes(flat_u8: torch.Tensor, sg: int, l: int) -> torch.Tensor:
-    """(n,) u8 -> (sg, L) lane block, padded with 128 (deadzone zero);
-    lane j codes flat[j*L : (j+1)*L]."""
-    pad = flat_u8.new_full((sg * l - flat_u8.shape[0],), 128)
-    return torch.cat([flat_u8, pad]).reshape(sg, l)
+def bands_to_grid(bands_u8: List[torch.Tensor], sg: int, l: int,
+                  frames: int = 1) -> torch.Tensor:
+    """List of u8 bands, each of `frames` frames ((frames, ...) in frame
+    order; any shape for one frame) -> the (G * sg * frames, L) grouped
+    lane grid: group i holds band i's (sg, L) lane block of frame 0, then
+    of frame 1, ..., where lane j of a frame's block codes its band's
+    flat[j*L : (j+1)*L], padded with 128 (the deadzone zero).  One frame
+    is the still codec's grid.  The symbols are copied once into a grid
+    whose padding alone is filled, in a `vcf.dwt.layout` span, the bytes
+    read and written counted in `layout_bytes`."""
+    g = len(bands_u8)
+    with profiling.span("vcf.dwt.layout"):
+        grid = torch.empty((g, frames, sg * l), dtype=torch.uint8,
+                           device=bands_u8[0].device)
+        for block, band in zip(grid, bands_u8):
+            n = band.numel() // frames
+            block[:, :n] = band.reshape(frames, n)
+            block[:, n:] = 128
+    profiling.count("layout_bytes",
+                    sum(b.numel() for b in bands_u8) + grid.numel())
+    return grid.view(g * frames * sg, l)
 
 
-def bands_to_grid(bands_u8: List[torch.Tensor], sg: int,
-                  l: int) -> torch.Tensor:
-    """List of u8 bands -> (G*sg, L) grouped lane grid."""
-    return torch.cat([_band_to_lanes(b.reshape(-1), sg, l) for b in bands_u8])
-
-
-def grid_to_bands(lanes: torch.Tensor, sizes: Sequence[int],
-                  sg: int) -> List[torch.Tensor]:
-    """(G*sg, L) grid -> the first sizes[i] symbols of each group."""
-    return [lanes[i * sg:(i + 1) * sg].reshape(-1)[:n]
-            for i, n in enumerate(sizes)]
+def grid_to_bands(lanes: torch.Tensor, sizes: Sequence[int], sg: int,
+                  frames: int = None) -> List[torch.Tensor]:
+    """(G * sg * frames, L) grid -> the first sizes[i] symbols of each
+    group's block of each frame: (frames, sizes[i]) views, or (sizes[i],)
+    of a one-frame grid where `frames` is not given.  A grid that is not
+    contiguous (K3 returns a transposed view) is copied once first, in a
+    `vcf.dwt.layout` span, its bytes counted in `layout_bytes`."""
+    if not lanes.is_contiguous():
+        with profiling.span("vcf.dwt.layout"):
+            lanes = lanes.contiguous()
+        profiling.count("layout_bytes", 2 * lanes.nbytes)
+    blocks = lanes.view(len(sizes), frames or 1, -1)
+    bands = [block[:, :n] for block, n in zip(blocks, sizes)]
+    return bands if frames else [b[0] for b in bands]
 
 
 def train_tables(lanes: torch.Tensor, g: int) -> Tuple[np.ndarray, np.ndarray]:

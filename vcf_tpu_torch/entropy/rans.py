@@ -46,7 +46,8 @@ from vcf_tpu_torch.utils import profiling
 __all__ = ["K_PROB", "RANS_L", "MASK", "quantize_freqs", "np_encode_grouped",
            "np_decode_grouped", "subband_lanes", "subband_unlanes",
            "grid_lanes", "grid_lanes_lmajor", "grid_unlanes",
-           "grid_unlanes_lmajor", "group_histograms", "freqs_from_counts", "N_CTX", "CTX_BOUNDS",
+           "grid_unlanes_lmajor", "group_histograms", "freqs_from_counts",
+           "encode_lanes_device", "N_CTX", "CTX_BOUNDS",
            "subband_lanes_ctx", "subband_unlanes_ctx", "ctx_class",
            "ctx_class_n", "np_encode_ctx", "ctx_group_histograms",
            "ctx_cums", "ctx_freqs_from_counts", "RANSCodec", "GroupedRANSCodec",
@@ -289,14 +290,25 @@ def _tables(freqs: np.ndarray, cums: np.ndarray, device: torch.device):
             torch.from_numpy(cums.astype(np.int64)).to(device))
 
 
-def _encode_lanes(lanes: torch.Tensor, freqs: np.ndarray, cums: np.ndarray):
-    """K1 + K2 on a (S, L) lane matrix -> (payload bytes, n_words,
-    per-step counts (L,) int32 numpy, states (S,) uint32 numpy).  (G, 256)
-    tables take K1's order-0 mode, (G, n_ctx, 256) its context mode."""
-    fg, cg = _tables(freqs, cums, lanes.device)
-    encode = rans_encode_ctx if freqs.ndim == 3 else rans_encode_grouped
+def encode_lanes_device(lanes: torch.Tensor, fg: torch.Tensor,
+                        cg: torch.Tensor):
+    """K1 + K2 on a (S, L) lane matrix, on its device: (G, 256) int64
+    tables on that device take K1's order-0 mode, (G, n_ctx, 256) its
+    context mode -> (words (S * L,) uint16 whose first n_words entries are
+    the stream, n_words 0-d int32, per-step counts (L,) int32, final
+    states (S,) int64), nothing read back."""
+    encode = rans_encode_ctx if fg.dim() == 3 else rans_encode_grouped
     raw, states = encode(lanes, fg, cg)
     words, n_words, counts = rans_compact(raw)
+    return words, n_words, counts, states
+
+
+def _encode_lanes(lanes: torch.Tensor, freqs: np.ndarray, cums: np.ndarray):
+    """`encode_lanes_device` with numpy tables, its stream copied to the
+    host -> (payload bytes, n_words, per-step counts (L,) int32 numpy,
+    states (S,) uint32 numpy)."""
+    words, n_words, counts, states = encode_lanes_device(
+        lanes, *_tables(freqs, cums, lanes.device))
     n_words = int(n_words)
     payload = words[:n_words].cpu().numpy().astype("<u2").tobytes()
     return (payload, n_words, counts.cpu().numpy(),

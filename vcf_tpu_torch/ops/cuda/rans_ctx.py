@@ -23,7 +23,10 @@ row sums to 2^15.
 
 Each wrapper runs the plain torch version for a CPU tensor and launches
 its CUDA kernel for a CUDA tensor; nothing else.  `launches` counts the
-kernel launches.
+kernel launches.  Spans (`utils.profiling`), as the order-0 wrappers
+have them: `vcf.rans.encode` around the encode, with K1's (L, S) copy in
+`vcf.rans.layout` (its bytes counted in `layout_bytes`), and
+`vcf.rans.decode` around both decodes.
 """
 
 from __future__ import annotations
@@ -38,8 +41,9 @@ from vcf_tpu_torch.ops.cuda.rans_decode import (
     check_grid, decode_steps_ref, grid_steps_ref, launch_decode,
     launch_grid, raise_decode_error)
 from vcf_tpu_torch.ops.cuda.rans_encode import (
-    K_PROB, _require, _require_cuda, encode_steps_ref, i32_as_u32,
-    launch_encode, pack_tables, to_host)
+    K_PROB, _require, _require_cuda, _steps_major, encode_steps_ref,
+    i32_as_u32, launch_encode, pack_tables, to_host)
+from vcf_tpu_torch.utils import profiling
 
 N_CTX = 4
 
@@ -129,22 +133,22 @@ def rans_encode_ctx(syms: torch.Tensor, freqs_gc, cums_gc
     per decode step, final states (S,) int64 in [0, 2^32))."""
     _require(syms.dim() == 2 and syms.dtype == torch.uint8,
              f"syms must be (S, L) uint8, got {syms.dtype} {tuple(syms.shape)}")
-    if syms.device.type == "cpu":
-        return rans_encode_ctx_ref(syms, freqs_gc, cums_gc)
-    _require_cuda(syms)
-    f, c = _check_tables(freqs_gc, cums_gc)
-    g, n_ctx = f.shape[:2]
-    s_streams = syms.shape[0]
-    _require(s_streams % g == 0, f"{s_streams} lanes do not split into {g} "
-             "groups")
-    dev = syms.device
-    tab = pack_tables(f.reshape(g * n_ctx, 256), c.reshape(g * n_ctx, 256),
-                      dev)
-    lut = class_lut_on(n_ctx, dev)
-    # (L, S): the kernel stages tiles of steps x lanes
-    raw, states = launch_encode(syms.t().contiguous(), tab, lut, g, n_ctx)
-    rans_encode_ctx.launches += 1
-    return raw, i32_as_u32(states)
+    with profiling.span("vcf.rans.encode"):
+        if syms.device.type == "cpu":
+            return rans_encode_ctx_ref(syms, freqs_gc, cums_gc)
+        _require_cuda(syms)
+        f, c = _check_tables(freqs_gc, cums_gc)
+        g, n_ctx = f.shape[:2]
+        s_streams = syms.shape[0]
+        _require(s_streams % g == 0, f"{s_streams} lanes do not split into "
+                 f"{g} groups")
+        dev = syms.device
+        tab = pack_tables(f.reshape(g * n_ctx, 256),
+                          c.reshape(g * n_ctx, 256), dev)
+        lut = class_lut_on(n_ctx, dev)
+        raw, states = launch_encode(_steps_major(syms), tab, lut, g, n_ctx)
+        rans_encode_ctx.launches += 1
+        return raw, i32_as_u32(states)
 
 
 rans_encode_ctx.launches = 0
@@ -226,22 +230,23 @@ def rans_decode_ctx(words: torch.Tensor, states: torch.Tensor,
     _require(counts is None or counts.shape == (l,),
              f"counts must be ({l},)")
     _require(states.device == words.device, "words and states on two devices")
-    if words.device.type == "cpu":
-        return rans_decode_ctx_ref(words, states, freqs_gc, cums_gc, l,
-                                   counts)
-    _require_cuda(words)
-    f, c = _check_tables(freqs_gc, cums_gc)
-    g, n_ctx = f.shape[:2]
-    s_streams = states.shape[0]
-    _require(s_streams % g == 0, f"{s_streams} lanes do not split into {g} "
-             "groups")
-    dev = words.device
-    lut = class_lut_on(n_ctx, dev)
-    out, err = launch_decode(words, states, cum_rows(f, c, dev), lut, counts,
-                             l, g, n_ctx)
-    rans_decode_ctx.launches += 1
-    raise_decode_error(err)
-    return out.t()
+    with profiling.span("vcf.rans.decode"):
+        if words.device.type == "cpu":
+            return rans_decode_ctx_ref(words, states, freqs_gc, cums_gc, l,
+                                       counts)
+        _require_cuda(words)
+        f, c = _check_tables(freqs_gc, cums_gc)
+        g, n_ctx = f.shape[:2]
+        s_streams = states.shape[0]
+        _require(s_streams % g == 0, f"{s_streams} lanes do not split into "
+                 f"{g} groups")
+        dev = words.device
+        lut = class_lut_on(n_ctx, dev)
+        out, err = launch_decode(words, states, cum_rows(f, c, dev), lut,
+                                 counts, l, g, n_ctx)
+        rans_decode_ctx.launches += 1
+        raise_decode_error(err)
+        return out.t()
 
 
 rans_decode_ctx.launches = 0
@@ -265,18 +270,19 @@ def rans_decode_ctx_grid(raw: torch.Tensor, states: torch.Tensor,
     low16 per decode step); states (S,) int64 in [0, 2^32);
     freqs_gc/cums_gc (G, n_ctx, 256).  Returns syms (S, L) uint8 (a
     transposed view of the (L, S) output)."""
-    f, c = _check_tables(freqs_gc, cums_gc)
-    g, n_ctx = f.shape[:2]
-    check_grid(raw, states, l, g)
-    if raw.device.type == "cpu":
-        return rans_decode_ctx_grid_ref(raw, states, f, c, l).t()
-    _require_cuda(raw)
-    dev = raw.device
-    lut = class_lut_on(n_ctx, dev)
-    out = launch_grid("vcf_rans_decode_ctx_grid", raw, states,
-                      (cum_rows(f, c, dev), lut), l, g, n_ctx)
-    rans_decode_ctx_grid.launches += 1
-    return out.t()
+    with profiling.span("vcf.rans.decode"):
+        f, c = _check_tables(freqs_gc, cums_gc)
+        g, n_ctx = f.shape[:2]
+        check_grid(raw, states, l, g)
+        if raw.device.type == "cpu":
+            return rans_decode_ctx_grid_ref(raw, states, f, c, l).t()
+        _require_cuda(raw)
+        dev = raw.device
+        lut = class_lut_on(n_ctx, dev)
+        out = launch_grid("vcf_rans_decode_ctx_grid", raw, states,
+                          (cum_rows(f, c, dev), lut), l, g, n_ctx)
+        rans_decode_ctx_grid.launches += 1
+        return out.t()
 
 
 rans_decode_ctx_grid.launches = 0

@@ -24,7 +24,7 @@ the plain versions (torch's uint32 support is partial) and natively in
 the kernels.
 
 Spans (`utils.profiling`): `vcf.rans.encode` (K1), `vcf.rans.compact`
-(the row mode), `vcf.rans.assemble`, `vcf.rans.tables` (`pack_tables`),
+(K2 and its row mode), `vcf.rans.assemble`, `vcf.rans.tables` (`pack_tables`),
 `vcf.rans.layout` around K1's (L, S) copy (its bytes counted in
 `layout_bytes`), and `vcf.rans.sync` around each read-back of a CUDA
 tensor (`to_host`, counted in `host_syncs`).
@@ -237,28 +237,31 @@ def rans_compact(raw: torch.Tensor
     _require(raw.dim() == 2 and raw.dtype == torch.int32,
              f"raw grid must be (L, S) int32, got {raw.dtype} "
              f"{tuple(raw.shape)}")
-    if raw.device.type == "cpu":
-        return rans_compact_ref(raw)
-    _require_cuda(raw)
-    raw = raw.contiguous()
-    l, s_streams = raw.shape
-    n = raw.numel()
-    _require(0 < n < 1 << 31, f"grid of {n} entries out of range")
-    lib = _build.load()
-    n_tiles = -(-n // lib.vcf_rans_compact_tile())
-    dev = raw.device
-    words = torch.empty(n, dtype=torch.uint16, device=dev)
-    n_words = torch.empty(1, dtype=torch.int32, device=dev)
-    # the tiles' u64 descriptors, the ticket, then the counts: the launch
-    # zeroes all of it with one memset
-    scratch = torch.empty(2 * n_tiles + 1 + l, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.vcf_rans_compact(
-            raw.data_ptr(), n, s_streams, l, words.data_ptr(),
-            n_words.data_ptr(), scratch.data_ptr(), _build.stream_of(raw))
-    _build.check(rc, "rans_compact")
-    rans_compact.launches += 1
-    return words, n_words[0], scratch[2 * n_tiles + 1:]
+    with profiling.span("vcf.rans.compact"):
+        if raw.device.type == "cpu":
+            return rans_compact_ref(raw)
+        _require_cuda(raw)
+        raw = raw.contiguous()
+        l, s_streams = raw.shape
+        n = raw.numel()
+        _require(0 < n < 1 << 31, f"grid of {n} entries out of range")
+        lib = _build.load()
+        n_tiles = -(-n // lib.vcf_rans_compact_tile())
+        dev = raw.device
+        words = torch.empty(n, dtype=torch.uint16, device=dev)
+        n_words = torch.empty(1, dtype=torch.int32, device=dev)
+        # the tiles' u64 descriptors, the ticket, then the counts: the
+        # launch zeroes all of it with one memset
+        scratch = torch.empty(2 * n_tiles + 1 + l, dtype=torch.int32,
+                              device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.vcf_rans_compact(
+                raw.data_ptr(), n, s_streams, l, words.data_ptr(),
+                n_words.data_ptr(), scratch.data_ptr(),
+                _build.stream_of(raw))
+        _build.check(rc, "rans_compact")
+        rans_compact.launches += 1
+        return words, n_words[0], scratch[2 * n_tiles + 1:]
 
 
 rans_compact.launches = 0

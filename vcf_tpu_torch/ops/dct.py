@@ -151,22 +151,23 @@ def padded_shape(shape, b: int):
     return (-(-h // b) * b, -(-w // b) * b) + tuple(shape[2:])
 
 
-def pad_centered(img: torch.Tensor, b: int) -> torch.Tensor:
-    """Zero-pad a (H, W, ...) tensor to multiples of b, centered."""
-    h, w = img.shape[0], img.shape[1]
+def pad_centered(img: torch.Tensor, b: int, axis: int = 0) -> torch.Tensor:
+    """Zero-pad the (H, W) axes `axis`, `axis + 1` of a tensor (leading
+    axes: frames) to multiples of b, centered."""
+    h, w = img.shape[axis], img.shape[axis + 1]
     th, tw = -(-h // b) * b, -(-w // b) * b
     ph, pw = th - h, tw - w
     # F.pad lists pads from the last dim backwards
-    pads = [0, 0] * (img.dim() - 2) + [pw // 2, pw - pw // 2,
-                                       ph // 2, ph - ph // 2]
+    pads = [0, 0] * (img.dim() - 2 - axis) + [pw // 2, pw - pw // 2,
+                                              ph // 2, ph - ph // 2]
     return F.pad(img, pads)
 
 
-def unpad_centered(img: torch.Tensor, original_shape) -> torch.Tensor:
+def unpad_centered(img: torch.Tensor, original_shape,
+                   axis: int = 0) -> torch.Tensor:
     h, w = original_shape[0], original_shape[1]
-    ph, pw = img.shape[0] - h, img.shape[1] - w
-    top, left = ph // 2, pw // 2
-    return img[top : top + h, left : left + w]
+    ph, pw = img.shape[axis] - h, img.shape[axis + 1] - w
+    return img.narrow(axis, ph // 2, h).narrow(axis + 1, pw // 2, w)
 
 
 # ---------------------------------------------------------------------------

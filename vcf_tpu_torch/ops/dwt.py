@@ -30,6 +30,14 @@ depends on how it fuses, which the port does not model.  The colour
 transform around the bank is `ops.color.fma_rows`, the FMA chain of
 vcf_tpu's colour dot.
 
+A pass's lowpass and highpass chains share each gathered input and run
+as one chain over a stacked axis wherever their lengths, shifts (or
+phases) and first-pair fusing agree (`_fma_chains`: db, sym): a third
+of the launches, each element's chain unchanged.  `DWT.clip_to_lanes` /
+`lanes_to_clip` run the device path on a clip of N frames, each frame's
+planes and pixels equal to the one-frame path's bit for bit; the still
+codec's device path is the clip path with N = 1.
+
 `analyze_level_rows_sharded` is one analysis level with the frame's
 rows sharded over a mesh (`parallel.Mesh`): each shard's slab takes its
 `halo_sizes` rows from its ring neighbours (`parallel.dist`: a copy
@@ -50,6 +58,7 @@ from vcf_tpu_torch.codestream import CodeStream, PAYLOAD
 from vcf_tpu_torch.entropy import dwt_device as dd
 from vcf_tpu_torch.ops import color as color_ops
 from vcf_tpu_torch.ops import dct as dct_ops
+from vcf_tpu_torch.utils import profiling
 from vcf_tpu_torch.utils.timing import timed_stage
 
 
@@ -454,6 +463,42 @@ def _fma_chain(gather, filt: np.ndarray, plain0: bool) -> torch.Tensor:
     return z
 
 
+@functools.lru_cache(maxsize=None)
+def _taps_on(filts: tuple, device: torch.device) -> tuple:
+    """The (taps, k) float32 and float64 tensors of k stacked filters on
+    `device`, made once a bank and device."""
+    t = torch.tensor(filts, dtype=torch.float32).t().contiguous()
+    return t.to(device), t.to(torch.float64).to(device)
+
+
+def _fma_chains(gather, filts, plain0: bool,
+                paired: bool = False) -> torch.Tensor:
+    """`_fma_chain` of each filter of `filts` over the same gathered
+    inputs, stacked on a new leading axis; `paired`: filter i over slice
+    i of the gathered inputs' own leading axis.  Filters of one length
+    whose first pairs fuse alike run as one chain over the stack, each
+    launch serving them all: the products broadcast the stacked taps, so
+    every element's chain is its own filter's, bit for bit.  Others run
+    one chain each."""
+    f0, f1 = ([f[i] for f in filts] for i in (0, 1))
+    fuse = {_fuses_first(a, b, plain0) for a, b in zip(f0, f1)}
+    if len({len(f) for f in filts}) > 1 or len(fuse) > 1:
+        return torch.stack([
+            _fma_chain((lambda j, i=i: gather(j)[i]) if paired else gather,
+                       f, plain0) for i, f in enumerate(filts)])
+    x0, x1 = gather(0), gather(1)
+    w32, w64 = _taps_on(tuple(tuple(f.tolist()) for f in filts), x0.device)
+    shape = (len(filts),) + (1,) * (x0.dim() - paired)
+    if fuse.pop():
+        z = fma32(x0, w64[0].view(shape), x1 * w32[1].view(shape))
+    else:
+        z = fma32(x1, w64[1].view(shape), x0 * w32[0].view(shape))
+    del x0, x1
+    for j in range(2, len(filts[0])):
+        z = fma32(gather(j), w64[j].view(shape), z)
+    return z
+
+
 def _down_axis(x: torch.Tensor, filt: np.ndarray, shift: int,
                axis: int) -> torch.Tensor:
     """a[k] = sum_j f[j] * x[(2k + j + shift) mod n] along `axis`."""
@@ -464,41 +509,83 @@ def _down_axis(x: torch.Tensor, filt: np.ndarray, shift: int,
         plain0=shift % n == 0)
 
 
+def _down_pair(x: torch.Tensor, bank: Bank, axis: int) -> torch.Tensor:
+    """`_down_axis` of the lowpass and the highpass along `axis`, stacked
+    on a new leading axis; with one shift, one gather a tap serves both
+    and their chains run as one (`_fma_chains`)."""
+    if bank.shift_lo != bank.shift_hi:
+        return torch.stack([_down_axis(x, bank.dec_lo, bank.shift_lo, axis),
+                            _down_axis(x, bank.dec_hi, bank.shift_hi, axis)])
+    n, shift = x.shape[axis], bank.shift_lo
+    even = torch.arange(0, n, 2, device=x.device)
+    return _fma_chains(
+        lambda j: x.index_select(axis, (even + j + shift) % n),
+        (bank.dec_lo, bank.dec_hi), plain0=shift % n == 0)
+
+
+def _upsampled(a: torch.Tensor, axis: int, n: int) -> torch.Tensor:
+    """a_up of length n along `axis`: a_up[2k] = a[k], 0 at odd places."""
+    am = a.movedim(axis, 0)
+    up = am.new_zeros((n,) + tuple(am.shape[1:]))
+    up[::2] = am
+    return up.movedim(0, axis)
+
+
 def _up_axis(a: torch.Tensor, filt: np.ndarray, phase: int, axis: int,
              n: int) -> torch.Tensor:
     """y[m] = sum_j f[j] * a_up[(m - j - phase) mod n], a_up[2k] = a[k]
     and 0 at odd positions (the zero terms are kept: the chain is
     vcf_tpu's, term for term; one product of the first pair is always 0,
     so its fusing order does not matter)."""
-    am = a.movedim(axis, 0)
-    up = am.new_zeros((n,) + tuple(am.shape[1:]))
-    up[::2] = am
-    up = up.movedim(0, axis)
+    up = _upsampled(a, axis, n)
     m = torch.arange(n, device=a.device)
     return _fma_chain(
         lambda j: up.index_select(axis, (m - j - phase) % n), filt,
         plain0=phase % n == 0)
 
 
-def analyze_level(x: torch.Tensor, bank: Bank):
-    lo = _down_axis(x, bank.dec_lo, bank.shift_lo, 0)
-    hi = _down_axis(x, bank.dec_hi, bank.shift_hi, 0)
-    ll = _down_axis(lo, bank.dec_lo, bank.shift_lo, 1)
-    lh = _down_axis(lo, bank.dec_hi, bank.shift_hi, 1)
-    hl = _down_axis(hi, bank.dec_lo, bank.shift_lo, 1)
-    hh = _down_axis(hi, bank.dec_hi, bank.shift_hi, 1)
-    return ll, (lh, hl, hh)
+def _up_pairs(a: torch.Tensor, bank: Bank, axis: int,
+              n: int) -> torch.Tensor:
+    """`_up_axis` of stacked bands (leading axis) that alternate between
+    the lowpass and the highpass band of a pair, each through its own
+    synthesis filter; with one phase, one gather a tap serves them all
+    and their chains run as one (`_fma_chains`)."""
+    pairs = a.shape[0] // 2
+    filts = (bank.rec_lo, bank.rec_hi) * pairs
+    if bank.phase_lo != bank.phase_hi:
+        phases = (bank.phase_lo, bank.phase_hi) * pairs
+        return torch.stack([_up_axis(b, f, p, axis - 1, n)
+                            for b, f, p in zip(a, filts, phases)])
+    up, phase = _upsampled(a, axis, n), bank.phase_lo
+    m = torch.arange(n, device=a.device)
+    return _fma_chains(
+        lambda j: up.index_select(axis, (m - j - phase) % n), filts,
+        plain0=phase % n == 0, paired=True)
 
 
-def synthesize_level(ll: torch.Tensor, details, bank: Bank, out_hw):
-    lh, hl, hh = details
+def analyze_level(x: torch.Tensor, bank: Bank, axis: int = 0):
+    """One level over the rows at `axis` and the columns at `axis + 1`
+    (leading axes: frames, each transformed alone by the same chains)."""
+    return _column_bands(_down_pair(x, bank, axis), bank, axis + 1)
+
+
+def _column_bands(rows: torch.Tensor, bank: Bank, col: int):
+    """The column passes (columns at `col` of each row pass) of the
+    stacked (lowpass, highpass) row passes -> (LL, (LH, HL, HH))."""
+    cols = _down_pair(rows, bank, col + 1)     # [column filter, row filter]
+    return cols[0, 0], (cols[1, 0], cols[0, 1], cols[1, 1])
+
+
+def synthesize_level(ll: torch.Tensor, details, bank: Bank, out_hw,
+                     axis: int = 0):
+    """Inverse of analyze_level: along the columns LL + LH -> the
+    lowpass rows and HL + HH -> the highpass rows, then along the rows
+    their sum."""
     h_out, w_out = out_hw
-    lo = (_up_axis(ll, bank.rec_lo, bank.phase_lo, 1, w_out)
-          + _up_axis(lh, bank.rec_hi, bank.phase_hi, 1, w_out))
-    hi = (_up_axis(hl, bank.rec_lo, bank.phase_lo, 1, w_out)
-          + _up_axis(hh, bank.rec_hi, bank.phase_hi, 1, w_out))
-    return (_up_axis(lo, bank.rec_lo, bank.phase_lo, 0, h_out)
-            + _up_axis(hi, bank.rec_hi, bank.phase_hi, 0, h_out))
+    cols = _up_pairs(torch.stack((ll,) + tuple(details)), bank, axis + 2,
+                     w_out)
+    rows = _up_pairs(cols[0::2] + cols[1::2], bank, axis + 1, h_out)
+    return rows[0] + rows[1]
 
 
 def halo_sizes(bank: Bank) -> Tuple[int, int]:
@@ -551,32 +638,32 @@ def analyze_level_rows_sharded(slabs: Sequence[torch.Tensor], bank: Bank,
                                  h_local, n_rows)
         hi = _down_rows_from_ext(ext, bank.dec_hi, bank.shift_hi, before,
                                  h_local, n_rows)
-        bands.append((_down_axis(lo, bank.dec_lo, bank.shift_lo, 1),
-                      _down_axis(lo, bank.dec_hi, bank.shift_hi, 1),
-                      _down_axis(hi, bank.dec_lo, bank.shift_lo, 1),
-                      _down_axis(hi, bank.dec_hi, bank.shift_hi, 1)))
+        ll, details = _column_bands(torch.stack([lo, hi]), bank, 1)
+        bands.append((ll,) + details)
     ll, lh, hl, hh = (list(b) for b in zip(*bands))
     return ll, (lh, hl, hh)
 
 
-def analyze(x: torch.Tensor, wavelet: str, levels: int) -> list:
+def analyze(x: torch.Tensor, wavelet: str, levels: int,
+            axis: int = 0) -> list:
     """[LL_L, (LH,HL,HH)_L, ..., (LH,HL,HH)_1] like pywt.wavedec2 /
-    the reference's list layout (src/2D-DWT.py:113-136)."""
+    the reference's list layout (src/2D-DWT.py:113-136); the rows at
+    `axis`, the columns at `axis + 1`."""
     bank = get_bank(wavelet)
     details = []
     cur = x
     for _ in range(levels):
-        cur, d = analyze_level(cur, bank)
+        cur, d = analyze_level(cur, bank, axis)
         details.append(d)
     return [cur] + details[::-1]
 
 
-def synthesize(decomp: list, wavelet: str) -> torch.Tensor:
+def synthesize(decomp: list, wavelet: str, axis: int = 0) -> torch.Tensor:
     bank = get_bank(wavelet)
     cur = decomp[0]
     for details in decomp[1:]:
-        out_hw = (details[0].shape[0] * 2, details[0].shape[1] * 2)
-        cur = synthesize_level(cur, details, bank, out_hw)
+        out_hw = (details[0].shape[axis] * 2, details[0].shape[axis + 1] * 2)
+        cur = synthesize_level(cur, details, bank, out_hw, axis)
     return cur
 
 
@@ -632,17 +719,27 @@ class DWT:
 
     def _analysis(self, codec, img: np.ndarray) -> list:
         """u8 image -> the flat float32 subbands, coarsest first."""
-        x = torch.from_numpy(np.ascontiguousarray(img)).to(codec.device)
-        padded = dct_ops.pad_centered(x.to(torch.float32), 1 << self.levels)
+        return self._bands(codec, codec._upload(img), axis=0)
+
+    def _bands(self, codec, x: torch.Tensor, axis: int) -> list:
+        """u8 pixels with the rows at `axis` -> the flat float32 subbands,
+        coarsest first."""
+        padded = dct_ops.pad_centered(x.to(torch.float32), 1 << self.levels,
+                                      axis)
         ct = self._color(codec, padded - codec.spatial_offset, inverse=False)
-        return self.flatten(analyze(ct, self.wavelet, self.levels))
+        return self.flatten(analyze(ct, self.wavelet, self.levels, axis))
 
     def _synthesis(self, codec, flat: list, shape) -> np.ndarray:
         """Flat dequantized subbands -> the u8 image of `shape`."""
-        ct = synthesize(self.unflatten(flat), self.wavelet)
+        return self._pixels(codec, flat, shape, axis=0).cpu().numpy()
+
+    def _pixels(self, codec, flat: list, shape, axis: int) -> torch.Tensor:
+        """Flat dequantized subbands with the rows at `axis` -> u8 pixels
+        of (H, W) `shape[:2]`, on their device."""
+        ct = synthesize(self.unflatten(flat), self.wavelet, axis)
         y = self._color(codec, ct, inverse=True) + codec.spatial_offset
-        y = dct_ops.unpad_centered(y, shape)
-        return torch.clamp(torch.round(y), 0, 255).to(torch.uint8).cpu().numpy()
+        y = dct_ops.unpad_centered(y, shape, axis)
+        return torch.clamp(torch.round(y), 0, 255).to(torch.uint8)
 
     def _band_shapes(self, img_shape) -> list:
         """Padded subband shapes, coarsest-first, matching flatten()."""
@@ -737,22 +834,28 @@ class DWT:
     # (per-band tables keep the reference's per-band statistics,
     # src/2D-DWT.py:162-200, without its per-band streams)
     # ------------------------------------------------------------------
-    def _grid_bands(self, codec, img: np.ndarray) -> list:
-        """The grid's u8 byte planes: LL's index + 128 as two bytes (high,
-        low), each detail band's index + 128 wrapped to a byte."""
-        bands = []
-        for i, band in enumerate(self._analysis(codec, img)):
+    @staticmethod
+    def _byte_planes(codec, bands: list) -> list:
+        """The grid's u8 byte planes of flat subbands (any leading frame
+        axis): LL's index + 128 as two bytes (high, low), each detail
+        band's index + 128 wrapped to a byte."""
+        planes = []
+        for i, band in enumerate(bands):
             k = codec._quantize(band)[0] + 128
             if i == 0:
                 v = k & 0xFFFF
-                bands.append(((v >> 8) & 0xFF).to(torch.uint8))
-                bands.append((v & 0xFF).to(torch.uint8))
+                planes.append(((v >> 8) & 0xFF).to(torch.uint8))
+                planes.append((v & 0xFF).to(torch.uint8))
             else:
-                bands.append((k & 0xFF).to(torch.uint8))
-        return bands
+                planes.append((k & 0xFF).to(torch.uint8))
+        return planes
+
+    def _grid_bands(self, codec, img: np.ndarray) -> list:
+        """One image's byte planes, from its subbands alone."""
+        return self._byte_planes(codec, self._analysis(codec, img))
 
     def _grid_flat(self, codec, bands: list, shapes: list) -> list:
-        """Inverse of _grid_bands, dequantized: byte planes -> the flat
+        """Inverse of _byte_planes, dequantized: byte planes -> the flat
         float32 subbands."""
         qss = codec.config.qss
         hi, lo = bands[0].to(torch.int32), bands[1].to(torch.int32)
@@ -763,6 +866,38 @@ class DWT:
         return [(k.to(torch.float32) * qss).reshape(s)
                 for k, s in zip(ks, shapes)]
 
+    def clip_to_lanes(self, codec, frames: torch.Tensor) -> torch.Tensor:
+        """A clip's lane grid: u8 frames (N, H, W, 3) on the device ->
+        colour -> the bank -> the deadzone quantizer -> byte planes (in a
+        `vcf.dwt.analyze` span) -> the (G * sg * N, L) u8 lanes of
+        `entropy.dwt_device.bands_to_grid`, (sg, L) from one frame's
+        subband sizes.  Each frame's planes equal `_grid_bands`' of that
+        frame alone, bit for bit: the chains are elementwise over the
+        frame axis."""
+        if codec.config.quantizer != "deadzone":
+            raise ValueError("the DWT lane grid takes the deadzone "
+                             f"quantizer, not {codec.config.quantizer!r}")
+        with profiling.span("vcf.dwt.analyze"):
+            planes = self._byte_planes(codec,
+                                       self._bands(codec, frames, axis=1))
+        sg, l = dd.grid_dims(self._grid_sizes(frames.shape[1:]))
+        return dd.bands_to_grid(planes, sg, l, frames=frames.shape[0])
+
+    def lanes_to_clip(self, codec, lanes: torch.Tensor, shape
+                      ) -> torch.Tensor:
+        """Inverse of clip_to_lanes: (G * sg * N, L) u8 lanes -> the u8
+        frames (N, H, W, C) of one frame's `shape` (H, W, C), on the
+        lanes' device; dequantizer, bank and colour in a
+        `vcf.dwt.synthesize` span."""
+        sizes = self._grid_sizes(shape)
+        sg, _ = dd.grid_dims(sizes)
+        n = lanes.shape[0] // (len(sizes) * sg)
+        bands = dd.grid_to_bands(lanes, sizes, sg, frames=n)
+        with profiling.span("vcf.dwt.synthesize"):
+            flat = self._grid_flat(codec, bands, [
+                (n,) + s for s in self._band_shapes(shape)])
+            return self._pixels(codec, flat, shape, axis=1)
+
     def encode_device(self, codec, img: np.ndarray) -> CodeStream:
         cfg = codec.config
         t = codec.last_timings
@@ -770,7 +905,7 @@ class DWT:
         sg, l = dd.grid_dims(sizes)
         g = len(sizes)
         with timed_stage(t, "device:analyze+quantize"):
-            lanes = dd.bands_to_grid(self._grid_bands(codec, img), sg, l)
+            lanes = self.clip_to_lanes(codec, codec._upload(img)[None])
         # cgrans: per-(band, prev-class) tables over the lane-major raster
         # layout; small inputs stay order 0, where the n_ctx-times tables
         # sidecar would outweigh the gain
@@ -806,6 +941,4 @@ class DWT:
             lanes = dd.decode_grid(words, states, counts, fg, cg, l,
                                    codec.device)
         with timed_stage(t, "device:dequantize+synthesize"):
-            bands = dd.grid_to_bands(lanes, self._grid_sizes(shape), sg)
-            flat = self._grid_flat(codec, bands, self._band_shapes(shape))
-            return self._synthesis(codec, flat, shape)
+            return self.lanes_to_clip(codec, lanes, shape)[0].cpu().numpy()

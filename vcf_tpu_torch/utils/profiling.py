@@ -9,19 +9,22 @@ of the profiler flag and a shared no-op context.  The names are
 `vcf.<module>.<what>`, first the wrappers and loops:
 
     vcf.dct.forward, vcf.dct.inverse    B1-B4's launches
+    vcf.dwt.analyze, vcf.dwt.synthesize the DWT lane grid's colour, bank,
+                                        quantizer and byte planes, and back
     vcf.rans.encode, vcf.rans.compact, vcf.rans.assemble, vcf.rans.decode
-                                        K1, K2's row mode, assemble_stream,
-                                        K3 and the grid decode
+                                        K1, K2 and its row mode,
+                                        assemble_stream, K3 and the grid
+                                        decode (both modes)
     vcf.motion.search, vcf.motion.compensate
                                         the SAD and MC wrappers
     vcf.ipp.encode, vcf.ipp.decode      the planar IPP grid loop
 
 then the kinds of work inside them, selected by their last part:
 
-    vcf.dct.layout, vcf.rans.layout, vcf.ipp.layout
+    vcf.dct.layout, vcf.dwt.layout, vcf.rans.layout, vcf.ipp.layout
                 copies that only move bytes: the DCT wrapper's planar
-                copy, the lane layouts and K1's (L, S) copy, the IPP
-                loop's output stacks
+                copy, the DWT bands <-> lane grid copies, the lane
+                layouts and K1's (L, S) copy, the IPP loop's output stacks
     vcf.rans.sync       device-to-host read-backs of the rANS wrappers
     vcf.rans.tables     pack_tables
     vcf.ipp.luma        the IPP loop's luma chains
