@@ -54,6 +54,13 @@ kernels from vcf_tpu_torch/csrc on first use.  Phases:
    (8, 1088, 1920, 3) u8 frame view of an (8, 2, 1088, 1920, 3) clip,
    bit for bit against its plain version (`to_luma`, fma_rows' chain),
    both in their vector modes, timed beside it;
+3g. the DWT level kernels (csrc/dwt.cu) at the dwt_wire_8f cell's five
+   db5 levels of an (8, 1088, 1920, 3) float32 clip: each level's
+   analysis bands bit for bit and its synthesis equal to the plain torch
+   chain (`ops.dwt.analyze_level_ref` / `synthesize_level_ref`), timed
+   beside it by CUDA events, the bound each level's input and outputs
+   read and written once (the row's `ms` the five analysis levels, its
+   `synthesis_*` keys the five synthesis levels);
 4c. main path, IPP: IPPCodec(VideoConfig(mode="ipp", n_frames=8,
    gop_size=4, me_block=16, search_range=8), CodecConfig(entropy="grans",
    subbands=False), "cuda") encode -> bytes -> decode of that clip (SAD,
@@ -68,7 +75,9 @@ kernels from vcf_tpu_torch/csrc on first use.  Phases:
 3d. the context modes of K1/K3 at S=65536, L=765, G=64 with 4 and 15
    classes, bit-exact (K3 with counts and without), each also timed as a
    launch alone; 4d: the 8-frame cgrans clip; 4e: the 1088x1920 DWT frame
-   (cgrans and grans) against the port's CPU run, K1 (context mode,
+   (cgrans and grans) against the port's CPU run, each encode launching
+   one DWT analysis kernel a level and each decode one synthesis kernel
+   a level (the `dwt_level` row's launches), K1 (context mode,
    order 0) bit-exact and timed on its (17*512, 3060) lane grid, and its
    device-resident context route (context encode -> rans_decode_ctx_grid
    -> synthesis), whose lanes equal the wire decode's, and the context
@@ -1106,6 +1115,62 @@ def luma_row(x: torch.Tensor) -> dict:
     return row
 
 
+def dwt_row() -> dict:
+    """3g: the DWT level kernels at the dwt_wire_8f cell's level shapes,
+    db5, (8, H, W, 3) float32; each level against the plain chain and
+    timed; the row sums the five levels of each direction."""
+    from vcf_tpu_torch.ops import dwt
+
+    bank = dwt.get_bank("db5")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cur = torch.rand((FRAMES, H, W, 3), device="cuda", generator=gen) * 255 \
+        - 128
+    levels = []
+    for lvl in range(1, 6):
+        got = dwt.analyze_level(cur, bank, 1)
+        want = dwt.analyze_level_ref(cur, bank, 1)
+        n_diff = sum(int((g.view(torch.int32) != w.view(torch.int32)).sum())
+                     for g, w in zip((got[0],) + got[1], (want[0],) + want[1]))
+        hw = tuple(cur.shape[1:3])
+        y = dwt.synthesize_level(got[0], got[1], bank, hw, 1)
+        y_ref = dwt.synthesize_level_ref(got[0], got[1], bank, hw, 1)
+        n_diff += int((y != y_ref).sum())
+        require(n_diff == 0, f"DWT level {lvl}: {n_diff} values differ from "
+                "the plain chain")
+        args = (got[0], got[1], bank, hw, 1)
+        levels.append({
+            "level": lvl, "input": list(cur.shape),
+            "ms": cuda_ms(lambda: dwt.analyze_level(cur, bank, 1), 20),
+            "plain_ms": cuda_ms(lambda: dwt.analyze_level_ref(cur, bank, 1),
+                                3),
+            "synthesis_ms": cuda_ms(lambda: dwt.synthesize_level(*args), 20),
+            "synthesis_plain_ms": cuda_ms(
+                lambda: dwt.synthesize_level_ref(*args), 3),
+            **bound(2 * nbytes(cur))})
+        print(f"time dwt level {lvl} {tuple(cur.shape)}: analysis "
+              f"{levels[-1]['ms']:.4f} ms (plain {levels[-1]['plain_ms']:.4f})"
+              f", synthesis {levels[-1]['synthesis_ms']:.4f} ms (plain "
+              f"{levels[-1]['synthesis_plain_ms']:.4f}), bound "
+              f"{levels[-1]['bound_ms']:.4f} ms each")
+        cur = got[0]
+    total = {k: sum(lv[k] for lv in levels)
+             for k in ("ms", "plain_ms", "synthesis_ms", "synthesis_plain_ms",
+                       "bound_ms")}
+    print(f"time dwt 5 levels: analysis {total['ms']:.4f} ms, synthesis "
+          f"{total['synthesis_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms "
+          f"each ({total['ms'] / total['bound_ms']:.2f}x / "
+          f"{total['synthesis_ms'] / total['bound_ms']:.2f}x)")
+    row = kernel_row("dwt_level", "dwt.cu", "", 0, total["ms"],
+                     total["plain_ms"], {"bound_ms": total["bound_ms"],
+                                         "bound_by": "bytes"},
+                     diff_share=0.0, synthesis_ms=total["synthesis_ms"],
+                     synthesis_plain_ms=total["synthesis_plain_ms"],
+                     levels=levels)
+    row["replaces"] = ("none: vcf_tpu/ops/dwt.py _down_axis / _up_axis are "
+                       "XLA ops")
+    return row
+
+
 def mc_source_index(shape, mv: torch.Tensor, m: int) -> torch.Tensor:
     """The int64 flat index into (G, C, H, W) frames of every motion-
     compensated output's source (the clamped, displaced pixel)."""
@@ -1382,10 +1447,15 @@ def phase_cgrans_clip(dev, frames: np.ndarray, planes_k: torch.Tensor,
             "rans_decode_ctx": launches["rans_decode_ctx"]}
 
 
-def phase_dwt(dev, frame: np.ndarray) -> dict:
-    """4e: the 1088x1920 DWT still frame, cgrans and grans."""
+def phase_dwt(dev, frame: np.ndarray):
+    """4e: the 1088x1920 DWT still frame, cgrans and grans; each encode
+    launches one DWT analysis kernel a level and each decode one
+    synthesis kernel a level.  Returns the context grid's launches, the
+    DWT grid's keys and the DWT level kernels' (analysis, synthesis)
+    launches of the two encodes and decodes."""
     from vcf_tpu_torch import Codec, CodecConfig, CodeStream, metrics
     from vcf_tpu_torch.entropy import dwt_device as dd
+    from vcf_tpu_torch.ops.cuda import dwt_kernel as dwk
     from vcf_tpu_torch.ops.cuda import rans_ctx as rc
     from vcf_tpu_torch.ops.cuda import rans_decode as rd
     from vcf_tpu_torch.ops.cuda import rans_encode as re_
@@ -1398,23 +1468,36 @@ def phase_dwt(dev, frame: np.ndarray) -> dict:
     expect = {"cgrans": ("rans_encode_ctx", "rans_compact", "rans_decode_ctx"),
               "grans": ("rans_encode_grouped", "rans_compact",
                         "rans_decode_grouped")}
-    out, dwt_grid = {}, {}
+    bank = {"analysis": dwk.analyze_level, "synthesis": dwk.synthesize_level}
+    out, dwt_grid, bank_launches = {}, {}, [0, 0]
     for ent in ("cgrans", "grans"):
         cfg = CodecConfig(spatial="dwt", qss=DWT_QSS, entropy=ent)
         codec = Codec(cfg, device=dev)
+        levels = codec._dwt.levels
         for fn in kernels.values():
             fn.launches = 0
+        zero_counts(bank)
         t0 = time.perf_counter()
         cs = codec.encode(frame)
+        enc_bank = [fn.launches for fn in bank.values()]
         blob = cs.to_bytes()
+        zero_counts(bank)
         rec = codec.decode(CodeStream.from_bytes(blob))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
+        dec_bank = [fn.launches for fn in bank.values()]
         launches = {name: fn.launches for name, fn in kernels.items()}
-        print(f"dwt {ent} path: launches {launches}")
+        print(f"dwt {ent} path: launches {launches}, DWT level kernels "
+              f"(analysis, synthesis) encode {enc_bank} decode {dec_bank}")
         for name in expect[ent]:
             require(launches[name] > 0,
                     f"kernel {name} was not launched on the DWT {ent} path")
+        require(enc_bank == [levels, 0] and dec_bank == [0, levels],
+                f"DWT {ent}: level kernels (analysis, synthesis) launched "
+                f"{enc_bank} on encode and {dec_bank} on decode, not one a "
+                f"level ({levels})")
+        bank_launches = [a + e + d for a, e, d in
+                         zip(bank_launches, enc_bank, dec_bank)]
         g, sg, l, *_, n_ctx = dd.unpack_model(cs["gdwt_model"])
         require((g, sg, l) == DWT_GRID, f"DWT grid {(g, sg, l)}")
         require(n_ctx == (4 if ent == "cgrans" else 0),
@@ -1466,7 +1549,7 @@ def phase_dwt(dev, frame: np.ndarray) -> dict:
     print(f"dwt: cgrans {out['cgrans']['bpp']:.6f} bpp against grans "
           f"{out['grans']['bpp']:.6f} "
           f"({100 * (out['cgrans']['bpp'] / out['grans']['bpp'] - 1):+.2f}%)")
-    return ctx_launches, dwt_grid
+    return ctx_launches, dwt_grid, bank_launches
 
 
 def dwt_k1_grid(dev, grid: torch.Tensor, model) -> dict:
@@ -3273,6 +3356,7 @@ def main() -> None:
 
     clip = test_video(FRAMES, H, W, seed=7)
     results += phase_motion_kernels(dev, clip)
+    results.append(dwt_row())
     ctx_rows, ctx_words, ctx_grids = phase_ctx_kernels(dev, planes)
     results += ctx_rows
     grid_rows = phase_grid_kernels(dev, frames, ctx_grids)
@@ -3292,7 +3376,10 @@ def main() -> None:
     launches.update(ipp_launches)
     launches.update(phase_cgrans_clip(dev, frames, planes, ctx_words,
                                       grans_clip))
-    ctx_grid_launches, dwt_grid = phase_dwt(dev, base)
+    ctx_grid_launches, dwt_grid, bank_launches = phase_dwt(dev, base)
+    # the DWT level kernels run on 4e's encodes and decodes (3g times them
+    # alone)
+    launches["dwt_level"], dwt_synthesis_launches = bank_launches
     phase_host_codecs(dev, base)
     # 4i's launches add to the paths' counts: srans and the generic IPP
     # loop's DWT grans still codec launch K1-K3, its P frames SAD and MC
@@ -3312,6 +3399,8 @@ def main() -> None:
     for row in results:
         row["launches"] = launches[row["name"]]
         row.update(dwt_grid.get(row["name"], {}))
+        if row["name"] == "dwt_level":
+            row["synthesis_launches"] = dwt_synthesis_launches
     for row in grid_rows:
         row["launches"] = grid_launches[row["name"].split("[")[0]]
         row.update(dwt_grid.get(row["name"], {}))

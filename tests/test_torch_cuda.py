@@ -22,9 +22,12 @@ The SAD kernel's float32 screen keeps every minimiser and its float64
 sums are exact, so its mvs and SADs equal the plain version's in both
 modes (block-size instances and the generic kernel); motion compensation
 is a copy, bit-exact.  The luma kernel equals `ops.color.fma_rows`'s
-chain bit for bit: on every RGB triple and on half-integer pixels.
+chain bit for bit: on every RGB triple and on half-integer pixels.  The
+DWT level kernels equal the plain torch chain (`ops.dwt.analyze_level_ref`
+/ `synthesize_level_ref`): bands bit for bit, synthesis under ==.
 """
 
+import ctypes
 import functools
 
 import numpy as np
@@ -42,6 +45,7 @@ from vcf_tpu_torch.ops import dct as dct_ops
 from vcf_tpu_torch.ops import motion
 from vcf_tpu_torch.ops.cuda import _build
 from vcf_tpu_torch.ops.cuda import dct_kernel as dk
+from vcf_tpu_torch.ops.cuda import dwt_kernel as dwk
 from vcf_tpu_torch.ops.cuda import luma_kernel as lk
 from vcf_tpu_torch.ops.cuda import mc_kernel as mk
 from vcf_tpu_torch.ops import dwt as dwt_ops
@@ -1604,3 +1608,139 @@ def test_ipp_planar_loop_luma_kernel_equals_fma_rows(dev, monkeypatch):
     planes_p, mvs_p = ipp._gop_encode_grid_batch(gops)
     assert torch.equal(planes, planes_p) and torch.equal(mvs, mvs_p)
     assert torch.equal(_bits(recon), _bits(ipp.last_grid_recon))
+
+
+# The DWT level kernels (csrc/dwt.cu, ops/cuda/dwt_kernel.py): every band
+# bit for bit against the plain torch chain (`ops.dwt.analyze_level_ref`),
+# every synthesis output equal to it (the kernel skips the zero terms of
+# the upsampled bands, which may flip only the sign of a zero sum).
+DWT_FAMILIES = ["haar", "db2", "db5", "sym4", "coif2", "bior2.2",
+                "legall53", "bior4.4", "cdf97", "rbio3.5"]
+
+
+def _dwt_signal(shape, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.random(shape) * 255 - 128)
+                            .astype(np.float32))
+
+
+def _dwt_level_equal(x, bank, axis, dev):
+    """One level of `x` (CPU) by the kernels on `dev` and by the plain
+    chain on the CPU: bands bit for bit, synthesis equal."""
+    got = dwt_ops.analyze_level(x.to(dev), bank, axis)
+    want = dwt_ops.analyze_level_ref(x, bank, axis)
+    for g, w in zip((got[0],) + got[1], (want[0],) + want[1]):
+        assert g.shape == w.shape and g.stride() == w.stride()
+        assert torch.equal(_bits(g).cpu(), _bits(w))
+    hw = x.shape[axis:axis + 2]
+    y = dwt_ops.synthesize_level(want[0].to(dev),
+                                 tuple(d.to(dev) for d in want[1]), bank, hw,
+                                 axis)
+    assert torch.equal(y.cpu(), dwt_ops.synthesize_level_ref(
+        want[0], want[1], bank, hw, axis))
+
+
+@pytest.mark.parametrize("name", DWT_FAMILIES)
+def test_dwt_level_kernels_match_plain_chain(dev, name):
+    bank = dwt_ops.get_bank(name)
+    before = (dwk.analyze_level.launches, dwk.synthesize_level.launches)
+    seed, calls = 0, 0
+    for axis, lead in ((0, ()), (1, (1,)), (1, (3,))):
+        for t in (1, 3):
+            for hw in ((32, 48), (34, 60), (2, 4), (66, 130), (16, 400)):
+                seed += 1
+                calls += 1
+                _dwt_level_equal(_dwt_signal(lead + hw + (t,), seed), bank,
+                                 axis, dev)
+    assert (dwk.analyze_level.launches, dwk.synthesize_level.launches) == (
+        before[0] + calls, before[1] + calls)
+
+
+def test_dwt_level_kernels_plans_by_shape(dev):
+    """Tile geometry from the shape and the bank: the cell's levels staged
+    in one tile of 16 x 32 (analysis) or 32 x 64 (synthesis) output rows x
+    columns; a 2 x 4 level in a tile cut to it; 600 trailing elements in
+    chunks; a 300-tap bank read from device memory; each bit for bit."""
+    def plan(bank, synthesis, b, rows, cols, t):
+        ints = dwt_ops.kernel_args(bank, rows, cols, synthesis)[1]
+        out = (ctypes.c_longlong * 8)()
+        _build.check(_build.load().vcf_dwt_plan(
+            int(synthesis), (ctypes.c_int * len(ints))(*ints), b, rows, cols,
+            t, out), "vcf_dwt_plan")
+        return list(out)
+
+    db5 = dwt_ops.get_bank("db5")
+    an, sy = plan(db5, False, 8, 1088, 1920, 3), plan(db5, True, 8, 544, 960,
+                                                      3)
+    assert an[:6] == [16, 32, 3, 40, 72, 1]
+    assert sy[:6] == [32, 64, 3, 21, 37, 1]
+    assert plan(db5, False, 8, 68, 120, 3)[:3] == [16, 32, 3]
+    assert plan(db5, False, 1, 2, 4, 3)[:3] == [1, 2, 3]
+    assert plan(db5, True, 1, 1, 2, 3)[:3] == [2, 4, 3]
+    chunked = plan(db5, False, 1, 8, 8, 600)
+    assert chunked[2] < 600 and chunked[5] == 1
+    rng = np.random.default_rng(3)
+    long = dwt_ops.Bank(*(rng.normal(size=n) for n in (300, 290, 301, 299)),
+                        -7, 3, -5, 2)
+    assert plan(long, False, 1, 16, 16, 3)[5] == 0
+    assert plan(long, True, 1, 8, 8, 3)[5] == 0
+    _dwt_level_equal(_dwt_signal((8, 8, 600), 1), db5, 0, dev)
+    _dwt_level_equal(_dwt_signal((16, 16, 3), 2), long, 0, dev)
+
+
+def test_dwt_level_kernels_at_the_cells_shape(dev):
+    """Five db5 levels of an 8 x 1088 x 1920 x 3 clip, the cell's shapes,
+    against the plain chain on the card."""
+    bank = dwt_ops.get_bank("db5")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cur = torch.rand((8, 1088, 1920, 3), device=dev, generator=gen) * 255 \
+        - 128
+    for _ in range(5):
+        got = dwt_ops.analyze_level(cur, bank, 1)
+        want = dwt_ops.analyze_level_ref(cur, bank, 1)
+        for g, w in zip((got[0],) + got[1], (want[0],) + want[1]):
+            assert torch.equal(_bits(g), _bits(w))
+        hw = tuple(cur.shape[1:3])
+        assert torch.equal(
+            dwt_ops.synthesize_level(got[0], got[1], bank, hw, 1),
+            dwt_ops.synthesize_level_ref(got[0], got[1], bank, hw, 1))
+        cur = got[0]
+
+
+def _plain_bank(monkeypatch):
+    monkeypatch.setattr(dwt_ops, "analyze_level", dwt_ops.analyze_level_ref)
+    monkeypatch.setattr(dwt_ops, "synthesize_level",
+                        dwt_ops.synthesize_level_ref)
+
+
+def test_dwt_clip_path_kernels_equal_the_plain_chain(dev, monkeypatch):
+    """The cell's clip path (8 HD frames, db5, 5 levels): lanes and u8
+    frames byte-identical with the plain chain's on the card, and 5
+    launches of each kernel a call."""
+    codec = Codec(CodecConfig(spatial="dwt", entropy="cgrans"), device=dev)
+    base = make_test_image(1088, 1920, seed=3)
+    clip = torch.from_numpy(np.stack([np.roll(base, (7 * i, 13 * i), (0, 1))
+                                      for i in range(8)])).to(dev)
+    shape = tuple(clip.shape[1:])
+    before = (dwk.analyze_level.launches, dwk.synthesize_level.launches)
+    lanes = codec._dwt.clip_to_lanes(codec, clip)
+    frames = codec._dwt.lanes_to_clip(codec, lanes, shape)
+    torch.cuda.synchronize()
+    assert (dwk.analyze_level.launches, dwk.synthesize_level.launches) == (
+        before[0] + 5, before[1] + 5)
+    _plain_bank(monkeypatch)
+    assert torch.equal(lanes, codec._dwt.clip_to_lanes(codec, clip))
+    assert torch.equal(frames, codec._dwt.lanes_to_clip(codec, lanes, shape))
+
+
+def test_dwt_still_device_stream_equals_the_plain_chain(dev, monkeypatch):
+    """The still DWT codec's device path (`encode_device`, the clip entries
+    with one frame) at 1088 x 1920: the same stream bytes and decoded
+    pixels with the kernels as with the plain chain."""
+    img = make_test_image(1088, 1920, seed=3)
+    codec = Codec(CodecConfig(spatial="dwt", entropy="cgrans"), device=dev)
+    blob = codec.encode(img).to_bytes()
+    rec = codec.decode(CodeStream.from_bytes(blob))
+    _plain_bank(monkeypatch)
+    assert codec.encode(img).to_bytes() == blob
+    assert np.array_equal(codec.decode(CodeStream.from_bytes(blob)), rec)

@@ -34,6 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F, _FP = ctypes.c_float, ctypes.POINTER(ctypes.c_float)
+_IP, _LLP = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)
 # both DCT entries take the DCT matrix on the host (they pass it to their
 # kernels by value)
 _DCT = [_P, _P, _FP, _P, _FP, _I, _I, _I, _I, _I, _F, _I, _I, _P]
@@ -69,6 +70,12 @@ _SIGNATURES = {
     "vcf_luma_mode": [_P, _I, _I, _I, _I, _LL, _LL, _LL, _LL],
     "vcf_luma": [_P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _F, _F, _F, _I,
                  _P],
+    # the DWT bank's taps and ints on the host (ops/dwt.py kernel_args:
+    # eight for analysis, four for synthesis), its taps also on the device
+    "vcf_dwt_plan": [_I, _IP, _I, _I, _I, _I, _LLP],
+    "vcf_dwt_analyze": [_P, _P, _P, _FP, _IP, _I, _I, _I, _I, _P],
+    "vcf_dwt_synthesize": [_P, _P, _P, _P, _P, _P, _FP, _IP, _I, _I, _I, _I,
+                           _P],
 }
 
 

@@ -30,10 +30,14 @@ depends on how it fuses, which the port does not model.  The colour
 transform around the bank is `ops.color.fma_rows`, the FMA chain of
 vcf_tpu's colour dot.
 
-A pass's lowpass and highpass chains share each gathered input and run
-as one chain over a stacked axis wherever their lengths, shifts (or
-phases) and first-pair fusing agree (`_fma_chains`: db, sym): a third
-of the launches, each element's chain unchanged.  `DWT.clip_to_lanes` /
+On the card each level is one kernel a direction (`analyze_level` /
+`synthesize_level` through `ops.cuda.dwt_kernel`, csrc/dwt.cu): the same
+chains in float32 intrinsics, bit for bit.  The torch chains are their
+plain version, which the CPU runs: there a pass's lowpass and highpass
+chains share each gathered input and run as one chain over a stacked
+axis wherever their lengths, shifts (or phases) and first-pair fusing
+agree (`_fma_chains`: db, sym), each element's chain unchanged.
+`DWT.clip_to_lanes` /
 `lanes_to_clip` run the device path on a clip of N frames, each frame's
 planes and pixels equal to the one-frame path's bit for bit; the still
 codec's device path is the clip path with N = 1.
@@ -41,8 +45,9 @@ codec's device path is the clip path with N = 1.
 `analyze_level_rows_sharded` is one analysis level with the frame's
 rows sharded over a mesh (`parallel.Mesh`): each shard's slab takes its
 `halo_sizes` rows from its ring neighbours (`parallel.dist`: a copy
-within a process, point-to-point across processes) and runs the same FMA
-chains on them, so its subbands equal `analyze_level`'s bit for bit.
+within a process, point-to-point across processes) and runs the same
+torch FMA chains on them, so its subbands equal `analyze_level`'s bit for
+bit.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from vcf_tpu_torch.codestream import CodeStream, PAYLOAD
 from vcf_tpu_torch.entropy import dwt_device as dd
 from vcf_tpu_torch.ops import color as color_ops
 from vcf_tpu_torch.ops import dct as dct_ops
+from vcf_tpu_torch.ops.cuda import _build, dwt_kernel
 from vcf_tpu_torch.utils import profiling
 from vcf_tpu_torch.utils.timing import timed_stage
 
@@ -563,9 +569,59 @@ def _up_pairs(a: torch.Tensor, bank: Bank, axis: int,
         plain0=phase % n == 0, paired=True)
 
 
+def kernel_args(bank: Bank, n_rows: int, n_cols: int,
+                synthesis: bool = False) -> tuple:
+    """(taps, ints) of one level of `bank` as the level kernels take them
+    (`ops.cuda.dwt_kernel`), its passes along n_rows and n_cols
+    (analysis: the input's H and W): the float32 taps, lowpass then
+    highpass, each in chain order; for analysis (len_lo, len_hi,
+    shift_lo, shift_hi, then `_fuses_first` of the lowpass and the
+    highpass along the rows and along the columns, which depends on each
+    pass's length), for synthesis (len_lo, len_hi, phase_lo, phase_hi),
+    whose chains fuse no first pair (one of its terms is a zero of the
+    upsampled band)."""
+    lo, hi = ((bank.rec_lo, bank.rec_hi) if synthesis
+              else (bank.dec_lo, bank.dec_hi))
+    taps = tuple(lo.tolist()) + tuple(hi.tolist())
+    if synthesis:
+        return taps, (len(lo), len(hi), bank.phase_lo, bank.phase_hi)
+    shifts = (bank.shift_lo, bank.shift_hi)
+
+    def fuses(f, shift, n):
+        return int(len(f) > 1 and _fuses_first(float(f[0]), float(f[1]),
+                                               shift % n == 0))
+
+    return taps, (len(lo), len(hi), *shifts,
+                  *(fuses(f, s, n) for n in (n_rows, n_cols)
+                    for f, s in ((lo, shifts[0]), (hi, shifts[1]))))
+
+
+def _check_float32(what: str, *tensors) -> None:
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise ValueError(f"{what}: float32 input, got {t.dtype}")
+
+
 def analyze_level(x: torch.Tensor, bank: Bank, axis: int = 0):
-    """One level over the rows at `axis` and the columns at `axis + 1`
-    (leading axes: frames, each transformed alone by the same chains)."""
+    """One level of float32 `x` over the rows at `axis` and the columns at
+    `axis + 1`, both even (leading axes: frames, each transformed alone by
+    the same chains; trailing axes: channels) -> (LL, (LH, HL, HH)): on
+    the card one kernel (`ops.cuda.dwt_kernel`), on the CPU its plain
+    version `analyze_level_ref`, bit for bit alike, in a `vcf.dwt.bank`
+    span."""
+    _check_float32("analyze_level", x)
+    _, h, w, _ = dwt_kernel.level_dims(x.shape, axis, "analyze_level")
+    if h % 2 or w % 2:
+        raise ValueError(f"analyze_level: odd length {h} x {w} at axes "
+                         f"{axis}, {axis + 1} of {tuple(x.shape)}")
+    with profiling.span("vcf.dwt.bank"):
+        if _build.runs_plain(x):
+            return analyze_level_ref(x, bank, axis)
+        return dwt_kernel.analyze_level(x, *kernel_args(bank, h, w), axis)
+
+
+def analyze_level_ref(x: torch.Tensor, bank: Bank, axis: int = 0):
+    """Plain version of `analyze_level`: the torch FMA chains."""
     return _column_bands(_down_pair(x, bank, axis), bank, axis + 1)
 
 
@@ -578,9 +634,33 @@ def _column_bands(rows: torch.Tensor, bank: Bank, col: int):
 
 def synthesize_level(ll: torch.Tensor, details, bank: Bank, out_hw,
                      axis: int = 0):
-    """Inverse of analyze_level: along the columns LL + LH -> the
-    lowpass rows and HL + HH -> the highpass rows, then along the rows
-    their sum."""
+    """Inverse of analyze_level: LL and (LH, HL, HH), float32 (..., h, w,
+    ...) on one device, `out_hw` = (2h, 2w) -> (..., 2h, 2w, ...): along
+    the columns LL + LH -> the lowpass rows and HL + HH -> the highpass
+    rows, then along the rows their sum; the kernel or its plain version
+    `synthesize_level_ref`, as `analyze_level`."""
+    bands = (ll,) + tuple(details)
+    _check_float32("synthesize_level", *bands)
+    _, h, w, _ = dwt_kernel.level_dims(ll.shape, axis, "synthesize_level")
+    if len(bands) != 4 or any(x.shape != ll.shape or x.device != ll.device
+                              for x in bands):
+        raise ValueError("synthesize_level: LL and three detail bands of "
+                         f"one shape and device, got "
+                         f"{[tuple(x.shape) for x in bands]}")
+    if tuple(out_hw) != (2 * h, 2 * w):
+        raise ValueError(f"synthesize_level: output {tuple(out_hw)} from "
+                         f"{h} x {w} bands (odd length or not twice the "
+                         "bands)")
+    with profiling.span("vcf.dwt.bank"):
+        if _build.runs_plain(ll):
+            return synthesize_level_ref(ll, details, bank, out_hw, axis)
+        return dwt_kernel.synthesize_level(
+            bands, *kernel_args(bank, 2 * h, 2 * w, synthesis=True), axis)
+
+
+def synthesize_level_ref(ll: torch.Tensor, details, bank: Bank, out_hw,
+                         axis: int = 0):
+    """Plain version of `synthesize_level`: the torch FMA chains."""
     h_out, w_out = out_hw
     cols = _up_pairs(torch.stack((ll,) + tuple(details)), bank, axis + 2,
                      w_out)
@@ -612,7 +692,10 @@ def _down_rows_from_ext(ext: torch.Tensor, filt: np.ndarray, shift: int,
 
 def analyze_level_rows_sharded(slabs: Sequence[torch.Tensor], bank: Bank,
                                mesh):
-    """One analysis level with the frame's rows sharded over `mesh`:
+    """One analysis level with the frame's rows sharded over `mesh`, by
+    the torch FMA chains on every device (its slabs are halo-extended,
+    with no periodic wrap along the rows, which the level kernel does not
+    take; no benchmark cell runs it):
     `slabs` holds each shard's (h_local, w, ...) row slab on its device
     (h_local even and >= both halos; across the mesh's processes, every
     slab the same height), in frame order.  The halos wrap around the

@@ -27,6 +27,7 @@ then the kinds of work inside them, selected by their last part:
                 layouts and K1's (L, S) copy, the IPP loop's output stacks
     vcf.rans.sync       device-to-host read-backs of the rANS wrappers
     vcf.rans.tables     pack_tables
+    vcf.dwt.bank        one level of the DWT bank (ops/cuda/dwt_kernel.py)
     vcf.ipp.luma        the IPP loop's luma chains
     vcf.ipp.pixels      its elementwise residual, reconstruction and casts
 
