@@ -177,7 +177,8 @@ Each path's launch counts are set to 0 just before it runs and read just
 after.  Any failed check raises (non-zero exit, no result).  The last
 two lines are one JSON object of kernel results (with each kernel's
 bound: the larger of its bytes over HBM's rate and its operations over
-the peak rate of their type) and one of the device.
+the float32 peak, the benchmark's yardstick `portbench.core.work`) and
+one of the device.
 """
 
 from __future__ import annotations
@@ -192,6 +193,8 @@ import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from portbench.core import work
 
 FRAMES, H, W = 8, 1088, 1920
 # the +-1 index rule of the transforms: float32 sums taken in another
@@ -287,12 +290,6 @@ FILTER_MAX_DIFF, FILTER_SHARE = 2, 1e-3
 BM3D_SHARE = 5e-4
 # 4i's IPP row: the generic loop over the first frames of the 4c clip
 GENERIC_FRAMES = 4
-# the least time the card could take (H100 SXM at its 700 W limit):
-# bytes over HBM's rate, operations over the float32 peak (the type of
-# every function replaced here).  Integer operations (the rANS kernels)
-# have no peak there: their bound counts bytes.
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
 
 
 def require(cond: bool, msg: str) -> None:
@@ -355,12 +352,12 @@ def nbytes(*tensors) -> int:
 def bound(n_bytes: float, ops: float = 0.0) -> dict:
     """bound_ms and bound_by of a kernel that moves n_bytes (each input
     read once, each output written once) and does `ops` float32
-    operations."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    if t_ops > t_bytes:
-        return {"bound_ms": t_ops, "bound_by": "operations"}
-    return {"bound_ms": t_bytes, "bound_by": "bytes"}
+    operations (the type of every function replaced here; the rANS
+    kernels' integer operations have no peak, so their bound counts
+    bytes), by the benchmark's yardstick `work.least_s`."""
+    by_ops = ops / work.FP32_OPS_PER_S > n_bytes / work.HBM_BYTES_PER_S
+    return {"bound_ms": work.least_s(n_bytes, ops) * 1e3,
+            "bound_by": "operations" if by_ops else "bytes"}
 
 
 def kernel_row(name: str, source: str, replaces: str, err, ms: float,
@@ -372,14 +369,6 @@ def kernel_row(name: str, source: str, replaces: str, err, ms: float,
             "replaces": f"vcf_tpu/ops/pallas/{replaces}", "launches": 0,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
             "library_ms": library_ms, **extra}
-
-
-def dct_ops_per_elem(b: int, perceptual: bool = False,
-                     color: bool = False) -> int:
-    """Operations per element of B1-B4 (a multiply-add counts 2): two
-    b-term passes, the quantizer's multiply and add, the perceptual
-    multiply, the 3-term colour row."""
-    return 4 * b + 2 + int(perceptual) + 5 * int(color)
 
 
 COUNTS = ("launches", "grid_launches", "generic_launches")
@@ -649,23 +638,27 @@ def phase_dct_kernels(dev, frames: np.ndarray) -> list:
 
     k1p, b1p, b2p = modes[True]
     n_el = k3.numel()
+    # B1/B2 perceptual: the benchmark's count, and 1 an element for the
+    # perceptual multiply
     rows = [
         ("fused_dct_quantize", "153", b1p,
          lambda: dk.fused_dct_quantize(ct, perceptual=True),
          lambda: dk.fused_dct_quantize_ref(ct, perceptual=True),
-         bound(nbytes(ct, k1p), n_el * dct_ops_per_elem(8, True))),
+         bound(nbytes(ct, k1p),
+               n_el * (work.dct_ops_per_elem(8, color=False) + 1))),
         ("fused_dequantize_idct", "207", b2p,
          lambda: dk.fused_dequantize_idct(k1p, perceptual=True),
          lambda: dk.fused_dequantize_idct_ref(k1p, perceptual=True),
-         bound(nbytes(k1p, ct), n_el * dct_ops_per_elem(8, True))),
+         bound(nbytes(k1p, ct),
+               n_el * (work.dct_ops_per_elem(8, color=False) + 1))),
         ("fused_cdct_quantize", "298", b3,
          lambda: dk.fused_cdct_quantize(px, mf),
          lambda: dk.fused_cdct_quantize_ref(px, mf),
-         bound(nbytes(px, k3), n_el * dct_ops_per_elem(8, color=True))),
+         bound(nbytes(px, k3), n_el * work.dct_ops_per_elem(8, color=True))),
         ("fused_dequantize_cdct", "334", b4,
          lambda: dk.fused_dequantize_cdct(k3, mi),
          lambda: dk.fused_dequantize_cdct_ref(k3, mi),
-         bound(nbytes(k3, px), n_el * dct_ops_per_elem(8, color=True))),
+         bound(nbytes(k3, px), n_el * work.dct_ops_per_elem(8, color=True))),
     ]
     results = []
     for name, line, (err, share), kern, plain, bnd in rows:
@@ -686,7 +679,8 @@ def print_plain_mode(dk, ct: torch.Tensor, k1: torch.Tensor,
     """Time B1 and B2 in plain mode (no perceptual table) on the clip's
     planes ct and B1's indexes k1, B1 also against its plain version."""
     kw = dict(grid_layout=grid_layout)
-    bnd = bound(nbytes(ct, k1), k1.numel() * dct_ops_per_elem(8))
+    bnd = bound(nbytes(ct, k1),
+                k1.numel() * work.dct_ops_per_elem(8, color=False))
     ms1 = cuda_ms(lambda: dk.fused_dct_quantize(ct, **kw), 20)
     plain1 = cuda_ms(lambda: dk.fused_dct_quantize_ref(ct, **kw), 5)
     ms2 = cuda_ms(lambda: dk.fused_dequantize_idct(k1, **kw), 20)
@@ -1838,26 +1832,31 @@ def phase_grid_kernels(dev, frames: np.ndarray, ctx_grids: dict) -> list:
     n_el = k3.numel()
     tab = 64 * 256 * 4
     k1p = b12[True][0]
+    # B1/B2 perceptual: the benchmark's count, and 1 an element for the
+    # perceptual multiply
     rows_spec = [
         ("fused_dct_quantize", "dct.cu", "dct_kernel.py:153", b12[True][1],
          lambda: dk.fused_dct_quantize(ct, perceptual=True, grid_layout=True),
          lambda: dk.fused_dct_quantize_ref(ct, perceptual=True,
                                            grid_layout=True), 20, 5,
-         bound(nbytes(ct, k1p), n_el * dct_ops_per_elem(8, True))),
+         bound(nbytes(ct, k1p),
+               n_el * (work.dct_ops_per_elem(8, color=False) + 1))),
         ("fused_dequantize_idct", "dct.cu", "dct_kernel.py:207", b12[True][2],
          lambda: dk.fused_dequantize_idct(k1p, perceptual=True,
                                           grid_layout=True),
          lambda: dk.fused_dequantize_idct_ref(k1p, perceptual=True,
                                               grid_layout=True), 20, 5,
-         bound(nbytes(k1p, ct), n_el * dct_ops_per_elem(8, True))),
+         bound(nbytes(k1p, ct),
+               n_el * (work.dct_ops_per_elem(8, color=False) + 1))),
         ("fused_cdct_quantize", "dct.cu", "dct_kernel.py:298", b3,
          lambda: dk.fused_cdct_quantize(px, mf, grid_layout=True),
          lambda: dk.fused_cdct_quantize_ref(px, mf, grid_layout=True), 20, 5,
-         bound(nbytes(px, k3), n_el * dct_ops_per_elem(8, color=True))),
+         bound(nbytes(px, k3), n_el * work.dct_ops_per_elem(8, color=True))),
         ("fused_dequantize_cdct", "dct.cu", "dct_kernel.py:334", b4,
          lambda: dk.fused_dequantize_cdct(k3, mi, grid_layout=True),
          lambda: dk.fused_dequantize_cdct_ref(k3, mi, grid_layout=True),
-         20, 5, bound(nbytes(k3, px), n_el * dct_ops_per_elem(8, color=True))),
+         20, 5,
+         bound(nbytes(k3, px), n_el * work.dct_ops_per_elem(8, color=True))),
         # the function's output is each row's prefix: n words and counts
         ("rans_compact_rows", "rans_encode.cu", "rans_encode.py:496",
          (err_rows, 0.0), lambda: re_.rans_compact_rows(raw),

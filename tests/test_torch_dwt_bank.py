@@ -1,10 +1,10 @@
 """The DWT level route (`ops.dwt.analyze_level` / `synthesize_level`) and
 its kernel wrapper (`ops.cuda.dwt_kernel`) on the CPU.
 
-- Its plain route is the torch FMA chain of `ops.dwt` (`_down_pair`,
-  `_column_bands`, `_up_pairs`), bit for bit, for every bank family, both
-  row axes, one and three trailing channels, one and three frames, and
-  levels down to 2 x 4.
+- Its plain route is the torch FMA chains of `ops.dwt`, one chain a
+  filter (`_down_pair`, `_column_bands`, `_up_pairs`), bit for bit, for
+  every bank family, both row axes, one and three trailing channels, one
+  and three frames, and levels down to 2 x 4.
 - The launch arguments derived from a bank and a level's size
   (`ops.dwt.kernel_args`): taps in chain order, lengths, shifts or
   phases, and the first-pair fusing `ops.dwt._fuses_first` gives along

@@ -96,12 +96,12 @@ def _per_filter_synthesis(ll, details, bank, axis):
             + tdwt._up_axis(hi, bank.rec_hi, bank.phase_hi, axis, h))
 
 
-# db5, sym5: one stacked chain a pass; haar, coif2: first pairs that fuse
-# apart; bior4.4: shifts apart, phases alike but lengths apart; bior1.3,
-# rbio2.4: phases apart
+# db5, sym5: one length, shift and phase; haar, coif2: first pairs that
+# fuse apart; bior4.4: shifts apart, phases alike but lengths apart;
+# bior1.3, rbio2.4: phases apart
 @pytest.mark.parametrize("name", ["db5", "sym5", "haar", "coif2", "bior4.4",
                                   "bior1.3", "rbio2.4"])
-def test_stacked_chains_equal_one_chain_a_filter(name):
+def test_plain_level_is_one_chain_a_filter(name):
     bank = tdwt.get_bank(name)
     rng = np.random.default_rng(5)
     x = torch.from_numpy((rng.random((2, 32, 48, 3)) * 255 - 128)

@@ -18,6 +18,7 @@ Tolerances, each with its reason:
 
 import ast
 import hashlib
+import importlib.util
 import subprocess
 import sys
 from pathlib import Path
@@ -353,3 +354,66 @@ def test_chip_smoke_refuses_without_cuda():
                           timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# B3 on chip_smoke's 8x3x1088x1920 clip (uint8 pixels in, uint8 indexes
+# out, 39 operations an element): bytes by a hair; a SAD-like job:
+# operations
+@pytest.mark.parametrize("n_bytes, ops, by", [
+    (2 * 50_135_040, 39 * 50_135_040, "bytes"),
+    (2 * 33_423_360, 3 * 14_680_064_000, "operations")])
+def test_chip_smoke_bound_is_the_benchmarks_yardstick(n_bytes, ops, by):
+    """chip_smoke's kernels line bounds each kernel by
+    `portbench.core.work.least_s`, the yardstick of the benchmark's
+    roofline shares, with no peak of its own."""
+    from portbench.core import work
+
+    smoke = _chip_smoke()
+    assert smoke.bound(n_bytes, ops) == {
+        "bound_ms": work.least_s(n_bytes, ops) * 1e3, "bound_by": by}
+    assert not hasattr(smoke, "HBM_BYTES_PER_S")
+    assert not hasattr(smoke, "FP32_OPS_PER_S")
+
+
+# (perceptual, colour, operations an element of chip_smoke's B1-B4 bounds
+# before they called the benchmark's count): B1/B2 perceptual, B3/B4 with
+# the colour row, B1/B2 plain
+@pytest.mark.parametrize("perceptual, color, count", [
+    (True, False, 35), (False, True, 39), (False, False, 34)])
+def test_chip_smoke_dct_ops_are_the_benchmarks(perceptual, color, count):
+    """Every DCT operation count in chip_smoke.py is
+    `portbench.core.work.dct_ops_per_elem(8, color=...)`, colour passed
+    explicitly, plus 1 an element where B1/B2 multiply by the perceptual
+    table; each kind of row keeps its count."""
+    from portbench.core import work
+
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    parents = {child: node for node in ast.walk(tree)
+               for child in ast.iter_child_nodes(node)}
+    kinds = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.FunctionDef):
+            assert node.name != "dct_ops_per_elem"
+        if not (isinstance(node, ast.Call)
+                and getattr(node.func, "attr", "") == "dct_ops_per_elem"):
+            continue
+        assert ast.unparse(node.func) == "work.dct_ops_per_elem"
+        assert [ast.literal_eval(a) for a in node.args] == [8]
+        [kw] = node.keywords
+        assert kw.arg == "color"
+        up = parents[node]
+        plus = (isinstance(up, ast.BinOp) and isinstance(up.op, ast.Add)
+                and up.left is node)
+        assert not plus or ast.literal_eval(up.right) == 1
+        kinds.add((plus, ast.literal_eval(kw.value)))
+    assert kinds == {(True, False), (False, True), (False, False)}
+    assert (perceptual, color) in kinds
+    assert work.dct_ops_per_elem(8, color=color) + int(perceptual) == count

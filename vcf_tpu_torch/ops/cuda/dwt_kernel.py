@@ -22,7 +22,7 @@ once, 8 bytes an element, with ~20 FMAs an element of db5 far below the
 float32 rate.  So each kernel (csrc/dwt.cu) stages a tile's input, halo
 included, in shared memory once, runs both passes there and writes each
 output once: one launch a level and direction (the plain version
-launches ~660 on the card) and no float64 temporaries.  The chains are
+launches hundreds on the card) and no float64 temporaries.  The chains are
 `_rn` intrinsics in `_fma_chain`'s order, so kernel and plain version
 agree bit for bit (synthesis skips the zero terms of the upsampled bands,
 which can change only the sign of a zero sum; see csrc/dwt.cu).

@@ -33,10 +33,7 @@ vcf_tpu's colour dot.
 On the card each level is one kernel a direction (`analyze_level` /
 `synthesize_level` through `ops.cuda.dwt_kernel`, csrc/dwt.cu): the same
 chains in float32 intrinsics, bit for bit.  The torch chains are their
-plain version, which the CPU runs: there a pass's lowpass and highpass
-chains share each gathered input and run as one chain over a stacked
-axis wherever their lengths, shifts (or phases) and first-pair fusing
-agree (`_fma_chains`: db, sym), each element's chain unchanged.
+plain version, which the CPU runs, one chain a filter and band.
 `DWT.clip_to_lanes` /
 `lanes_to_clip` run the device path on a clip of N frames, each frame's
 planes and pixels equal to the one-frame path's bit for bit; the still
@@ -469,42 +466,6 @@ def _fma_chain(gather, filt: np.ndarray, plain0: bool) -> torch.Tensor:
     return z
 
 
-@functools.lru_cache(maxsize=None)
-def _taps_on(filts: tuple, device: torch.device) -> tuple:
-    """The (taps, k) float32 and float64 tensors of k stacked filters on
-    `device`, made once a bank and device."""
-    t = torch.tensor(filts, dtype=torch.float32).t().contiguous()
-    return t.to(device), t.to(torch.float64).to(device)
-
-
-def _fma_chains(gather, filts, plain0: bool,
-                paired: bool = False) -> torch.Tensor:
-    """`_fma_chain` of each filter of `filts` over the same gathered
-    inputs, stacked on a new leading axis; `paired`: filter i over slice
-    i of the gathered inputs' own leading axis.  Filters of one length
-    whose first pairs fuse alike run as one chain over the stack, each
-    launch serving them all: the products broadcast the stacked taps, so
-    every element's chain is its own filter's, bit for bit.  Others run
-    one chain each."""
-    f0, f1 = ([f[i] for f in filts] for i in (0, 1))
-    fuse = {_fuses_first(a, b, plain0) for a, b in zip(f0, f1)}
-    if len({len(f) for f in filts}) > 1 or len(fuse) > 1:
-        return torch.stack([
-            _fma_chain((lambda j, i=i: gather(j)[i]) if paired else gather,
-                       f, plain0) for i, f in enumerate(filts)])
-    x0, x1 = gather(0), gather(1)
-    w32, w64 = _taps_on(tuple(tuple(f.tolist()) for f in filts), x0.device)
-    shape = (len(filts),) + (1,) * (x0.dim() - paired)
-    if fuse.pop():
-        z = fma32(x0, w64[0].view(shape), x1 * w32[1].view(shape))
-    else:
-        z = fma32(x1, w64[1].view(shape), x0 * w32[0].view(shape))
-    del x0, x1
-    for j in range(2, len(filts[0])):
-        z = fma32(gather(j), w64[j].view(shape), z)
-    return z
-
-
 def _down_axis(x: torch.Tensor, filt: np.ndarray, shift: int,
                axis: int) -> torch.Tensor:
     """a[k] = sum_j f[j] * x[(2k + j + shift) mod n] along `axis`."""
@@ -517,16 +478,9 @@ def _down_axis(x: torch.Tensor, filt: np.ndarray, shift: int,
 
 def _down_pair(x: torch.Tensor, bank: Bank, axis: int) -> torch.Tensor:
     """`_down_axis` of the lowpass and the highpass along `axis`, stacked
-    on a new leading axis; with one shift, one gather a tap serves both
-    and their chains run as one (`_fma_chains`)."""
-    if bank.shift_lo != bank.shift_hi:
-        return torch.stack([_down_axis(x, bank.dec_lo, bank.shift_lo, axis),
-                            _down_axis(x, bank.dec_hi, bank.shift_hi, axis)])
-    n, shift = x.shape[axis], bank.shift_lo
-    even = torch.arange(0, n, 2, device=x.device)
-    return _fma_chains(
-        lambda j: x.index_select(axis, (even + j + shift) % n),
-        (bank.dec_lo, bank.dec_hi), plain0=shift % n == 0)
+    on a new leading axis."""
+    return torch.stack([_down_axis(x, bank.dec_lo, bank.shift_lo, axis),
+                        _down_axis(x, bank.dec_hi, bank.shift_hi, axis)])
 
 
 def _upsampled(a: torch.Tensor, axis: int, n: int) -> torch.Tensor:
@@ -554,19 +508,12 @@ def _up_pairs(a: torch.Tensor, bank: Bank, axis: int,
               n: int) -> torch.Tensor:
     """`_up_axis` of stacked bands (leading axis) that alternate between
     the lowpass and the highpass band of a pair, each through its own
-    synthesis filter; with one phase, one gather a tap serves them all
-    and their chains run as one (`_fma_chains`)."""
+    synthesis filter and phase."""
     pairs = a.shape[0] // 2
     filts = (bank.rec_lo, bank.rec_hi) * pairs
-    if bank.phase_lo != bank.phase_hi:
-        phases = (bank.phase_lo, bank.phase_hi) * pairs
-        return torch.stack([_up_axis(b, f, p, axis - 1, n)
-                            for b, f, p in zip(a, filts, phases)])
-    up, phase = _upsampled(a, axis, n), bank.phase_lo
-    m = torch.arange(n, device=a.device)
-    return _fma_chains(
-        lambda j: up.index_select(axis, (m - j - phase) % n), filts,
-        plain0=phase % n == 0, paired=True)
+    phases = (bank.phase_lo, bank.phase_hi) * pairs
+    return torch.stack([_up_axis(b, f, p, axis - 1, n)
+                        for b, f, p in zip(a, filts, phases)])
 
 
 def kernel_args(bank: Bank, n_rows: int, n_cols: int,
@@ -627,7 +574,8 @@ def analyze_level_ref(x: torch.Tensor, bank: Bank, axis: int = 0):
 
 def _column_bands(rows: torch.Tensor, bank: Bank, col: int):
     """The column passes (columns at `col` of each row pass) of the
-    stacked (lowpass, highpass) row passes -> (LL, (LH, HL, HH))."""
+    stacked (lowpass, highpass) row passes, each row pass through both
+    column filters -> (LL, (LH, HL, HH))."""
     cols = _down_pair(rows, bank, col + 1)     # [column filter, row filter]
     return cols[0, 0], (cols[1, 0], cols[0, 1], cols[1, 1])
 
