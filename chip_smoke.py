@@ -60,7 +60,10 @@ kernels from vcf_tpu_torch/csrc on first use.  Phases:
    chain (`ops.dwt.analyze_level_ref` / `synthesize_level_ref`), timed
    beside it by CUDA events, the bound each level's input and outputs
    read and written once (the row's `ms` the five analysis levels, its
-   `synthesis_*` keys the five synthesis levels);
+   `synthesis_*` keys the five synthesis levels); and the clip path's two
+   ends (csrc/dwt_ends.cu) on that clip: colour in, the quantizer into the
+   lane grid, the dequantizer from K3's transposed view, colour out, each
+   bit for bit against its plain torch chain and timed beside it;
 4c. main path, IPP: IPPCodec(VideoConfig(mode="ipp", n_frames=8,
    gop_size=4, me_block=16, search_range=8), CodecConfig(entropy="grans",
    subbands=False), "cuda") encode -> bytes -> decode of that clip (SAD,
@@ -77,7 +80,9 @@ kernels from vcf_tpu_torch/csrc on first use.  Phases:
    launch alone; 4d: the 8-frame cgrans clip; 4e: the 1088x1920 DWT frame
    (cgrans and grans) against the port's CPU run, each encode launching
    one DWT analysis kernel a level and each decode one synthesis kernel
-   a level (the `dwt_level` row's launches), K1 (context mode,
+   a level (the `dwt_level` row's launches), and each one launch of the
+   two ends of its direction (the `dwt_color_in` ... `dwt_color_out`
+   rows' launches), K1 (context mode,
    order 0) bit-exact and timed on its (17*512, 3060) lane grid, and its
    device-resident context route (context encode -> rans_decode_ctx_grid
    -> synthesis), whose lanes equal the wire decode's, and the context
@@ -1165,6 +1170,85 @@ def dwt_row() -> dict:
     return row
 
 
+def dwt_ends_rows(frames: np.ndarray) -> list:
+    """3g: the DWT clip path's two ends (csrc/dwt_ends.cu) at the
+    dwt_wire_8f cell's shapes, db5, 8 x 1088 x 1920 x 3: colour in, the
+    quantizer into the lane grid, the dequantizer from K3's transposed view
+    of the grid, colour out; each bit for bit against its plain torch
+    chain on the card and timed beside it, the bound the bytes each reads
+    and writes once (the dequantizer reads the grid's real symbols
+    alone).  Launches are filled in from 4e."""
+    from vcf_tpu_torch import Codec, CodecConfig
+    from vcf_tpu_torch.entropy import dwt_device as dd
+    from vcf_tpu_torch.ops import dct as dct_ops
+    from vcf_tpu_torch.ops import dwt
+    from vcf_tpu_torch.ops.cuda import dwt_ends as dwe
+
+    codec = Codec(CodecConfig(spatial="dwt", entropy="cgrans"), device="cuda")
+    d, qss, off = codec._dwt, codec.config.qss, codec.spatial_offset
+    fwd, inv = d._matrix(codec, False), d._matrix(codec, True)
+    x = torch.from_numpy(frames).cuda()
+    n, shape = x.shape[0], tuple(x.shape[1:])
+    sizes = d._grid_sizes(shape)
+    sg, l = dd.grid_dims(sizes)
+    shapes = [(n,) + s for s in d._band_shapes(shape)]
+    mult = 1 << d.levels
+
+    def color_in_ref():
+        padded = dct_ops.pad_centered(x.to(torch.float32), mult, 1)
+        return d._color(codec, padded - off, False)
+
+    ct = dwe.color_in(x, fwd, off, mult)
+    bands = d.flatten(dwt.analyze(ct, d.wavelet, d.levels, 1))
+    lanes = dwe.bands_to_lanes(bands, qss, sg, l)
+    k3_view = lanes.t().contiguous().t()        # K3's (S, L) view
+    flat = dwe.lanes_to_bands(k3_view, qss, shapes)
+    y = dwt.synthesize(d.unflatten(flat), d.wavelet, 1)
+    out = dwe.color_out(y, inv, off, shape[:2])
+
+    def color_out_ref():
+        z = dct_ops.unpad_centered(d._color(codec, y, True) + off, shape, 1)
+        return torch.clamp(torch.round(z), 0, 255).to(torch.uint8)
+
+    real = n * sum(sizes)                       # symbols the grid holds
+    runs = {
+        "dwt_color_in": (lambda: dwe.color_in(x, fwd, off, mult),
+                         color_in_ref, ct, nbytes(x, ct)),
+        "dwt_quantize_grid": (
+            lambda: dwe.bands_to_lanes(bands, qss, sg, l),
+            lambda: dd.bands_to_grid(d._byte_planes(codec, bands), sg, l,
+                                     frames=n),
+            lanes, nbytes(*bands, lanes)),
+        "dwt_dequantize_grid": (
+            lambda: dwe.lanes_to_bands(k3_view, qss, shapes),
+            lambda: d._grid_flat(codec, dd.grid_to_bands(
+                k3_view, sizes, sg, frames=n), shapes),
+            flat, real + nbytes(*flat)),
+        # the float32 pixels it keeps, read once, and the u8 frames
+        "dwt_color_out": (lambda: dwe.color_out(y, inv, off, shape[:2]),
+                          color_out_ref, out, 5 * out.numel())}
+    rows = []
+    for name, (kernel, plain, got, n_bytes) in runs.items():
+        want = plain()
+        torch.cuda.synchronize()
+        pairs = zip(got, want) if isinstance(got, list) else [(got, want)]
+        n_diff = sum(int((a.view(torch.uint8) != b.view(torch.uint8)).sum())
+                     for a, b in pairs)
+        require(n_diff == 0, f"{name}: {n_diff} bytes differ from the plain "
+                "chain")
+        ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 3)
+        bnd = bound(n_bytes)
+        print(f"time {name} {tuple(x.shape)}: kernel {ms:.4f} ms, plain "
+              f"torch {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}), {ms / bnd['bound_ms']:.2f}x the bound")
+        row = kernel_row(name, "dwt_ends.cu", "", 0, ms, plain_ms, bnd,
+                         diff_share=0.0)
+        row["replaces"] = ("none: vcf_tpu/ops/dwt.py's colour, quantizer and "
+                           "byte planes are XLA ops")
+        rows.append(row)
+    return rows
+
+
 def mc_source_index(shape, mv: torch.Tensor, m: int) -> torch.Tensor:
     """The int64 flat index into (G, C, H, W) frames of every motion-
     compensated output's source (the clamped, displaced pixel)."""
@@ -1444,11 +1528,14 @@ def phase_cgrans_clip(dev, frames: np.ndarray, planes_k: torch.Tensor,
 def phase_dwt(dev, frame: np.ndarray):
     """4e: the 1088x1920 DWT still frame, cgrans and grans; each encode
     launches one DWT analysis kernel a level and each decode one
-    synthesis kernel a level.  Returns the context grid's launches, the
-    DWT grid's keys and the DWT level kernels' (analysis, synthesis)
-    launches of the two encodes and decodes."""
+    synthesis kernel a level, and each the clip path's two ends once
+    (colour in and the grid's quantizer on encode, the dequantizer and
+    colour out on decode).  Returns the context grid's launches, the DWT
+    grid's keys, the DWT level kernels' (analysis, synthesis) launches
+    and the ends' launches of the two encodes and decodes."""
     from vcf_tpu_torch import Codec, CodecConfig, CodeStream, metrics
     from vcf_tpu_torch.entropy import dwt_device as dd
+    from vcf_tpu_torch.ops.cuda import dwt_ends as dwe
     from vcf_tpu_torch.ops.cuda import dwt_kernel as dwk
     from vcf_tpu_torch.ops.cuda import rans_ctx as rc
     from vcf_tpu_torch.ops.cuda import rans_decode as rd
@@ -1463,26 +1550,34 @@ def phase_dwt(dev, frame: np.ndarray):
               "grans": ("rans_encode_grouped", "rans_compact",
                         "rans_decode_grouped")}
     bank = {"analysis": dwk.analyze_level, "synthesis": dwk.synthesize_level}
+    ends = {"dwt_color_in": dwe.color_in,
+            "dwt_quantize_grid": dwe.bands_to_lanes,
+            "dwt_dequantize_grid": dwe.lanes_to_bands,
+            "dwt_color_out": dwe.color_out}
     out, dwt_grid, bank_launches = {}, {}, [0, 0]
+    end_launches = dict.fromkeys(ends, 0)
     for ent in ("cgrans", "grans"):
         cfg = CodecConfig(spatial="dwt", qss=DWT_QSS, entropy=ent)
         codec = Codec(cfg, device=dev)
         levels = codec._dwt.levels
         for fn in kernels.values():
             fn.launches = 0
-        zero_counts(bank)
+        zero_counts({**bank, **ends})
         t0 = time.perf_counter()
         cs = codec.encode(frame)
         enc_bank = [fn.launches for fn in bank.values()]
+        enc_ends = [fn.launches for fn in ends.values()]
         blob = cs.to_bytes()
-        zero_counts(bank)
+        zero_counts({**bank, **ends})
         rec = codec.decode(CodeStream.from_bytes(blob))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         dec_bank = [fn.launches for fn in bank.values()]
+        dec_ends = [fn.launches for fn in ends.values()]
         launches = {name: fn.launches for name, fn in kernels.items()}
         print(f"dwt {ent} path: launches {launches}, DWT level kernels "
-              f"(analysis, synthesis) encode {enc_bank} decode {dec_bank}")
+              f"(analysis, synthesis) encode {enc_bank} decode {dec_bank}, "
+              f"ends {list(ends)} encode {enc_ends} decode {dec_ends}")
         for name in expect[ent]:
             require(launches[name] > 0,
                     f"kernel {name} was not launched on the DWT {ent} path")
@@ -1490,8 +1585,13 @@ def phase_dwt(dev, frame: np.ndarray):
                 f"DWT {ent}: level kernels (analysis, synthesis) launched "
                 f"{enc_bank} on encode and {dec_bank} on decode, not one a "
                 f"level ({levels})")
+        require(enc_ends == [1, 1, 0, 0] and dec_ends == [0, 0, 1, 1],
+                f"DWT {ent}: the ends {list(ends)} launched {enc_ends} on "
+                f"encode and {dec_ends} on decode, not once each")
         bank_launches = [a + e + d for a, e, d in
                          zip(bank_launches, enc_bank, dec_bank)]
+        for name, e, d in zip(ends, enc_ends, dec_ends):
+            end_launches[name] += e + d
         g, sg, l, *_, n_ctx = dd.unpack_model(cs["gdwt_model"])
         require((g, sg, l) == DWT_GRID, f"DWT grid {(g, sg, l)}")
         require(n_ctx == (4 if ent == "cgrans" else 0),
@@ -1543,7 +1643,7 @@ def phase_dwt(dev, frame: np.ndarray):
     print(f"dwt: cgrans {out['cgrans']['bpp']:.6f} bpp against grans "
           f"{out['grans']['bpp']:.6f} "
           f"({100 * (out['cgrans']['bpp'] / out['grans']['bpp'] - 1):+.2f}%)")
-    return ctx_launches, dwt_grid, bank_launches
+    return ctx_launches, dwt_grid, bank_launches, end_launches
 
 
 def dwt_k1_grid(dev, grid: torch.Tensor, model) -> dict:
@@ -3356,6 +3456,7 @@ def main() -> None:
     clip = test_video(FRAMES, H, W, seed=7)
     results += phase_motion_kernels(dev, clip)
     results.append(dwt_row())
+    results += dwt_ends_rows(frames)
     ctx_rows, ctx_words, ctx_grids = phase_ctx_kernels(dev, planes)
     results += ctx_rows
     grid_rows = phase_grid_kernels(dev, frames, ctx_grids)
@@ -3375,10 +3476,12 @@ def main() -> None:
     launches.update(ipp_launches)
     launches.update(phase_cgrans_clip(dev, frames, planes, ctx_words,
                                       grans_clip))
-    ctx_grid_launches, dwt_grid, bank_launches = phase_dwt(dev, base)
-    # the DWT level kernels run on 4e's encodes and decodes (3g times them
-    # alone)
+    ctx_grid_launches, dwt_grid, bank_launches, end_launches = phase_dwt(
+        dev, base)
+    # the DWT level kernels and the clip path's ends run on 4e's encodes and
+    # decodes (3g times them alone)
     launches["dwt_level"], dwt_synthesis_launches = bank_launches
+    launches.update(end_launches)
     phase_host_codecs(dev, base)
     # 4i's launches add to the paths' counts: srans and the generic IPP
     # loop's DWT grans still codec launch K1-K3, its P frames SAD and MC

@@ -45,6 +45,7 @@ from vcf_tpu_torch.ops import dct as dct_ops
 from vcf_tpu_torch.ops import motion
 from vcf_tpu_torch.ops.cuda import _build
 from vcf_tpu_torch.ops.cuda import dct_kernel as dk
+from vcf_tpu_torch.ops.cuda import dwt_ends as dwe
 from vcf_tpu_torch.ops.cuda import dwt_kernel as dwk
 from vcf_tpu_torch.ops.cuda import luma_kernel as lk
 from vcf_tpu_torch.ops.cuda import mc_kernel as mk
@@ -1744,3 +1745,261 @@ def test_dwt_still_device_stream_equals_the_plain_chain(dev, monkeypatch):
     _plain_bank(monkeypatch)
     assert codec.encode(img).to_bytes() == blob
     assert np.array_equal(codec.decode(CodeStream.from_bytes(blob)), rec)
+
+
+# The DWT clip path's two ends (csrc/dwt_ends.cu, ops/cuda/dwt_ends.py):
+# each kernel bit for bit against its plain torch chain in ops/dwt.py, on
+# the CPU.
+DWT_ENDS = (dwe.color_in, dwe.bands_to_lanes, dwe.lanes_to_bands,
+            dwe.color_out)
+
+
+def _end_launches():
+    return [fn.launches for fn in DWT_ENDS]
+
+
+def _dwt_codec(device, **kw):
+    return Codec(CodecConfig(spatial="dwt", entropy="cgrans", **kw),
+                 device=device)
+
+
+@pytest.mark.parametrize("color", ["ycocg", "ycrcb", "cdct", "none"])
+def test_dwt_color_in_every_rgb_triple(dev, color):
+    """The forward colour on every RGB triple, offset 128: fma_rows' float64
+    steps on the CPU against the kernel's float32 FMA chain."""
+    frame, _ = _every_rgb()
+    codec = _dwt_codec("cpu", color=color)
+    m = codec._dwt._matrix(codec, False)
+    before = dwe.color_in.launches
+    got = dwe.color_in(frame.to(dev), m, 128, 32)
+    torch.cuda.synchronize()
+    assert dwe.color_in.launches == before + 1
+    assert got.shape == (1, 4096, 4096, 3) and got.is_contiguous()
+    want = codec._dwt._color(codec, frame.to(torch.float32) - 128, False)
+    assert torch.equal(_bits(got).cpu(), _bits(want))
+
+
+def _fma_chain(px: torch.Tensor, m: np.ndarray) -> torch.Tensor:
+    """(K, 3) float32 pixels through the 3 x 3 matrix `m` as one float32
+    FMA chain a row (`ops.dwt.fma32`, exact)."""
+    rows = []
+    for r in range(3):
+        a = px[:, 0] * float(m[r, 0])
+        a = dwt_ops.fma32(px[:, 1], float(m[r, 1]), a)
+        rows.append(dwt_ops.fma32(px[:, 2], float(m[r, 2]), a))
+    return torch.stack(rows, -1)
+
+
+def _double_roundings(m: np.ndarray) -> torch.Tensor:
+    """Pixels on which `fma_rows`' float64 steps and one float32 FMA chain
+    give u8 pixels apart after + 128 and the round: for each half-integer
+    t - 128 and each side, a product x * m[r, c] next to the float32
+    midpoint beside t, and an accumulator a hair from the rest, so that
+    the float64 sum lands on the midpoint (then ties to even) while the
+    exact sum does not."""
+    m64 = np.asarray(m, np.float32).astype(np.float64)
+    t = np.repeat(np.arange(256.0) - 127.5, 2)
+    u = np.spacing(np.abs(t).astype(np.float32)).astype(np.float64)
+    target = t + np.tile([1.0, -1.0], 256) * u / 2
+    found = []
+    for r in range(3):
+        for c in (1, 2):
+            if m64[r, c] == 0 or m64[r, 0] == 0:
+                continue
+            x = (target / m64[r, c]).astype(np.float32)
+            rest = target - x.astype(np.float64) * m64[r, c]
+            for side in (np.inf, -np.inf):
+                acc = np.nextafter(rest.astype(np.float32), side)
+                x0 = (acc / m64[r, 0]).astype(np.float32)
+                ok = (x0.astype(np.float64) * m64[r, 0]).astype(
+                    np.float32) == acc
+                px = np.zeros((int(ok.sum()), 3), np.float32)
+                px[:, 0], px[:, c] = x0[ok], x[ok]
+                found.append(px)
+    px = torch.from_numpy(np.concatenate(found))
+    steps = torch.round(color_ops.fma_rows(px, m) + 128)
+    fused = torch.round(_fma_chain(px, m) + 128)
+    return px[((steps != fused) & (steps >= 0) & (steps <= 255)).any(-1)]
+
+
+@pytest.mark.parametrize("color", ["ycocg", "ycrcb", "cdct", "none"])
+def test_dwt_color_out_random_bands(dev, color):
+    """The inverse colour, offset, crop, round, clamp and u8 cast on random
+    float32 (2, 64, 96, 3) bank outputs cut to 60 x 90 and 61 x 95 (odd
+    margins), with ties of the round and, for ycrcb and cdct, pixels whose
+    float64 steps and a float32 FMA chain round to u8 values apart."""
+    codec = _dwt_codec("cpu", color=color)
+    m = codec._dwt._matrix(codec, True)
+    rng = np.random.default_rng(25)
+    x = torch.from_numpy((rng.normal(0, 90, (2, 64, 96, 3))).astype(
+        np.float32))
+    x.view(-1)[:4096] = torch.from_numpy(
+        (rng.integers(-300, 300, 4096) + 0.5).astype(np.float32))
+    if m is not None:
+        splits = _double_roundings(m)
+        assert (color == "ycocg") == (splits.shape[0] == 0)
+        x[0, 20, 10:10 + splits.shape[0]] = splits
+    for hw in ((60, 90), (61, 95), (64, 96)):
+        before = dwe.color_out.launches
+        got = dwe.color_out(x.to(dev), m, 128, hw)
+        torch.cuda.synchronize()
+        assert dwe.color_out.launches == before + 1
+        want = codec._dwt._color(codec, x, True) + 128
+        want = dct_ops.unpad_centered(want, hw, 1)
+        want = torch.clamp(torch.round(want), 0, 255).to(torch.uint8)
+        assert torch.equal(got.cpu(), want)
+
+
+def _edge_bands(rng, qss, n, sizes):
+    """Float32 bands (n frames each) of random values, exact multiples of
+    qss and their neighbours, +-0 and, in LL, values past 2^15 steps."""
+    bands = []
+    for i, m in enumerate(sizes):
+        k = rng.integers(-300, 300, n * m).astype(np.float32) * qss
+        x = rng.normal(0, 3000 if i == 0 else 200, n * m).astype(np.float32)
+        pick = rng.random(n * m)
+        x = np.where(pick < 0.3, k, x)
+        x = np.where((pick >= 0.3) & (pick < 0.4),
+                     np.nextafter(k, np.float32(-np.inf)), x)
+        x[:4] = [0.0, -0.0, qss, -qss]
+        if i == 0:
+            x[4:8] = [-40000.0 * qss, 40000.0 * qss, -(2.0 ** 24), 2.0 ** 24]
+        bands.append(torch.from_numpy(x.astype(np.float32)).view(n, m))
+    return bands
+
+
+@pytest.mark.parametrize("qss", [7, 24, 32])
+def test_dwt_quantize_grid_edge_values(dev, qss):
+    """The quantizer and byte planes into the lane grid against
+    `_byte_planes` and `bands_to_grid` on the CPU: +-0, exact multiples
+    of qss and the values just below them, LL's 16-bit wrap."""
+    from vcf_tpu_torch.entropy import dwt_device as dd
+
+    rng = np.random.default_rng(qss)
+    sizes, n, sg, l = [24, 24, 24, 24, 96, 96, 96, 1000], 3, 4, 252
+    bands = _edge_bands(rng, qss, n, sizes)
+    codec = _dwt_codec("cpu", qss=qss)
+    want = dd.bands_to_grid(codec._dwt._byte_planes(codec, bands), sg, l,
+                            frames=n)
+    before = dwe.bands_to_lanes.launches
+    got = dwe.bands_to_lanes([b.to(dev) for b in bands], qss, sg, l)
+    torch.cuda.synchronize()
+    assert dwe.bands_to_lanes.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_dwt_dequantize_grid_views(dev):
+    """The dequantizer from K3's transposed view of an (L, S) buffer, from
+    such a view 1 byte into its buffer and from a contiguous grid: the
+    mode the C entry picks equals the wrapper's mirror, and the bands
+    equal `_grid_flat` after `grid_to_bands` on the CPU."""
+    from vcf_tpu_torch.entropy import dwt_device as dd
+
+    rng = np.random.default_rng(26)
+    n, sg, l, qss = 3, 4, 252, 24
+    shapes = [(n, 2, 4, 3)] + [(n, 2, 4, 3)] * 3 + [(n, 4, 8, 3)] * 3 \
+        + [(n, 25, 13, 3)]
+    grid = torch.from_numpy(rng.integers(0, 256, ((len(shapes) + 1) * sg * n,
+                                                  l), dtype=np.uint8))
+    codec = _dwt_codec("cpu", qss=qss)
+    sizes = [int(np.prod(s[1:])) for s in shapes]
+    want = codec._dwt._grid_flat(codec, dd.grid_to_bands(
+        grid, sizes[:1] + sizes, sg, frames=n), shapes)
+    off = torch.zeros((l, grid.shape[0] + 1), dtype=torch.uint8,
+                      device=dev)
+    off[:, 1:] = grid.t().to(dev)
+    for lanes, mode in ((grid.t().contiguous().to(dev).t(), "steps"),
+                        (off[:, 1:].t(), "steps"), (grid.to(dev), "lanes")):
+        assert dwe.dequantize_mode(lanes) == mode
+        assert _build.load().vcf_dwt_dequantize_mode(*lanes.stride()) == (
+            mode == "steps")
+        before = dwe.lanes_to_bands.launches
+        got = dwe.lanes_to_bands(lanes, qss, shapes)
+        torch.cuda.synchronize()
+        assert dwe.lanes_to_bands.launches == before + 1
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.is_contiguous()
+            assert torch.equal(_bits(g).cpu(), _bits(w))
+
+
+def _sha(t: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def test_dwt_clip_ends_equal_the_cpu_path(dev):
+    """`clip_to_lanes` / `lanes_to_clip` on the card (both ends kernels)
+    on a 2-frame 1080 x 1916 clip, which pads, and a 2-frame 61 x 99 clip
+    (odd margins): the lanes' and frames' sha256 equal the plain path's
+    on the CPU; decoding K3's transposed view and a contiguous grid give
+    the same frames."""
+    base = make_test_image(1088, 1920, seed=27)
+    for h, w in ((1080, 1916), (61, 99)):
+        clip = np.stack([np.roll(base, (5 * i, 9 * i), (0, 1))[:h, :w]
+                         for i in range(2)])
+        gpu, cpu = _dwt_codec(dev), _dwt_codec("cpu")
+        shape = clip.shape[1:]
+        lanes = gpu._dwt.clip_to_lanes(gpu, torch.from_numpy(clip).to(dev))
+        lanes_c = cpu._dwt.clip_to_lanes(cpu, torch.from_numpy(clip))
+        assert _sha(lanes) == _sha(lanes_c)
+        frames = gpu._dwt.lanes_to_clip(gpu, lanes, shape)
+        frames_t = gpu._dwt.lanes_to_clip(gpu, lanes.t().contiguous().t(),
+                                          shape)
+        want = _sha(cpu._dwt.lanes_to_clip(cpu, lanes_c, shape))
+        assert _sha(frames) == _sha(frames_t) == want
+
+
+def test_dwt_clip_ends_launch_once_and_copy_no_grid(dev, tmp_path):
+    """A card call of the clip path launches 1 colour, 5 bank and 1 grid
+    kernel on encode and 1 dequantizer, 5 bank and 1 colour kernel on
+    decode, each in its `vcf.dwt.*` span and no `vcf.dwt.layout` span:
+    `layout_bytes` grows by K1's (L, S) copy alone on encode (2 bytes a
+    grid slot) and by nothing on decode."""
+    import json
+
+    from vcf_tpu_torch.entropy import dwt_device as dd
+    from vcf_tpu_torch.utils import profiling
+
+    codec = _dwt_codec(dev)
+    dwt = codec._dwt
+    clip = torch.from_numpy(np.stack([make_test_image(64, 128, seed=s)
+                                      for s in (41, 42)])).to(dev)
+    shape = tuple(clip.shape[1:])
+    lanes0 = dwt.clip_to_lanes(codec, clip)
+    g = len(dwt._grid_sizes(shape))
+    fg, cg = (torch.from_numpy(t.astype(np.int64)).to(dev)
+              for t in dd.train_ctx_tables(lanes0.cpu(), g, 4))
+    bank = (dwk.analyze_level, dwk.synthesize_level)
+    logs, launches = [], []
+    for call in ("encode", "decode"):
+        ends = _end_launches()
+        levels = [fn.launches for fn in bank]
+        with profiling.trace(str(tmp_path / call)):
+            c0 = profiling.counts()["layout_bytes"]
+            if call == "encode":
+                lanes = dwt.clip_to_lanes(codec, clip)
+                stream = rans.encode_lanes_device(lanes, fg, cg)
+            else:
+                words, n_words, counts, states = stream
+                out = rc.rans_decode_ctx(words[:int(n_words)], states, fg, cg,
+                                         lanes.shape[1], counts)
+                frames = dwt.lanes_to_clip(codec, out, shape)
+            torch.cuda.synchronize()
+            logs.append(profiling.counts()["layout_bytes"] - c0)
+        launches.append([a - b for a, b in zip(_end_launches(), ends)]
+                        + [fn.launches - b for fn, b in zip(bank, levels)])
+        with open(tmp_path / call / "trace.json") as f:
+            names = [e["name"] for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "user_annotation" and "dur" in e]
+        want = ({"vcf.dwt.analyze": 1, "vcf.dwt.bank": 5,
+                 "vcf.dwt.layout": 0, "vcf.rans.encode": 1,
+                 "vcf.rans.compact": 1}
+                if call == "encode" else
+                {"vcf.rans.decode": 1, "vcf.dwt.layout": 0,
+                 "vcf.dwt.bank": 5, "vcf.dwt.synthesize": 1})
+        assert {k: names.count(k) for k in want} == want, names
+    assert launches == [[1, 1, 0, 0, 5, 0], [0, 0, 1, 1, 0, 5]]
+    assert torch.equal(lanes, lanes0)
+    assert torch.equal(frames, dwt.lanes_to_clip(codec, lanes0, shape))
+    assert logs == [2 * lanes0.numel(), 0]

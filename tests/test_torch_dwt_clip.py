@@ -14,6 +14,10 @@ encode_lanes_device`) on the CPU.
   context stream exactly.
 - The clip path's spans open once a call, and `layout_bytes` counts its
   grid copies to the byte.
+- The card's two ends (`ops.cuda.dwt_ends`) refuse CPU tensors, wrong
+  dtypes and shapes before any launch, and launch nothing on a CPU clip;
+  the dequantizer's stride mode; the forward colour kernel's FMA chain
+  equals `fma_rows` on every u8 triple.
 """
 
 import hashlib
@@ -30,8 +34,10 @@ from vcf_tpu_torch import Codec, CodecConfig, CodeStream
 from vcf_tpu_torch.entropy import dwt_device as dd
 from vcf_tpu_torch.entropy import rans
 from vcf_tpu_torch.io import test_image as make_image
+from vcf_tpu_torch.ops import color as color_ops
 from vcf_tpu_torch.ops import dwt as tdwt
-from vcf_tpu_torch.ops.cuda import rans_ctx
+from vcf_tpu_torch.ops.cuda import _build, rans_ctx
+from vcf_tpu_torch.ops.cuda import dwt_ends as dwe
 from vcf_tpu_torch.utils import profiling
 
 REPO = Path(__file__).resolve().parents[1]
@@ -237,3 +243,121 @@ def test_clip_spans_open_once_a_call_and_layout_bytes_count_the_copies(
     # encode: the planes' symbols read, the grid written once; decode:
     # K3's transposed (S, L) view copied once, read and written
     assert logs == [real + grid_bytes, 2 * grid_bytes]
+
+
+# The clip path's two ends as kernels (ops.cuda.dwt_ends): CUDA tensors
+# only; a CPU clip takes the torch chains above.
+ENDS = (dwe.color_in, dwe.bands_to_lanes, dwe.lanes_to_bands, dwe.color_out)
+
+
+def _end_calls(frames, bands, lanes, x):
+    """One call of each end's wrapper."""
+    m = np.eye(3, dtype=np.float32)
+    return {"color_in": lambda: dwe.color_in(frames, m, 128, 32),
+            "bands_to_lanes": lambda: dwe.bands_to_lanes(bands, 32, 8, 16),
+            "lanes_to_bands": lambda: dwe.lanes_to_bands(
+                lanes, 32, [tuple(b.shape) for b in bands]),
+            "color_out": lambda: dwe.color_out(x, m, 128, (30, 60))}
+
+
+def _end_inputs():
+    bands = [torch.zeros((2, 4, 8, 3)) for _ in range(4)]
+    return (torch.zeros((2, 30, 60, 3), dtype=torch.uint8), bands,
+            torch.zeros((5 * 8 * 2, 16), dtype=torch.uint8),
+            torch.zeros((2, 32, 64, 3)))
+
+
+@pytest.mark.parametrize("end", ["color_in", "bands_to_lanes",
+                                 "lanes_to_bands", "color_out"])
+def test_dwt_ends_refuse_cpu_tensors(end):
+    before = [fn.launches for fn in ENDS]
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _end_calls(*_end_inputs())[end]()
+    assert [fn.launches for fn in ENDS] == before
+
+
+@pytest.mark.parametrize("end,args,what", [
+    ("color_in", "float frames", "torch.uint8 input"),
+    ("color_in", "4 channels", "3 channels"),
+    ("color_in", "2-D frames", r"\(N, H, W\)"),
+    ("bands_to_lanes", "float64 bands", "torch.float32 input"),
+    ("bands_to_lanes", "L = 18", "multiple of 4"),
+    ("lanes_to_bands", "int16 lanes", "torch.uint8 input"),
+    ("lanes_to_bands", "41 lanes", "groups"),
+    ("color_out", "u8 input", "torch.float32 input"),
+    ("color_out", "1 channel", "3 channels"),
+    ("color_out", "larger frames", "frames from")])
+def test_dwt_ends_refuse_dtypes_and_shapes(monkeypatch, end, args, what):
+    """Each wrapper checks its input before any launch (the C entries are
+    not reached: no library is loaded here)."""
+    monkeypatch.setattr(_build, "runs_plain", lambda t: False)
+    monkeypatch.setattr(_build, "load", lambda: pytest.fail("launched"))
+    frames, bands, lanes, x = _end_inputs()
+    m = np.eye(3, dtype=np.float32)
+    calls = {
+        "float frames": lambda: dwe.color_in(frames.float(), m, 128, 32),
+        "4 channels": lambda: dwe.color_in(
+            torch.zeros((2, 30, 60, 4), dtype=torch.uint8), m, 128, 32),
+        "2-D frames": lambda: dwe.color_in(frames[0, :, :, 0], None, 128,
+                                           32),
+        "float64 bands": lambda: dwe.bands_to_lanes(
+            [b.double() for b in bands], 32, 8, 16),
+        "L = 18": lambda: dwe.bands_to_lanes(bands, 32, 8, 18),
+        "int16 lanes": lambda: dwe.lanes_to_bands(
+            lanes.to(torch.int16), 32, [tuple(b.shape) for b in bands]),
+        "41 lanes": lambda: dwe.lanes_to_bands(
+            lanes[:41], 32, [tuple(b.shape) for b in bands]),
+        "u8 input": lambda: dwe.color_out(x.to(torch.uint8), m, 128,
+                                          (30, 60)),
+        "1 channel": lambda: dwe.color_out(x[..., :1], m, 128, (30, 60)),
+        "larger frames": lambda: dwe.color_out(x, m, 128, (33, 60))}
+    before = [fn.launches for fn in ENDS]
+    with pytest.raises(ValueError, match=what):
+        calls[args]()
+    assert [fn.launches for fn in ENDS] == before
+
+
+@pytest.mark.parametrize("layout,mode", [("contiguous", "lanes"),
+                                         ("K3's transposed view", "steps"),
+                                         ("rows of a wider buffer", "lanes")])
+def test_dwt_dequantize_mode_follows_the_strides(layout, mode):
+    """The dequantizer stages its tiles along the steps for K3's (S, L)
+    view of an (L, S) buffer, along the lanes otherwise."""
+    grid = {"contiguous": torch.zeros((40, 16), dtype=torch.uint8),
+            "K3's transposed view": torch.zeros((16, 40),
+                                                dtype=torch.uint8).t(),
+            "rows of a wider buffer": torch.zeros((40, 20),
+                                                  dtype=torch.uint8)[:, :16]
+            }[layout]
+    assert dwe.dequantize_mode(grid) == mode
+
+
+def test_clip_path_launches_no_kernel_on_the_cpu():
+    codec = _codec()
+    clip = torch.from_numpy(_clip(2, 64, 128, seed=43))
+    before = [fn.launches for fn in ENDS]
+    lanes = codec._dwt.clip_to_lanes(codec, clip)
+    codec._dwt.lanes_to_clip(codec, lanes.t().contiguous().t(),
+                             clip.shape[1:])
+    assert [fn.launches for fn in ENDS] == before
+
+
+@pytest.mark.parametrize("color", ["ycocg", "ycrcb", "cdct"])
+def test_color_in_chain_is_fma_rows_on_every_u8_triple(color):
+    """The forward colour kernel's chain, fma(x2, m2, fma(x1, m1, x0 *
+    m0)) in float32 (here `ops.dwt.fma32`, exact), equals `fma_rows`'
+    float64 steps on every RGB triple less the offset 128: on these
+    integers the float64 sums are exact."""
+    m = color_ops.MATRICES[color][0]
+    step = 1 << 22
+    for start in range(0, 1 << 24, step):
+        v = torch.arange(start, start + step, dtype=torch.int64)
+        x = torch.stack([(v >> 16) & 255, (v >> 8) & 255, v & 255],
+                        -1).to(torch.float32) - 128
+        want = color_ops.fma_rows(x, m)
+        for r in range(3):
+            z = x[:, 0] * float(m[r, 0])
+            z = tdwt.fma32(x[:, 1], float(m[r, 1]), z)
+            z = tdwt.fma32(x[:, 2], float(m[r, 2]), z)
+            assert torch.equal(z.view(torch.int32),
+                               want[:, r].contiguous().view(torch.int32))

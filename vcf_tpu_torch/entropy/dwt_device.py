@@ -14,6 +14,11 @@ A clip of N frames (`ops.dwt.DWT.clip_to_lanes`) keeps one frame's lane
 grid shape and stacks the frames inside each group: group i holds band
 i's lanes of frame 0, then of frame 1, ... (`bands_to_grid`), so the
 grid is (G * sg * N, L) and one frame is the still codec's grid.
+`bands_to_grid` and `grid_to_bands` (and its copy of K3's transposed
+grid) are the plain versions of the clip path's two grid ends: on the
+card `ops.cuda.dwt_ends` quantizes the bands straight into the grid and
+dequantizes them from the grid where it lies, so neither copy is made
+there.
 
 Order 0 runs K1 + K2 and K3; the order-1 context tables (`cgrans`) run
 the context modes of K1 and K3 with K2 (`entropy.rans`).  A clip's

@@ -35,6 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F, _FP = ctypes.c_float, ctypes.POINTER(ctypes.c_float)
 _IP, _LLP = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)
+_PP = ctypes.POINTER(ctypes.c_void_p)
 # both DCT entries take the DCT matrix on the host (they pass it to their
 # kernels by value)
 _DCT = [_P, _P, _FP, _P, _FP, _I, _I, _I, _I, _I, _F, _I, _I, _P]
@@ -76,6 +77,15 @@ _SIGNATURES = {
     "vcf_dwt_analyze": [_P, _P, _P, _FP, _IP, _I, _I, _I, _I, _P],
     "vcf_dwt_synthesize": [_P, _P, _P, _P, _P, _P, _FP, _IP, _I, _I, _I, _I,
                            _P],
+    # the DWT clip path's two ends: colour matrices (or null) and the bands'
+    # pointers and lengths on the host
+    "vcf_dwt_color_in": [_P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _I, _I,
+                         _FP, _F, _P],
+    "vcf_dwt_color_out": [_P, _P, _I, _I, _I, _I, _I, _I, _FP, _F, _P],
+    "vcf_dwt_quantize_grid": [_PP, _IP, _I, _I, _I, _I, _F, _P, _P],
+    "vcf_dwt_dequantize_mode": [_LL, _LL],
+    "vcf_dwt_dequantize_grid": [_P, _LL, _LL, _IP, _I, _I, _I, _I, _F, _P,
+                                _P],
 }
 
 

@@ -37,7 +37,10 @@ plain version, which the CPU runs, one chain a filter and band.
 `DWT.clip_to_lanes` /
 `lanes_to_clip` run the device path on a clip of N frames, each frame's
 planes and pixels equal to the one-frame path's bit for bit; the still
-codec's device path is the clip path with N = 1.
+codec's device path is the clip path with N = 1.  On the card their two
+ends are kernels too (`ops.cuda.dwt_ends`, csrc/dwt_ends.cu): colour in,
+quantizer and byte planes into the lane grid, the dequantizer read from
+the grid and colour out, bit for bit with the torch chains here.
 
 `analyze_level_rows_sharded` is one analysis level with the frame's
 rows sharded over a mesh (`parallel.Mesh`): each shard's slab takes its
@@ -60,7 +63,7 @@ from vcf_tpu_torch.codestream import CodeStream, PAYLOAD
 from vcf_tpu_torch.entropy import dwt_device as dd
 from vcf_tpu_torch.ops import color as color_ops
 from vcf_tpu_torch.ops import dct as dct_ops
-from vcf_tpu_torch.ops.cuda import _build, dwt_kernel
+from vcf_tpu_torch.ops.cuda import _build, dwt_ends, dwt_kernel
 from vcf_tpu_torch.utils import profiling
 from vcf_tpu_torch.utils.timing import timed_stage
 
@@ -741,12 +744,19 @@ class DWT:
     # Device math shared by both paths
     # ------------------------------------------------------------------
     @staticmethod
-    def _color(codec, x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    def _matrix(codec, inverse: bool):
+        """The configured colour matrix (forward or inverse), None for
+        color="none"."""
         name = codec.config.color
         name = "ycocg" if name == "ycocg_r" else name
         if name == "none":
-            return x.to(torch.float32)
-        return color_ops.fma_rows(x, color_ops.MATRICES[name][int(inverse)])
+            return None
+        return color_ops.MATRICES[name][int(inverse)]
+
+    @staticmethod
+    def _color(codec, x: torch.Tensor, inverse: bool) -> torch.Tensor:
+        m = DWT._matrix(codec, inverse)
+        return x.to(torch.float32) if m is None else color_ops.fma_rows(x, m)
 
     def _analysis(self, codec, img: np.ndarray) -> list:
         """u8 image -> the flat float32 subbands, coarsest first."""
@@ -899,19 +909,30 @@ class DWT:
 
     def clip_to_lanes(self, codec, frames: torch.Tensor) -> torch.Tensor:
         """A clip's lane grid: u8 frames (N, H, W, 3) on the device ->
-        colour -> the bank -> the deadzone quantizer -> byte planes (in a
-        `vcf.dwt.analyze` span) -> the (G * sg * N, L) u8 lanes of
-        `entropy.dwt_device.bands_to_grid`, (sg, L) from one frame's
-        subband sizes.  Each frame's planes equal `_grid_bands`' of that
-        frame alone, bit for bit: the chains are elementwise over the
-        frame axis."""
+        colour -> the bank -> the deadzone quantizer -> byte planes -> the
+        (G * sg * N, L) u8 lanes of `entropy.dwt_device.bands_to_grid`,
+        (sg, L) from one frame's subband sizes, all in a `vcf.dwt.analyze`
+        span.  Each frame's planes equal `_grid_bands`' of that frame
+        alone, bit for bit: the chains are elementwise over the frame axis.
+        On the card the two ends are kernels (`ops.cuda.dwt_ends`: the
+        colour with the cast, pad and offset; the quantizer and byte
+        planes written straight into the grid), so `bands_to_grid`'s copy
+        is not made; a CPU clip takes their plain versions, the torch
+        chains and `bands_to_grid`."""
         if codec.config.quantizer != "deadzone":
             raise ValueError("the DWT lane grid takes the deadzone "
                              f"quantizer, not {codec.config.quantizer!r}")
+        sg, l = dd.grid_dims(self._grid_sizes(frames.shape[1:]))
         with profiling.span("vcf.dwt.analyze"):
+            if not _build.runs_plain(frames):
+                x = dwt_ends.color_in(frames, self._matrix(codec, False),
+                                      codec.spatial_offset, 1 << self.levels)
+                bands = self.flatten(analyze(x, self.wavelet, self.levels,
+                                             axis=1))
+                del x
+                return dwt_ends.bands_to_lanes(bands, codec.config.qss, sg, l)
             planes = self._byte_planes(codec,
                                        self._bands(codec, frames, axis=1))
-        sg, l = dd.grid_dims(self._grid_sizes(frames.shape[1:]))
         return dd.bands_to_grid(planes, sg, l, frames=frames.shape[0])
 
     def lanes_to_clip(self, codec, lanes: torch.Tensor, shape
@@ -919,14 +940,26 @@ class DWT:
         """Inverse of clip_to_lanes: (G * sg * N, L) u8 lanes -> the u8
         frames (N, H, W, C) of one frame's `shape` (H, W, C), on the
         lanes' device; dequantizer, bank and colour in a
-        `vcf.dwt.synthesize` span."""
+        `vcf.dwt.synthesize` span.  On the card the dequantizer reads the
+        grid where it lies (K3's transposed view included) and the inverse
+        colour writes the u8 frames (`ops.cuda.dwt_ends`), so
+        `grid_to_bands`' copy is not made; a CPU grid takes the plain
+        versions."""
         sizes = self._grid_sizes(shape)
         sg, _ = dd.grid_dims(sizes)
         n = lanes.shape[0] // (len(sizes) * sg)
+        shapes = [(n,) + s for s in self._band_shapes(shape)]
+        if not _build.runs_plain(lanes):
+            with profiling.span("vcf.dwt.synthesize"):
+                flat = dwt_ends.lanes_to_bands(lanes, codec.config.qss,
+                                               shapes)
+                ct = synthesize(self.unflatten(flat), self.wavelet, axis=1)
+                del flat
+                return dwt_ends.color_out(ct, self._matrix(codec, True),
+                                          codec.spatial_offset, shape[:2])
         bands = dd.grid_to_bands(lanes, sizes, sg, frames=n)
         with profiling.span("vcf.dwt.synthesize"):
-            flat = self._grid_flat(codec, bands, [
-                (n,) + s for s in self._band_shapes(shape)])
+            flat = self._grid_flat(codec, bands, shapes)
             return self._pixels(codec, flat, shape, axis=1)
 
     def encode_device(self, codec, img: np.ndarray) -> CodeStream:
